@@ -1,0 +1,40 @@
+"""Carry a reference index's state into the port.
+
+The reference's ``CodeStore.state()`` (and its ``rr_`` rerank prefix), or
+a reference-saved npz, holds nothing JAX-specific: numpy arrays plus a
+JSON-able meta record.  These helpers turn them into the port's objects
+so both packages can run on the same codes and Eq. 1 constants.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core.quant import QuantParams
+from repro_torch.device import to_tensor
+from repro_torch.knn.flat import FlatIndex
+
+
+def quant_params_from_numpy(lo: np.ndarray, hi: np.ndarray, zero: np.ndarray,
+                            bits: int, scheme: str,
+                            device="cpu") -> QuantParams:
+    """Eq. 1 constants (numpy [d] f32 each) -> the port's ``QuantParams``."""
+    def t(a):
+        return to_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    return QuantParams(lo=t(lo), hi=t(hi), zero=t(zero), bits=int(bits),
+                       scheme=str(scheme))
+
+
+def flat_from_reference_state(arrays: dict[str, np.ndarray],
+                              meta: dict[str, Any], device) -> FlatIndex:
+    """A reference flat index's (arrays, meta) -> the port's ``FlatIndex``.
+
+    ``meta`` needs ``metric`` and the ``store`` record (plus ``rr_store``
+    for ``+rN`` builds), as ``FlatIndex.save`` / ``CodeStore.state`` write
+    them; array values may be numpy arrays or anything ``np.asarray`` takes.
+    """
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return FlatIndex.from_state(arrays, meta, device=device)

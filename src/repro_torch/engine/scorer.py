@@ -1,0 +1,231 @@
+"""The scoring engine's query hot path (port of the main-path half of
+``repro.engine.scorer``).
+
+``topk`` / ``topk_among`` / ``make_score_set`` own metric x bits dispatch,
+chunking, invalid-id masking and streaming top-k; index classes hold
+structure and delegate every score here.
+
+Dispatch (metric x storage), by the store's device:
+
+    storage          ip / l2 on CUDA        ip / l2 on CPU    angular
+    fp32             B2 fused_topk (f32)    scan              scan
+    int8             B2 fused_topk (int8)   scan              scan
+    int4 packed      B3 fused_topk4         scan              scan
+
+A CUDA store with metric ip or l2 always runs B2 or B3, whatever its size
+(the reference's ``store.n > tile`` and backend gate is a TPU-versus-
+interpret switch and does not carry over).  A CPU store always runs the
+plain scan, whose stats equal the reference's scan branch exactly.
+Nothing catches a kernel failure to fall back to the scan.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import distances as D
+from repro_torch.core import pack as PK
+from repro_torch.engine.store import CodeStore
+from repro_torch.kernels import fused_topk as _fused
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.ref import NEG, stable_desc
+
+ScoreSet = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# generic streaming machinery
+# --------------------------------------------------------------------------
+
+def merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
+    """Merge two [Q, ka]/[Q, kb] candidate sets into the best k (stable:
+    on equal scores the earlier set, then the earlier column, wins)."""
+    s = torch.cat([scores_a, scores_b], dim=-1)
+    i = torch.cat([ids_a, ids_b], dim=-1)
+    pos = stable_desc(s, k)
+    return torch.gather(s, -1, pos), torch.gather(i, -1, pos)
+
+
+def pad_rows(a: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+    """Zero-pad rows to a multiple; engine paths id-mask the pad rows."""
+    n = a.shape[0]
+    target = -(-n // multiple) * multiple
+    if target == n:
+        return a, n
+    return torch.nn.functional.pad(a, (0, 0, 0, target - n)), n
+
+
+def remap_ids(ids: torch.Tensor, id_map: torch.Tensor) -> torch.Tensor:
+    """Gather ``id_map[ids]`` with -1 (no hit) passed through."""
+    safe = torch.clamp(ids, 0, id_map.shape[0] - 1).long()
+    return torch.where(ids >= 0, id_map[safe].to(torch.int32), -1)
+
+
+def _stream_topk(q, data, k, chunk, n_valid, tile_scores, mask=None):
+    """THE streaming top-k loop: scores ``data`` in ``chunk``-row tiles
+    through ``tile_scores(q, tile)`` with a running [Q, k] best set
+    (``merge_topk``), id-masking rows >= ``n_valid`` and rows whose
+    optional [n] ``mask`` is False at the source."""
+    Q = q.shape[0]
+    dev = data.device
+    best_s = torch.full((Q, k), NEG, dtype=torch.float32, device=dev)
+    best_i = torch.full((Q, k), -1, dtype=torch.int32, device=dev)
+    allowed = None if mask is None else mask.to(device=dev, dtype=torch.bool)
+    for start in range(0, max(data.shape[0], 1), chunk):
+        tile = data[start:start + chunk]
+        s = tile_scores(q, tile).to(torch.float32)
+        gid = torch.arange(start, start + tile.shape[0], dtype=torch.int32,
+                           device=dev)[None, :]
+        ok = gid < n_valid
+        if allowed is not None:
+            ok = ok & allowed[start:start + tile.shape[0]][None, :]
+        s = torch.where(ok, s, NEG)
+        ids = torch.where(ok, gid.expand_as(s), -1)
+        best_s, best_i = merge_topk(best_s, best_i, s, ids, k)
+    return best_s, best_i
+
+
+def chunked_topk(queries, corpus, k: int, score_fn, chunk: int = 16384,
+                 n_valid: int | None = None, mask=None):
+    """Exact top-k of ``score_fn(queries, corpus)`` without materializing
+    [Q, N]: the generic score-fn entry over ``_stream_topk``."""
+    n_valid = corpus.shape[0] if n_valid is None else n_valid
+
+    def tile_scores(q, tile):
+        return score_fn(q, tile).to(torch.float32)
+
+    return _stream_topk(queries, corpus, k, chunk, n_valid, tile_scores,
+                        mask=mask)
+
+
+# --------------------------------------------------------------------------
+# stats: uniform per-search accounting for SearchResult.stats
+# --------------------------------------------------------------------------
+
+def search_stats(store, *, candidates: int, chunks: int,
+                 rows_read: int) -> dict[str, Any]:
+    """The uniform accounting block every kind reports (candidates per
+    query, corpus tiles touched, payload bytes for the whole batch)."""
+    return {
+        "candidates": int(candidates),
+        "chunks": int(chunks),
+        "bytes_read": int(rows_read) * store.row_bytes,
+        "bits": int(getattr(store, "bits", 8)),
+        "packed": bool(getattr(store, "packed", False)),
+    }
+
+
+def make_score_set(store: CodeStore, metric: str) -> ScoreSet:
+    """(query [d], ids [m]) -> larger-is-closer [m] f32 over store rows."""
+
+    def score_set(q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        vecs = store.take(ids)
+        return D.scores(q[None], vecs, metric,
+                        quantized=store.quantized)[0].to(torch.float32)
+
+    return score_set
+
+
+# --------------------------------------------------------------------------
+# full-corpus top-k
+# --------------------------------------------------------------------------
+
+def _scan_topk(q, store: CodeStore, k: int, metric: str, chunk: int,
+               mask=None):
+    """The plain scan: ``_stream_topk`` over the store's tiles, unpacking
+    int4 chunk by chunk (the full-width corpus never materializes)."""
+
+    def tile_scores(qq, tile):
+        rows = PK.unpack_int4(tile) if store.packed else tile
+        return D.scores(qq, rows, metric, quantized=store.quantized)
+
+    return _stream_topk(q, store.data, k, chunk, store.n, tile_scores,
+                        mask=mask)
+
+
+def topk(queries, store: CodeStore, k: int, metric: str, *,
+         chunk: int = 16384, prepared: bool = False, mask=None):
+    """Exact top-k of the whole store: (scores [Q, k] f32, ids, stats).
+
+    When k > n the tail is padded with (NEG, -1).  ``prepared=True`` means
+    ``queries`` are already in the store's code space.  ``chunk`` sizes the
+    scan's chunks.  An optional [n] ``mask`` (True = allowed) rides the
+    id-masking fence on every path.  ``stats["tuned"]`` is always False:
+    the tuning tables are not ported.
+    """
+    q = (queries.to(store.device) if prepared
+         else store.encode_queries(queries))
+    k_eff = min(k, store.n)
+    if store.device.type == "cuda" and metric in ("ip", "l2"):
+        s, i = K.fused_topk(q, store.data, k_eff, metric,
+                            packed=store.packed, mask=mask)
+        chunks = -(-store.n // _fused.BN)
+        # pass 1 re-streams the corpus once per query block
+        bq = K.fused_query_tile(k_eff, q.shape[0])
+        passes = max(1, -(-q.shape[0] // bq))
+    else:
+        s, i = _scan_topk(q, store, k_eff, metric, chunk, mask)
+        chunks = max(1, -(-store.n // chunk))
+        passes = 1                       # one scan, all queries resident
+
+    if k_eff < k:                        # uniform [Q, k] contract: -1 pads
+        s = torch.nn.functional.pad(s, (0, k - k_eff), value=NEG)
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=-1)
+    if store.base:
+        i = torch.where(i >= 0, i + store.base, -1)
+    stats = search_stats(store, candidates=store.n, chunks=chunks,
+                         rows_read=store.n * passes)
+    stats["tuned"] = False
+    return s, i, stats
+
+
+# --------------------------------------------------------------------------
+# candidate-set top-k and the rerank tail
+# --------------------------------------------------------------------------
+
+def topk_among(q_codes, store: CodeStore, cand_ids, k: int, metric: str,
+               mask=None):
+    """Top-k restricted to per-query candidate lists.
+
+    q_codes [Q, d_eff] prepared queries; cand_ids [Q, L] (-1 = empty
+    slot).  Gathers store rows (unpacking int4 only for what was gathered),
+    scores them batched (``D.scores_among``), masks empties, returns
+    ([Q, k], [Q, k]); ties go to the earlier candidate slot.
+    """
+    L = cand_ids.shape[1]
+    k_eff = min(k, L)
+    cand_ids = cand_ids.to(store.device)
+    ok = cand_ids >= 0
+    safe = torch.where(ok, cand_ids, 0).long()
+    if mask is not None:
+        ok = ok & mask.to(device=store.device, dtype=torch.bool)[safe]
+    rows = store.take(safe)                              # [Q, L, d]
+    s = D.scores_among(q_codes, rows, metric, quantized=store.quantized)
+    s = torch.where(ok, s.to(torch.float32), NEG)
+    pos = stable_desc(s, k_eff)
+    s = torch.gather(s, 1, pos)
+    i = torch.where(s > NEG, torch.gather(cand_ids, 1, pos),
+                    -1).to(torch.int32)
+    if k_eff < k:
+        s = torch.nn.functional.pad(s, (0, k - k_eff), value=NEG)
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=-1)
+    if store.base:
+        i = torch.where(i >= 0, i + store.base, -1)
+    return s, i
+
+
+def rerank_among(queries, store: CodeStore, cand_ids, k: int, metric: str,
+                 mask=None):
+    """Re-score candidate ids against a higher-precision store (the
+    Searcher's rerank tail).  Returns (scores, ids, stats delta)."""
+    q = store.encode_queries(queries)
+    s, i = topk_among(q, store, cand_ids, k, metric, mask)
+    depth = int(cand_ids.shape[1])
+    stats = {
+        "reranked": depth,
+        "rerank_bits": int(store.bits),
+        "rerank_bytes": int(cand_ids.shape[0]) * depth * store.row_bytes,
+    }
+    return s, i, stats

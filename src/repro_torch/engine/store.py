@@ -1,0 +1,151 @@
+"""Corpus storage for the scoring engine: ``CodeStore`` (port of
+``repro.engine.store``; ``PQStore`` comes with the PQ slice).
+
+A ``CodeStore`` owns one corpus payload at any precision the paper's Eq. 1
+family supports — fp32 vectors, int8 codes, or bit-packed int4 codes (two
+per byte, ``core.pack``) — plus the quantization constants and a row-id
+``base``.  ``memory_bytes()`` is the honest Table-1/2 accounting.
+
+Odd dimensions under packing: the store pads codes with one zero-code
+column before packing and ``encode_queries`` appends the matching zero
+column, so scores are unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import pack as PK
+from repro_torch.core import quant as Qz
+from repro_torch.device import to_tensor
+
+
+#: codeword index widths the PQ store takes (the grammar validates them;
+#: ``PQStore`` itself comes with the PQ slice)
+PQ_CODE_BITS = (4, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodeStore:
+    """One corpus, one precision, one id space."""
+
+    n: int
+    d: int                    # logical dim
+    bits: int                 # 32 == fp32
+    packed: bool
+    data: torch.Tensor        # [N, d] f32 | [N, d_eff] int8 | [N, d_eff/2] u8
+    params: Optional[Qz.QuantParams]
+    base: int = 0
+
+    # -- construction ------------------------------------------------------
+    @staticmethod
+    def dense(vectors, base: int = 0, device=None) -> "CodeStore":
+        """fp32 storage (the unquantized arm)."""
+        vectors = to_tensor(vectors, device=device, dtype=torch.float32)
+        n, d = vectors.shape
+        return CodeStore(n=n, d=d, bits=32, packed=False, data=vectors,
+                         params=None, base=base)
+
+    @staticmethod
+    def from_codes(codes: torch.Tensor, params: Qz.QuantParams, *,
+                   pack: bool = False, base: int = 0) -> "CodeStore":
+        """Wrap already-encoded integer codes; optionally bit-pack int4."""
+        n, d = codes.shape
+        if pack:
+            assert params.bits == 4, "packing is the 4-bit storage layout"
+            if d % 2:
+                codes = torch.nn.functional.pad(codes, (0, 1))  # zero-code column
+            codes = PK.pack_int4(codes)
+        return CodeStore(n=n, d=d, bits=params.bits, packed=pack,
+                         data=codes.contiguous(), params=params, base=base)
+
+    # -- shape/metadata ----------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def quantized(self) -> bool:
+        return self.bits < 32
+
+    @property
+    def d_eff(self) -> int:
+        """Code width after the even-dim pad (== d unless packed odd-d)."""
+        return self.data.shape[1] * 2 if self.packed else self.data.shape[1]
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of payload read to score one corpus row."""
+        return int(self.data.shape[1]) * self.data.element_size()
+
+    def memory_bytes(self) -> int:
+        """Payload + Eq. 1 constants — the Table 1/2 memory column."""
+        total = int(self.data.numel()) * self.data.element_size()
+        if self.params is not None:
+            total += 3 * self.d * 4                        # lo / hi / zero f32
+        return total
+
+    # -- views -------------------------------------------------------------
+    def encode_queries(self, queries) -> torch.Tensor:
+        """h(q) of Definition 2: map queries into the store's code space
+        (B1 on the card); queries move to the store's device explicitly."""
+        from repro_torch.kernels import ops as K
+
+        q = to_tensor(queries, device=self.device, dtype=torch.float32)
+        if not self.quantized:
+            return q
+        p = self.params
+        q = K.quantize(q, p.lo, p.hi, p.zero, bits=p.bits)
+        if self.packed and self.d_eff != self.d:
+            q = torch.nn.functional.pad(q, (0, self.d_eff - self.d))
+        return q
+
+    def unpacked(self) -> torch.Tensor:
+        """Full-width payload view ([N, d_eff]); unpacks int4 on the fly."""
+        return PK.unpack_int4(self.data) if self.packed else self.data
+
+    def take(self, ids: torch.Tensor) -> torch.Tensor:
+        """Gather rows by id at full width (unpacks only what was gathered)."""
+        rows = self.data[ids]
+        return PK.unpack_int4(rows) if self.packed else rows
+
+    # -- disk round-trip fragments ----------------------------------------
+    def state(self, prefix: str = "") -> tuple[dict[str, Any], dict[str, Any]]:
+        """Serializable (arrays, meta) fragments, keyed as the reference's
+        (``{prefix}data``, ``{prefix}q_lo|q_hi|q_zero``, ``{prefix}store``)."""
+        arrays: dict[str, Any] = {f"{prefix}data": self.data}
+        meta: dict[str, Any] = {
+            f"{prefix}store": {"n": self.n, "d": self.d, "bits": self.bits,
+                               "packed": self.packed, "base": self.base,
+                               "quant": None},
+        }
+        if self.params is not None:
+            arrays.update({f"{prefix}q_lo": self.params.lo,
+                           f"{prefix}q_hi": self.params.hi,
+                           f"{prefix}q_zero": self.params.zero})
+            meta[f"{prefix}store"]["quant"] = {"bits": self.params.bits,
+                                               "scheme": self.params.scheme}
+        return arrays, meta
+
+    @staticmethod
+    def from_state(arrays: dict[str, Any], meta: dict[str, Any],
+                   prefix: str = "", device=None) -> "CodeStore":
+        sm = meta[f"{prefix}store"]
+        params = None
+        if sm["quant"] is not None:
+            params = Qz.QuantParams(
+                lo=to_tensor(arrays[f"{prefix}q_lo"], device=device),
+                hi=to_tensor(arrays[f"{prefix}q_hi"], device=device),
+                zero=to_tensor(arrays[f"{prefix}q_zero"], device=device),
+                bits=int(sm["quant"]["bits"]),
+                scheme=str(sm["quant"]["scheme"]),
+            )
+        return CodeStore(
+            n=int(sm["n"]), d=int(sm["d"]), bits=int(sm["bits"]),
+            packed=bool(sm["packed"]),
+            data=to_tensor(arrays[f"{prefix}data"], device=device).contiguous(),
+            params=params, base=int(sm["base"]),
+        )

@@ -1,0 +1,93 @@
+"""kind -> implementation registry and the ``make_index`` / ``load_index``
+entry points (port of ``repro.knn.registry``).
+
+Only ``flat`` is ported.  Every other kind the grammar parses raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  Entry
+points run on the card by default: ``device=None`` resolves to ``cuda``
+and raises when no CUDA device exists; pass ``device="cpu"`` to run on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.knn.spec import IndexSpec, as_spec
+
+_REGISTRY: dict[str, type] = {}
+
+#: parsed kinds that are not ported yet -> the ROADMAP queue A item
+NOT_PORTED = {
+    "hnsw": "queue A6 (graph kinds)",
+    "graph": "queue A6 (graph kinds)",
+    "ivf": "queue A7 (knn/ivf.py)",
+    "pq": "queue A8 (knn/pq.py, kernels B4/B5)",
+    "stream": "queue A10 (stream/)",
+    "cascade": "queue A11 (cascade/)",
+}
+
+
+def register(kind: str):
+    """Class decorator: register an Index implementation under ``kind``."""
+
+    def deco(cls):
+        cls.kind = kind
+        _REGISTRY[kind] = cls
+        return cls
+
+    return deco
+
+
+def _ensure_registered() -> None:
+    from repro_torch.knn import flat  # noqa: F401  (kind "flat")
+
+
+def kinds() -> tuple[str, ...]:
+    _ensure_registered()
+    return tuple(sorted(_REGISTRY))
+
+
+def get_impl(kind: str) -> type:
+    _ensure_registered()
+    if kind in NOT_PORTED:
+        raise NotImplementedError(
+            f"index kind {kind!r} is not ported to repro_torch yet: "
+            f"ROADMAP {NOT_PORTED[kind]}"
+        )
+    if kind not in _REGISTRY:
+        raise KeyError(f"no index registered for kind {kind!r}; have {kinds()}")
+    return _REGISTRY[kind]
+
+
+def make_index(
+    spec: IndexSpec | str,
+    corpus,
+    *,
+    metric: Optional[str] = None,
+    key=None,
+    device=None,
+    **overrides,
+):
+    """Build any ported index from an ``IndexSpec`` or factory string.
+
+    ``corpus`` (numpy or tensor, [N, d]) is moved to ``device`` (default:
+    the GPU).  ``metric`` is the default for factory strings (a metric
+    fragment wins) and an explicit override for IndexSpec inputs.
+    """
+    resolved = as_spec(spec, metric=metric)
+    if metric is not None and isinstance(spec, IndexSpec):
+        resolved = dataclasses.replace(resolved, metric=metric)
+    if overrides:
+        resolved = resolved.with_overrides(**overrides)
+    return get_impl(resolved.kind).build(corpus, resolved, key=key,
+                                         device=device)
+
+
+def load_index(path, *, device=None):
+    """Load a saved index (either package's npz), dispatching on the
+    recorded kind, onto ``device`` (default: the GPU)."""
+    from repro_torch.knn import base
+
+    meta = base.load_meta(path)
+    return get_impl(meta["kind"]).load(path, device=device)
