@@ -1,9 +1,10 @@
 """Carry a reference index's state into the port.
 
-The reference's ``CodeStore.state()`` (and its ``rr_`` rerank prefix), or
-a reference-saved npz, holds nothing JAX-specific: numpy arrays plus a
-JSON-able meta record.  These helpers turn them into the port's objects
-so both packages can run on the same codes and Eq. 1 constants.
+The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
+``rr_`` rerank prefix), or a reference-saved npz, holds nothing
+JAX-specific: numpy arrays plus a JSON-able meta record.  These helpers
+turn them into the port's objects so both packages can run on the same
+codes, codebooks and Eq. 1 constants.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 from repro_torch.core.quant import QuantParams
 from repro_torch.device import to_tensor
 from repro_torch.knn.flat import FlatIndex
+from repro_torch.knn.pq import PQIndex
 
 
 def quant_params_from_numpy(lo: np.ndarray, hi: np.ndarray, zero: np.ndarray,
@@ -38,3 +40,16 @@ def flat_from_reference_state(arrays: dict[str, np.ndarray],
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return FlatIndex.from_state(arrays, meta, device=device)
+
+
+def pq_from_reference_state(arrays: dict[str, np.ndarray],
+                            meta: dict[str, Any], device) -> PQIndex:
+    """A reference PQ index's (arrays, meta) -> the port's ``PQIndex``.
+
+    ``meta`` needs ``metric`` and the ``store`` record (plus ``rr_store``
+    for ``,r32`` / ``,r8`` builds), as ``PQIndex.save`` /
+    ``PQStore.state`` write them: codes, codebooks and the rerank store
+    carry across as numpy arrays.
+    """
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return PQIndex.from_state(arrays, meta, device=device)

@@ -30,13 +30,12 @@
 //
 // Order: (f32 score desc under the IEEE total order, row id asc), the
 // reference's (`_merge_tile` takes the first position on ties; `lax.top_k`
-// is stable).  A (score, id) pair is one 64-bit key: the order-preserving
-// bits of the f32 score above ~id, so larger key = better and no two rows
-// tie.  Integer scores are cast to f32 before the key is made, as the
-// reference casts before its merge (fused_topk.py:123): above 2^24,
-// distinct int32 scores that round to one f32 become ties broken by id.
-// Key 0 is "no candidate" and decodes to (float32 min, -1), the
-// reference's sentinel for pad rows, masked rows and k > n_valid.
+// is stable).  The candidate buffers, their 64-bit (score, ~id) keys, the
+// bitonic compaction and pass 2 live in topk_common.cuh, shared with the
+// ADC scans (adc.cu).  Integer scores are cast to f32 before the key is
+// made, as the reference casts before its merge (fused_topk.py:123): above
+// 2^24, distinct int32 scores that round to one f32 become ties broken by
+// id.
 //
 // Arithmetic: int8 and unpacked int4 dots are __dp4a with int32
 // accumulation (exact); f32 dots are FFMA (no TF32); l2 is
@@ -57,35 +56,18 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "topk_common.cuh"
+
 namespace {
 
-constexpr int NT = 256;                 // threads per block
-constexpr int ROW_LANES = 64;           // threads sharing one query group
+// NT (256 threads) and ROW_LANES (64 threads sharing one query group) come
+// from topk_common.cuh
 constexpr int TR = 4;                   // corpus rows per thread per tile
 constexpr int BN = ROW_LANES * TR;      // 256 corpus rows per tile
 constexpr int DK = 32;                  // 32-bit words per d-chunk
 constexpr int XS_STRIDE = DK + 1;       // odd stride: conflict-free rows
-constexpr float NEG = -3.40282346638528859812e+38f;  // float32 min
 
 enum Kind { KIND_F32 = 0, KIND_I8 = 1, KIND_I4 = 2 };
-
-typedef unsigned long long u64;
-
-__device__ __forceinline__ u64 make_key(float s, long long id) {
-  unsigned int u = __float_as_uint(s);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((u64)u << 32) | (u64)(~(unsigned int)id);
-}
-
-__device__ __forceinline__ float key_score(u64 key) {
-  unsigned int u = (unsigned int)(key >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ int key_id(u64 key) {
-  return (int)(~(unsigned int)(key & 0xffffffffull));
-}
 
 // word w (4 int8 values, little-endian) of an int8 row of `width` bytes,
 // zero past the end of the row
@@ -199,57 +181,17 @@ __device__ __forceinline__ float finish(int dot, int qn, int xn, bool l2) {
   return __int2float_rn(-(qn + xn - 2 * dot));
 }
 
-// Block-wide: for each of the nq buffers whose count exceeds `limit`
-// (limit < 0: all of them), sort the buffer descending and keep its best
-// k; the k-th key becomes the threshold.  Every thread must call it.
-__device__ void compact(u64* buf, u64* thresh, int* cnt, int* need, int nq,
-                        int cap, int k, int limit) {
-  __syncthreads();
-  if ((int)threadIdx.x < nq) need[threadIdx.x] = cnt[threadIdx.x] > limit;
-  __syncthreads();
-  bool any = false;
-  for (int i = 0; i < nq; ++i) any |= need[i] != 0;
-  if (!any) return;
-  for (int e = threadIdx.x; e < nq * cap; e += blockDim.x) {
-    const int qi = e / cap;
-    if (need[qi] && e - qi * cap >= cnt[qi]) buf[e] = 0ull;
-  }
-  __syncthreads();
-  const int half = cap >> 1;
-  for (int size = 2; size <= cap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int e = threadIdx.x; e < nq * half; e += blockDim.x) {
-        const int qi = e / half;
-        if (!need[qi]) continue;
-        const int i = e - qi * half;
-        const int lo = 2 * stride * (i / stride) + (i % stride);
-        const int hi = lo + stride;
-        const bool desc = (lo & size) == 0;
-        u64* b = buf + (long long)qi * cap;
-        const u64 a = b[lo], c = b[hi];
-        if (desc ? (a < c) : (a > c)) {
-          b[lo] = c;
-          b[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if ((int)threadIdx.x < nq && need[threadIdx.x]) {
-    const int c = min(cnt[threadIdx.x], k);
-    cnt[threadIdx.x] = c;
-    if (c >= k) thresh[threadIdx.x] = buf[(long long)threadIdx.x * cap + k - 1];
-  }
-  __syncthreads();
-}
-
 size_t split_smem_bytes(int bq, int cap) {
   return (size_t)bq * cap * 8 + (size_t)bq * 8 + (size_t)BN * XS_STRIDE * 4 +
          (size_t)bq * DK * 4 + (size_t)BN * 4 + (size_t)bq * 4 * 3;
 }
 
+// At most 128 registers a thread, so that two blocks fit on an SM: the
+// layout's shared memory (about 100 KB a block up to k = 400) allows two.
+// Left free, nvcc gave the packed-int4 ip variant at BQ = 8 (k = 400) 169
+// registers, one block per SM, and 1.4x the time.
 template <int KIND, bool L2, int BQ>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
                   const void* __restrict__ x, const int8_t* __restrict__ mask,
                   u64* __restrict__ part, int Q, long long N, int width,
@@ -376,65 +318,16 @@ split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         const int qi = qg * TQ + i;
-        if (ok_row && q_base + qi < Q) {
-          const float s = finish(acc[i][j], qn[qi], xn[r], L2);
-          const u64 key = make_key(s, row);
-          if (key > thresh[qi]) {
-            const int pos = atomicAdd(&cnt[qi], 1);
-            buf[(size_t)qi * cap + pos] = key;
-          }
-        }
+        if (ok_row && q_base + qi < Q)
+          offer(buf, thresh, cnt, qi, cap,
+                make_key(finish(acc[i][j], qn[qi], xn[r], L2), row));
       }
       compact(buf, thresh, cnt, need, BQ, cap, k, cap - ROW_LANES);
     }
   }
 
-  compact(buf, thresh, cnt, need, BQ, cap, k, -1);
-  for (int e = tid; e < BQ * k; e += NT) {
-    const int qi = e / k, j = e % k;
-    const int q = q_base + qi;
-    if (q < Q)
-      part[((size_t)q * n_splits + split) * k + j] =
-          j < cnt[qi] ? buf[(size_t)qi * cap + j] : 0ull;
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-merge_topk_kernel(const u64* __restrict__ part, float* __restrict__ out_s,
-                  int* __restrict__ out_i, int n_splits, int k, int cap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* buf = reinterpret_cast<u64*>(smem);   // [cap]
-  u64* thresh = buf + cap;                   // [1]
-  int* cnt = reinterpret_cast<int*>(thresh + 1);
-  int* need = cnt + 1;
-  const int q = blockIdx.x;
-  const long long total = (long long)n_splits * k;
-  const u64* src = part + (size_t)q * total;
-  if (threadIdx.x == 0) {
-    cnt[0] = 0;
-    thresh[0] = 0ull;
-  }
-  __syncthreads();
-  for (long long base = 0; base < total; base += NT) {
-    const long long e = base + threadIdx.x;
-    if (e < total) {
-      const u64 key = src[e];
-      if (key > thresh[0]) buf[atomicAdd(&cnt[0], 1)] = key;
-    }
-    compact(buf, thresh, cnt, need, 1, cap, k, cap - NT);
-  }
-  compact(buf, thresh, cnt, need, 1, cap, k, -1);
-  for (int j = threadIdx.x; j < k; j += NT) {
-    const u64 key = j < cnt[0] ? buf[j] : 0ull;
-    out_s[(size_t)q * k + j] = key ? key_score(key) : NEG;
-    out_i[(size_t)q * k + j] = key ? key_id(key) : -1;
-  }
-}
-
-int next_pow2(int v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
+  flush_partial(buf, thresh, cnt, need, BQ, cap, k, part, q_base, Q, split,
+                n_splits);
 }
 
 template <int KIND, bool L2, int BQ>
@@ -516,14 +409,5 @@ extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-
-  const int merge_cap = next_pow2(k + NT);
-  const size_t smem = (size_t)merge_cap * 8 + 8 + 8;
-  err = cudaFuncSetAttribute(merge_topk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  merge_topk_kernel<<<Q, NT, smem, st>>>(p, (float*)out_s, (int*)out_i,
-                                         n_splits, k, merge_cap);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(p, out_s, out_i, Q, n_splits, k, st);
 }

@@ -3,14 +3,16 @@ query hot path every index calls."""
 
 from repro_torch.engine.scorer import (  # noqa: F401
     NEG,
+    build_pq_lut,
     chunked_topk,
     make_score_set,
     merge_topk,
     pad_rows,
+    quantize_pq_lut,
     remap_ids,
     rerank_among,
     search_stats,
     topk,
     topk_among,
 )
-from repro_torch.engine.store import CodeStore  # noqa: F401
+from repro_torch.engine.store import PQ_CODE_BITS, CodeStore, PQStore  # noqa: F401

@@ -11,12 +11,17 @@ Dispatch (metric x storage), by the store's device:
     fp32             B2 fused_topk (f32)    scan              scan
     int8             B2 fused_topk (int8)   scan              scan
     int4 packed      B3 fused_topk4         scan              scan
+    PQ, int8 LUT     B4 fused_adc           ADC scan          ValueError
+    PQx4, int8 LUT   B5 fused_adc4          ADC scan          ValueError
+    PQ, fp32 LUT     ADC scan               ADC scan          ValueError
 
-A CUDA store with metric ip or l2 always runs B2 or B3, whatever its size
+A CUDA store with metric ip or l2 always runs B2-B5, whatever its size
 (the reference's ``store.n > tile`` and backend gate is a TPU-versus-
 interpret switch and does not carry over).  A CPU store always runs the
-plain scan, whose stats equal the reference's scan branch exactly.
-Nothing catches a kernel failure to fall back to the scan.
+plain scan, whose stats equal the reference's scan branch exactly.  An
+fp32-LUT PQ store takes the streaming gather-sum ADC scan on every device,
+as in the reference, where no TPU kernel takes it either.  Nothing catches
+a kernel failure to fall back to the scan.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 
 from repro_torch.core import distances as D
 from repro_torch.core import pack as PK
-from repro_torch.engine.store import CodeStore
+from repro_torch.engine.store import CodeStore, PQStore
+from repro_torch.kernels import adc as _adc
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import NEG, stable_desc
@@ -145,16 +151,19 @@ def _scan_topk(q, store: CodeStore, k: int, metric: str, chunk: int,
                         mask=mask)
 
 
-def topk(queries, store: CodeStore, k: int, metric: str, *,
+def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
          chunk: int = 16384, prepared: bool = False, mask=None):
     """Exact top-k of the whole store: (scores [Q, k] f32, ids, stats).
 
     When k > n the tail is padded with (NEG, -1).  ``prepared=True`` means
-    ``queries`` are already in the store's code space.  ``chunk`` sizes the
-    scan's chunks.  An optional [n] ``mask`` (True = allowed) rides the
+    ``queries`` are already in the store's code space (a ``PQStore`` takes
+    raw queries either way: its LUT is their code space).  ``chunk`` sizes
+    the scan's chunks.  An optional [n] ``mask`` (True = allowed) rides the
     id-masking fence on every path.  ``stats["tuned"]`` is always False:
     the tuning tables are not ported.
     """
+    if isinstance(store, PQStore):
+        return _topk_pq_stats(queries, store, k, metric, chunk, mask)
     q = (queries.to(store.device) if prepared
          else store.encode_queries(queries))
     k_eff = min(k, store.n)
@@ -176,6 +185,123 @@ def topk(queries, store: CodeStore, k: int, metric: str, *,
     if store.base:
         i = torch.where(i >= 0, i + store.base, -1)
     stats = search_stats(store, candidates=store.n, chunks=chunks,
+                         rows_read=store.n * passes)
+    stats["tuned"] = False
+    return s, i, stats
+
+
+# --------------------------------------------------------------------------
+# PQ: ADC — fused kernel (B4 / B5) or streaming LUT gather-sum scan
+# --------------------------------------------------------------------------
+
+def build_pq_lut(queries, store: PQStore, metric: str) -> torch.Tensor:
+    """Per-query ADC lookup table [Q, M, K] f32 of query-to-codeword
+    scores (K = ``store.n_codewords``): ip, or negated squared L2.
+
+    The d/M terms of each entry are summed one elementwise step at a time,
+    in dimension order, so a query's table is the same bits whatever batch
+    it rides in (a padded Searcher bucket or a one-shot call): a batched
+    GEMM may block, and so round, differently as the batch's row count
+    changes.  Full fp32 on every device."""
+    q = queries.to(device=store.device, dtype=torch.float32)
+    Q, d = q.shape
+    qs = q.reshape(Q, store.m, d // store.m)
+    acc = None
+    for t in range(qs.shape[2]):
+        qt = qs[:, :, t, None]                          # [Q, M, 1]
+        ct = store.codebooks[None, :, :, t]             # [1, M, K]
+        term = qt * ct if metric == "ip" else (qt - ct) * (qt - ct)
+        acc = term if acc is None else acc + term
+    return acc if metric == "ip" else -acc
+
+
+def quantize_pq_lut(lut: torch.Tensor) -> torch.Tensor:
+    """The paper's after-the-codebook composition (``lpq_tables``): Eq. 1
+    abs-max quantization of the LUT entries to int8, one scale **per
+    query** (over that query's [M, K] table), in the reference's operation
+    order: divide by the abs-max, times 127, round half to even, clip.
+    Per-query scaling keeps a query's quantized LUT independent of batch
+    composition: a Searcher pad row (whose negated-L2 table is large)
+    cannot move a real query's scale."""
+    amax = torch.clamp_min(torch.amax(torch.abs(lut), dim=(1, 2),
+                                      keepdim=True), 1e-12)
+    return torch.clamp(torch.round(lut / amax * 127.0), -128,
+                       127).to(torch.int8)
+
+
+def _prepare_pq_lut(queries, store: PQStore, metric: str) -> torch.Tensor:
+    """The per-batch ADC table build: ``build_pq_lut`` plus — for
+    ``lpq_tables`` stores — the Eq. 1 int8 quantization.  The one function
+    both the one-shot and the Searcher path build their tables through."""
+    lut = build_pq_lut(queries, store, metric)
+    return quantize_pq_lut(lut) if store.lpq_tables else lut
+
+
+def _pq_fused(store: PQStore, metric: str) -> bool:
+    """B4 / B5 take a CUDA store with int8 LUTs and metric ip or l2; every
+    other PQ store takes the streaming gather-sum scan."""
+    return (store.device.type == "cuda" and store.lpq_tables
+            and metric in ("ip", "l2"))
+
+
+def _topk_pq(queries, store: PQStore, k: int, metric: str, chunk: int,
+             mask=None):
+    """Asymmetric distance computation over the code matrix: the per-query
+    LUT, then ``_topk_pq_from_lut``."""
+    lut = _prepare_pq_lut(queries, store, metric)
+    return _topk_pq_from_lut(lut, store, k, metric, chunk, mask=mask)
+
+
+def _topk_pq_from_lut(lut, store: PQStore, k: int, metric: str, chunk: int,
+                      mask=None):
+    """Top-k of the whole code matrix given the [Q, M, K] LUT: the fused
+    kernel (``_pq_fused``: int8 LUT resident in shared memory, 4-bit codes
+    split in registers, int32 sums, running top-k — the [Q, N] ADC matrix
+    never exists) or the streaming scan (``_stream_topk`` over code chunks
+    with a gather-sum tile, unpacking 4-bit codes chunk by chunk).  Both
+    give the same result, bit for bit, on an int8 LUT."""
+    n = store.n
+    k_eff = min(k, n)
+    if _pq_fused(store, metric):
+        return K.fused_adc_topk(lut, store.codes, k_eff, packed=store.packed,
+                                mask=mask)
+    ilut = lut.to(torch.int32) if store.lpq_tables else lut
+
+    def tile_scores(lt, tile_codes):                    # [c, Mb] -> [Q, c]
+        rows = (PK.unpack_uint4(tile_codes)[:, : store.m]
+                if store.packed else tile_codes)
+        idx = rows.T[None].to(torch.int64)              # [1, M, c]
+        return torch.sum(torch.take_along_dim(lt, idx, dim=2), dim=1,
+                         dtype=lt.dtype).to(torch.float32)
+
+    return _stream_topk(ilut, store.codes, k_eff, chunk, n, tile_scores,
+                        mask=mask)
+
+
+def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
+                   mask=None):
+    """``topk``'s PQStore branch: (scores, ids, stats) padded to [Q, k]."""
+    if metric == "angular":
+        raise ValueError(
+            "PQ/ADC scoring supports ip and l2 only (see the dispatch "
+            "table in this module's docstring)"
+        )
+    Q = queries.shape[0]
+    s, i = _topk_pq(queries, store, k, metric, chunk, mask=mask)
+    if s.shape[1] < k:                   # uniform [Q, k] contract: -1 pads
+        s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG)
+        i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
+    if _pq_fused(store, metric):
+        n_chunks = -(-store.n // _adc.BN)
+        # the fused grid re-streams the code matrix once per query block
+        # (the LUTs are what stay resident, not the codes)
+        bq = K.fused_adc_query_tile(min(k, store.n), store.row_bytes,
+                                    store.bits, Q)
+        passes = max(1, -(-Q // bq))
+    else:
+        n_chunks = max(1, -(-store.n // chunk))
+        passes = 1
+    stats = search_stats(store, candidates=store.n, chunks=n_chunks,
                          rows_read=store.n * passes)
     stats["tuned"] = False
     return s, i, stats

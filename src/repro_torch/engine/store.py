@@ -1,5 +1,5 @@
-"""Corpus storage for the scoring engine: ``CodeStore`` (port of
-``repro.engine.store``; ``PQStore`` comes with the PQ slice).
+"""Corpus storage for the scoring engine: ``CodeStore`` and ``PQStore``
+(port of ``repro.engine.store``).
 
 A ``CodeStore`` owns one corpus payload at any precision the paper's Eq. 1
 family supports — fp32 vectors, int8 codes, or bit-packed int4 codes (two
@@ -23,8 +23,8 @@ from repro_torch.core import quant as Qz
 from repro_torch.device import to_tensor
 
 
-#: codeword index widths the PQ store takes (the grammar validates them;
-#: ``PQStore`` itself comes with the PQ slice)
+#: codeword index widths PQStore supports: 4-bit (16-codeword codebooks,
+#: codes packed two per byte) and 8-bit (256 codewords, one byte each)
 PQ_CODE_BITS = (4, 8)
 
 
@@ -148,4 +148,82 @@ class CodeStore:
             packed=bool(sm["packed"]),
             data=to_tensor(arrays[f"{prefix}data"], device=device).contiguous(),
             params=params, base=int(sm["base"]),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PQStore:
+    """Product-quantization storage: codewords + per-subspace codebooks.
+
+    ``bits`` is the codeword index width.  At 8 bits, ``codes`` is
+    [N, M] uint8 into 256-codeword codebooks; at 4 bits, codebooks hold
+    16 codewords and codes are bit-packed two per byte —
+    [N, ceil(M/2)] uint8 via :func:`repro_torch.core.pack.pack_uint4` (odd
+    M pads a zero-code column; the ADC side pads its LUT with a zero
+    subspace slice, so scores are unchanged).
+    """
+
+    n: int
+    m: int                    # subspaces
+    lpq_tables: bool
+    codes: torch.Tensor       # [N, M] uint8 | [N, ceil(M/2)] uint8 packed
+    codebooks: torch.Tensor   # [M, 2^bits, d/M] f32
+    bits: int = 8
+
+    def __post_init__(self):
+        if self.bits not in PQ_CODE_BITS:
+            raise ValueError(
+                f"PQ codeword width must be one of {PQ_CODE_BITS} bits "
+                f"(16- or 256-codeword codebooks), got {self.bits}"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def packed(self) -> bool:
+        """Whether codes are stored two-per-byte (the 4-bit layout)."""
+        return self.bits == 4
+
+    @property
+    def n_codewords(self) -> int:
+        return 2 ** self.bits
+
+    def unpacked_codes(self) -> torch.Tensor:
+        """[N, M] codeword-index view; unpacks the 4-bit layout on the fly."""
+        if not self.packed:
+            return self.codes
+        return PK.unpack_uint4(self.codes)[:, : self.m]
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of code payload read to score one corpus row."""
+        return int(self.codes.shape[1])
+
+    @property
+    def code_bytes(self) -> int:
+        """Bytes of the code matrix alone (the Table-1 codes column)."""
+        return int(self.codes.numel())
+
+    def memory_bytes(self) -> int:
+        return self.code_bytes + int(self.codebooks.numel()) * 4
+
+    def state(self) -> tuple[dict[str, Any], dict[str, Any]]:
+        """Serializable (arrays, meta), keyed as the reference's."""
+        arrays = {"codes": self.codes, "codebooks": self.codebooks}
+        meta = {"store": {"n": self.n, "m": self.m, "bits": self.bits,
+                          "lpq_tables": self.lpq_tables}}
+        return arrays, meta
+
+    @staticmethod
+    def from_state(arrays: dict[str, Any], meta: dict[str, Any],
+                   device=None) -> "PQStore":
+        sm = meta["store"]
+        return PQStore(
+            n=int(sm["n"]), m=int(sm["m"]), lpq_tables=bool(sm["lpq_tables"]),
+            codes=to_tensor(arrays["codes"], device=device).contiguous(),
+            codebooks=to_tensor(arrays["codebooks"], device=device,
+                                dtype=torch.float32).contiguous(),
+            bits=int(sm.get("bits", 8)),       # early saves: 8-bit codes
         )

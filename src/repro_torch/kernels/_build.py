@@ -44,6 +44,12 @@ SIGNATURES = {
         "rt_fused_topk": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _L, _I, _I, _I, _P], _I),
     },
+    "adc": {
+        # kbits, bq, cap, lut0, lut1, codes, mask, part, out_s, out_i,
+        # Q, N, mb, k, n_splits, stream
+        "rt_fused_adc": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _L, _I, _I, _I, _P], _I),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -1,0 +1,168 @@
+"""B4 and B5: fused ADC scan + running top-k over PQ codes (port of the TPU
+kernels ``repro.kernels.adc.fused_adc_pallas`` / ``fused_adc4_pallas``).
+
+``fused_adc_cuda`` (256-codeword codebooks, one uint8 code per subspace)
+and ``fused_adc4_cuda`` (16-codeword codebooks, codes packed two per byte)
+launch ``csrc/adc.cu`` for CUDA tensors; a CPU tensor takes the plain
+version beside each, and only because it lies on the CPU.  A CUDA tensor
+either launches the kernel or raises: nothing falls back.
+
+Contract (B2's, the reference's): ([Q, k] f32 scores, [Q, k] i32 ids)
+sorted best-first by (f32-cast int32 score desc, id asc); rows whose
+optional [N] ``mask`` is 0 never appear, and slots without a candidate
+hold (float32 min, -1).  The plain versions sum the LUT subspace by
+subspace into one [Q, N] int32 accumulator: the reference oracle
+``adc_ref`` gathers a [Q, M, N] tensor, 128 GB at Q=256, M=32, N=4M,
+where this needs 4 GB.  Integer sums do not depend on order, so the two
+agree bit for bit.  The kernel's design notes are in the CUDA source.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_topk as _fused
+
+#: query rows per block when the LUTs and buffers fit: 16, else 8, else 4
+BQ = _fused.BQ
+#: code rows per pass-1 tile (``BN`` in the CUDA source)
+BN = 256
+#: 32-bit code words staged per chunk (``DKC`` in the CUDA source)
+_DKC = 8
+#: dynamic shared memory one block may use on the H100 (227 KB)
+SMEM_MAX = 232448
+K_MAX = _fused.K_MAX
+
+#: kernel launches on CUDA tensors, per variant (plain versions do not count)
+LAUNCHES = {"fused_adc": 0, "fused_adc4": 0}
+
+
+def smem_bytes(bq: int, cap: int, code_bytes: int, kbits: int) -> int:
+    """Shared memory of one pass-1 block (``split_smem_bytes`` in the CUDA
+    source): candidate buffers and thresholds, the block's LUTs over the
+    subspaces the staged code words hold, the code tile, counters."""
+    s_pad = -(-code_bytes // 4) * (32 // kbits)
+    return (bq * cap * 8 + bq * 8 + s_pad * bq * (1 << kbits)
+            + BN * (_DKC + 1) * 4 + bq * 8)
+
+
+def query_tile(k: int, code_bytes: int, kbits: int, q: int = BQ) -> int:
+    """Query rows per block: the largest of 16 / 8 / 4 whose LUTs and
+    ``split_cap(k)`` buffers fit in shared memory (a batch of at most 4
+    queries takes 4).  Raises when even 4 do not fit: the LUT of one query
+    is M*K bytes, so a very wide M at 256 codewords is out of reach."""
+    cap = _fused.split_cap(k)
+    for bq in (16, 8, 4):
+        if (bq == 4 or q > 4) and smem_bytes(bq, cap, code_bytes,
+                                             kbits) <= SMEM_MAX:
+            return bq
+    raise ValueError(
+        f"fused_adc: {code_bytes} code bytes a row at {2 ** kbits} codewords "
+        f"and k={k} need {smem_bytes(4, cap, code_bytes, kbits)} bytes of "
+        f"shared memory for 4 queries; the H100 gives a block {SMEM_MAX}")
+
+
+def n_splits(q: int, n: int, bq: int) -> int:
+    """Corpus ranges pass 1 splits the scan into (blocks along y), as B2."""
+    qblocks = -(-q // bq)
+    s = -(-_fused._TARGET_BLOCKS // qblocks)
+    return max(1, min(s, -(-n // _fused._MIN_SPLIT_ROWS), 65535))
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def fused_adc_plain(lut2d, codes, *, k: int, n_codewords: int, mask=None):
+    """Plain B4: [Q, M*K] int8 LUT x [N, M] uint8 codes -> top-k, summing
+    one subspace at a time into a [Q, N] int32 accumulator."""
+    Q = lut2d.shape[0]
+    m = codes.shape[1]
+    lut = lut2d.reshape(Q, m, n_codewords)
+    s = torch.zeros((Q, codes.shape[0]), dtype=torch.int32, device=codes.device)
+    for j in range(m):
+        s += lut[:, j].index_select(1, codes[:, j].long())
+    return _fused._masked_topk(s, k, mask)
+
+
+def fused_adc4_plain(lut_even, lut_odd, packed, *, k: int, mask=None):
+    """Plain B5: [Q, (M/2)*16] int8 LUT halves x [N, M/2] packed uint8
+    nibbles (low = even subspace) -> top-k, subspace by subspace."""
+    Q, mb = lut_even.shape[0], packed.shape[1]
+    le = lut_even.reshape(Q, mb, 16)
+    lo = lut_odd.reshape(Q, mb, 16)
+    s = torch.zeros((Q, packed.shape[0]), dtype=torch.int32,
+                    device=packed.device)
+    for j in range(mb):
+        col = packed[:, j]
+        s += le[:, j].index_select(1, (col & 0x0F).long())
+        s += lo[:, j].index_select(1, (col >> 4).long())
+    return _fused._masked_topk(s, k, mask)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"fused_adc: {msg}")
+
+
+def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
+    dev = codes.device
+    Q, N, mb = lut0.shape[0], codes.shape[0], codes.shape[1]
+    _check(1 <= k <= K_MAX, f"k={k} outside [1, {K_MAX}] (the kernels' cap)")
+    _check(k <= N, f"k={k} exceeds the corpus rows N={N}")
+    _check(N < 2 ** 31, "row ids are int32")
+    _check(codes.dtype == torch.uint8, f"codes must be uint8, got {codes.dtype}")
+    for t in (lut0, lut1, codes, mask):
+        _check(t is None or (t.device == dev and t.is_contiguous()),
+               "every tensor must be contiguous and on the codes' device")
+    for t in (lut0, lut1):
+        _check(t is None or (t.dtype == torch.int8 and t.dim() == 2
+                             and t.shape == (Q, mb * (1 << kbits))),
+               f"LUT must be int8 [{Q}, {mb * (1 << kbits)}], got "
+               f"{None if t is None else (t.dtype, tuple(t.shape))}")
+    if mask is not None:
+        _check(mask.shape == (N,), f"mask must be [{N}], got {tuple(mask.shape)}")
+        mask = mask.to(torch.int8)
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    bq = query_tile(k, mb, kbits, Q)
+    splits = n_splits(Q, N, bq)
+    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    rc = _build.lib("adc").rt_fused_adc(
+        kbits, bq, _fused.split_cap(k), lut0.data_ptr(),
+        None if lut1 is None else lut1.data_ptr(), codes.data_ptr(),
+        None if mask is None else mask.data_ptr(), part.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_adc")
+    LAUNCHES[name] += 1
+    return out_s, out_i
+
+
+def fused_adc_cuda(lut2d: torch.Tensor, codes: torch.Tensor, *, k: int,
+                   n_codewords: int = 256, mask: torch.Tensor | None = None):
+    """B4: [Q, M*K] int8 LUT x [N, M] uint8 codes -> top-k, streaming."""
+    if codes.device.type == "cpu":
+        return fused_adc_plain(lut2d, codes, k=k, n_codewords=n_codewords,
+                               mask=mask)
+    _check(codes.device.type == "cuda", f"unsupported device {codes.device}")
+    _check(n_codewords == 256, "the B4 kernel takes 256-codeword codebooks "
+           f"(16 codewords go packed through B5), got {n_codewords}")
+    return _launch("fused_adc", 8, lut2d, None, codes, mask, k)
+
+
+def fused_adc4_cuda(lut_even: torch.Tensor, lut_odd: torch.Tensor,
+                    packed: torch.Tensor, *, k: int,
+                    mask: torch.Tensor | None = None):
+    """B5: [Q, (M/2)*16] int8 LUT halves x [N, M/2] packed codes -> top-k."""
+    if packed.device.type == "cpu":
+        return fused_adc4_plain(lut_even, lut_odd, packed, k=k, mask=mask)
+    _check(packed.device.type == "cuda", f"unsupported device {packed.device}")
+    return _launch("fused_adc4", 4, lut_even, lut_odd, packed, mask, k)

@@ -1,18 +1,21 @@
 """Public wrappers over the kernels (port of ``repro.kernels.ops``, the
-``quantize`` and ``fused_topk`` half).
+``quantize``, ``fused_topk`` and ``fused_adc_topk`` part).
 
 Dispatch goes by the tensor's device, not by backend: a CUDA tensor runs
-the hand-written kernel (B1, B2 or B3) and a CPU tensor its plain version
-(``ref.py``).  The kernels mask ragged (Q, N) themselves, so nothing is
-padded to tile multiples here; what stays is the reference's interface:
-``k = min(k, N)``, the even/odd query split for packed int4 codes
-(``repro/kernels/ops.py:155``), and the optional [N] mask.
+the hand-written kernel (B1-B5) and a CPU tensor its plain version.  The
+kernels mask ragged (Q, N) themselves, so nothing is padded to tile
+multiples here; what stays is the reference's interface: ``k = min(k,
+N)``, the even/odd query split for packed int4 codes
+(``repro/kernels/ops.py:155``), the odd-M zero LUT slice and the even/odd
+LUT split for packed 4-bit PQ codes (``repro/kernels/ops.py:319-335``),
+and the optional [N] mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adc as _adc
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import packed as _packed
 from repro_torch.kernels import quantize as _quantize
@@ -24,6 +27,14 @@ def fused_query_tile(k: int = 100, q: int = _fused.BQ) -> int:
     """Query rows per fused-kernel block — the corpus re-stream granularity
     the engine's ``bytes_read`` accounting derives from."""
     return _fused.query_tile(k, q)
+
+
+def fused_adc_query_tile(k: int, code_bytes: int, kbits: int = 8,
+                         q: int = _adc.BQ) -> int:
+    """Query rows per fused-ADC block (each carries its LUT) — the code
+    re-stream granularity the engine's ``bytes_read`` accounting derives
+    from."""
+    return _adc.query_tile(k, code_bytes, kbits, q)
 
 
 def fused_topk(
@@ -51,6 +62,37 @@ def fused_topk(
                                        metric=metric, mask=mask)
     return _fused.fused_topk_cuda(q.contiguous(), x.contiguous(), k=k,
                                   metric=metric, mask=mask)
+
+
+def fused_adc_topk(
+    lut: torch.Tensor,
+    codes: torch.Tensor,
+    k: int,
+    *,
+    packed: bool = False,
+    mask: torch.Tensor | None = None,
+):
+    """Streaming fused ADC + top-k: ([Q, k] f32 scores, [Q, k] i32 ids).
+
+    ``lut`` is the [Q, M, K] int8-quantized lookup table (K = codewords
+    per subspace); ``codes`` is [N, M] uint8, or — with ``packed=True`` —
+    [N, ceil(M/2)] uint8 two nibbles per byte (an odd logical M was padded
+    with a zero-code column at pack time; the LUT grows a matching zero
+    subspace slice here, so the pad contributes nothing).  An optional
+    [N] ``mask`` (nonzero = allowed) joins the pad fence.
+    """
+    Q, m, n_codewords = lut.shape
+    k = min(k, codes.shape[0])
+    mask = None if mask is None else mask.to(codes.device)
+    codes = codes.contiguous()
+    if packed:
+        if m < 2 * codes.shape[1]:                 # odd-M zero-code pad column
+            lut = torch.nn.functional.pad(lut, (0, 0, 0, 2 * codes.shape[1] - m))
+        le = lut[:, 0::2, :].reshape(Q, -1).contiguous()
+        lo = lut[:, 1::2, :].reshape(Q, -1).contiguous()
+        return _adc.fused_adc4_cuda(le, lo, codes, k=k, mask=mask)
+    return _adc.fused_adc_cuda(lut.reshape(Q, -1).contiguous(), codes, k=k,
+                               n_codewords=n_codewords, mask=mask)
 
 
 def quantize(

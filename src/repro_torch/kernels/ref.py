@@ -60,6 +60,37 @@ def ql24_ref(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return ql2_ref(q_codes, _unpack_int4_ref(packed))
 
 
+def _unpack_uint4_ref(packed: torch.Tensor) -> torch.Tensor:
+    """[N, m/2] uint8 -> [N, m] int32 unsigned nibbles in [0, 15]."""
+    lo = (packed & 0x0F).to(torch.int32)
+    hi = ((packed >> 4) & 0x0F).to(torch.int32)
+    n, half = packed.shape
+    return torch.stack([lo, hi], dim=-1).reshape(n, half * 2)
+
+
+def adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """[Q, M, K] int LUT x [N, M] uint8 codewords -> [Q, N] int32 ADC.
+
+    The asymmetric-distance oracle: gather each row's per-subspace LUT
+    entry and sum — ``s[q, n] = sum_m lut[q, m, codes[n, m]]``.  It
+    gathers a [Q, M, N] tensor, so it is for small shapes; the kernels'
+    plain versions (``kernels/adc.py``) sum subspace by subspace.
+    """
+    idx = codes.T[None].to(torch.int64)                 # [1, M, N]
+    return torch.sum(
+        torch.take_along_dim(lut.to(torch.int32), idx, dim=2), dim=1
+    ).to(torch.int32)
+
+
+def adc4_ref(lut: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """[Q, M, K] int LUT x [N, M/2] packed uint8 nibbles -> [Q, N] int32.
+
+    ``lut``'s subspace axis must already cover the unpacked (even) width;
+    a zero LUT slice for an odd-m pad column keeps the sum unchanged.
+    """
+    return adc_ref(lut, _unpack_uint4_ref(packed))
+
+
 def topk_ref(scores: torch.Tensor, k: int, n_valid: int | None = None):
     """Exact top-k over a full [Q, N] score matrix.
 

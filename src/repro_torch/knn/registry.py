@@ -1,7 +1,7 @@
 """kind -> implementation registry and the ``make_index`` / ``load_index``
 entry points (port of ``repro.knn.registry``).
 
-Only ``flat`` is ported.  Every other kind the grammar parses raises
+``flat`` and ``pq`` are ported.  Every other kind the grammar parses raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.  Entry
 points run on the card by default: ``device=None`` resolves to ``cuda``
 and raises when no CUDA device exists; pass ``device="cpu"`` to run on
@@ -22,7 +22,6 @@ NOT_PORTED = {
     "hnsw": "queue A6 (graph kinds)",
     "graph": "queue A6 (graph kinds)",
     "ivf": "queue A7 (knn/ivf.py)",
-    "pq": "queue A8 (knn/pq.py, kernels B4/B5)",
     "stream": "queue A10 (stream/)",
     "cascade": "queue A11 (cascade/)",
 }
@@ -41,6 +40,7 @@ def register(kind: str):
 
 def _ensure_registered() -> None:
     from repro_torch.knn import flat  # noqa: F401  (kind "flat")
+    from repro_torch.knn import pq  # noqa: F401  (kind "pq")
 
 
 def kinds() -> tuple[str, ...]:

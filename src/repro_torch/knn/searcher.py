@@ -56,6 +56,8 @@ def _query_dim(index) -> Optional[int]:
     store = getattr(index, "store", None)
     if isinstance(store, engine.CodeStore):
         return store.d
+    if isinstance(store, engine.PQStore):
+        return int(store.codebooks.shape[0] * store.codebooks.shape[2])
     d = getattr(index, "d", None)
     return int(d) if d is not None else None
 

@@ -6,8 +6,8 @@ machine without it:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: B1 codes and the int8 / packed-int4 arms of B2 and B3 are
-bit-equal to the plain versions in ids and scores.  B2 fp32 scores are
+Tolerances: B1 codes, the int8 / packed-int4 arms of B2 and B3, and the
+ADC kernels B4 / B5 are bit-equal to the plain versions in ids and scores.  B2 fp32 scores are
 within rtol 1e-5 of the plain version's (the kernel sums each dot with
 FFMA in its own order, the plain version through a cuBLAS product), and
 ids differ only where the two scores at that rank are a near-tie.
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core import pack as PK
+from repro_torch.kernels import adc as A
 from repro_torch.kernels import fused_topk as F
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import quantize as QZ
@@ -73,3 +74,27 @@ def test_fused_topk_matches_plain(dev, kind, metric):
     diff = gi != wi
     assert bool(torch.all(((gs - ws).abs() <= tol)[diff]))
     assert diff.float().mean().item() < 0.05
+
+
+@pytest.mark.parametrize("bits,m", [(8, 32), (8, 7), (4, 64), (4, 7)])
+@pytest.mark.parametrize("k", [1, 100, 400])
+def test_fused_adc_matches_plain(dev, bits, m, k):
+    g = torch.Generator(device=dev).manual_seed(2)
+    Q, N, kc = 37, 70001, 2 ** bits
+    lut = torch.randint(-128, 128, (Q, m, kc), generator=g,
+                        device=dev).to(torch.int8)
+    codes = torch.randint(0, kc, (N, m), generator=g, device=dev).to(torch.uint8)
+    mask = (torch.rand(N, generator=g, device=dev) < 0.5).to(torch.int8)
+    for mk in (None, mask):
+        if bits == 8:
+            got = K.fused_adc_topk(lut, codes, k, mask=mk)
+            want = A.fused_adc_plain(lut.reshape(Q, -1), codes, k=k,
+                                     n_codewords=kc, mask=mk)
+        else:
+            packed = PK.pack_uint4(codes)
+            got = K.fused_adc_topk(lut, packed, k, packed=True, mask=mk)
+            full = torch.nn.functional.pad(lut, (0, 0, 0, m % 2))
+            want = A.fused_adc4_plain(full[:, 0::2].reshape(Q, -1).contiguous(),
+                                      full[:, 1::2].reshape(Q, -1).contiguous(),
+                                      packed, k=k, mask=mk)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
