@@ -15,7 +15,10 @@ Phases (each prints its lines; any failure exits non-zero):
               pq32 and B5: pq64x4 codes of 4,000,000 rows, 256 queries,
               k=100) beside the plain version's, the library yardstick's and
               the bound, with its result there held against the plain
-              version's and the yardstick's scores
+              version's and the yardstick's scores; the score-matrix
+              kernels B6-B8 bit-equal to their plain versions at ragged Q, N
+              and d and on extreme codes, and timed at the retrieval shapes
+              (1,000,000 x 128, Q=512; B6/B7 also Q=1)
   4. main     the main path at full width through make_index + Searcher:
               product-like 4,000,000 x 256 (flat, flat,lpq8@gaussian:3,
               flat,lpq4, flat,lpq4+r32, pq32+lpq, pq64x4+lpq,
@@ -35,9 +38,20 @@ Phases (each prints its lines; any failure exits non-zero):
               within 0.02 of the reference's 0.983 / 0.722 / 0.984 / 0.972;
               the PQ arms of phase 4 within max(0.03, the reference's spread
               over three seeds) of the reference's mean recall
+  6. retrieval  recsys candidate retrieval at full width (DLRM-MLPerf
+              retrieval_cand: 1,000,000 x 128 candidates, k=100) through
+              QuantizedTable.from_dense + make_retrieval, int8 (B1 + B6)
+              and fp32 arms, single-query and 512-query requests: p50, QPS,
+              each request's parts, recall@100 int8 vs fp32, the memory
+              ratio against the reference's formula, one B1 and one B6
+              launch per quantized request, ids and scores equal to the
+              plain path's; then the public score-matrix ops (B6-B8) as
+              one run of their own; then recall@100 at n=20000 within 0.01
+              of the reference's (REF_RETRIEVAL_RECALL)
 
 Output: one JSON line of kernel records (times and bound at each record's
-``shape``, launches from phase 4), then the card's name and power
+``shape``, launches summed over the runs of phase 4, the retrieval path
+and the score-matrix ops), then the card's name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -82,6 +96,11 @@ REF_PQ = {
     ("sift", "pq16+lpq"): (0.4216, 0.0010),
     ("sift", "pq16"): (0.4243, 0.0022),
 }
+
+#: the reference's int8-vs-fp32 recall@100 of candidate retrieval at
+#: n=20000, d=128, 128 queries on retrieval_data(..., seed=0), measured on
+#: the CPU by scripts/recsys_reference_recall.py
+REF_RETRIEVAL_RECALL = 0.8503
 
 
 class SmokeFailure(Exception):
@@ -168,6 +187,8 @@ def _check_fp32(q, x, k, metric, mask, got, want):
 KERNEL_OF = {"int8": "fused_topk_int8", "fp32": "fused_topk_fp32",
              "int4": "fused_topk4"}
 ADC_KERNELS = ("fused_adc", "fused_adc4")
+#: the kernels of the ANN main path (phase 4)
+MAIN_KERNELS = ("quantize", *KERNEL_OF.values(), *ADC_KERNELS)
 
 
 def hold(name, got, want, q, x, k, metric, mask, tag, err) -> int:
@@ -568,6 +589,167 @@ def time_adc() -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3 (cont.): the score-matrix kernels B6-B8
+# --------------------------------------------------------------------------
+
+QSCORE = {"qmip": "src/repro/kernels/qmip.py:49",
+          "ql2": "src/repro/kernels/ql2.py:38",
+          "qmip4": "src/repro/kernels/packed.py:99",
+          "ql24": "src/repro/kernels/packed.py:114"}
+PACKED_QSCORE = ("qmip4", "ql24")
+
+
+def qscore_plain(name, q, x):
+    """The plain version of ``name`` on what ``ops.<name>`` hands its
+    kernel: full-width int8 queries against int8 rows, or the query's
+    even/odd halves against packed int4 bytes."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import packed as PKD
+    from repro_torch.kernels import ql2 as L2K
+    from repro_torch.kernels import qmip as IPK
+
+    if name == "qmip":
+        return IPK.qmip_plain(q, x)
+    if name == "ql2":
+        return L2K.ql2_plain(q, x)
+    plain = PKD.qmip4_plain if name == "qmip4" else PKD.ql24_plain
+    return plain(*K.split_nibble_queries(q), x)
+
+
+def hold_qscore(name, got, want, tag, err) -> None:
+    """B6-B8 against the plain version: bit-equal int32 matrices."""
+    import torch
+
+    need(got.dtype == torch.int32 and got.shape == want.shape,
+         f"{name}: {got.dtype} {tuple(got.shape)} vs {tuple(want.shape)}: {tag}")
+    if got.numel():
+        err[name] = max(err[name], float((got.long() - want.long()).abs().max()))
+    need(torch.equal(got, want), f"{name} differs from the plain version: {tag}")
+
+
+def check_qscore(err: dict) -> None:
+    """B6-B8 against their plain versions at ragged shapes: Q in {1, 37,
+    300}, N in {1, 511, 70001}, d in {8, 100, 128, 256} plus an odd d (B6,
+    B7: 101) or an odd packed width (B8: d=258, 129 bytes a row); then on
+    extreme codes (all -128 / 127, nibbles -8 / 7, alternating), where a
+    wrong sign extension, a lost norm or a swapped nibble would show."""
+    import torch
+
+    from repro_torch.core import pack as PK
+    from repro_torch.kernels import ops as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    case = 0
+    for name in QSCORE:
+        packed = name in PACKED_QSCORE
+        lim = 8 if packed else 128
+        for Q in (1, 37, 300):
+            for N in (1, 511, 70001):
+                for d in ((8, 100, 128, 256, 258) if packed
+                          else (8, 100, 101, 128, 256)):
+                    q = torch.randint(-lim, lim, (Q, d), generator=g,
+                                      device=dev).to(torch.int8)
+                    x = torch.randint(-lim, lim, (N, d), generator=g,
+                                      device=dev).to(torch.int8)
+                    xs = PK.pack_int4(x) if packed else x
+                    hold_qscore(name, getattr(K, name)(q, xs),
+                                qscore_plain(name, q, xs),
+                                f"Q={Q} N={N} d={d}", err)
+                    case += 1
+        lo, hi = -lim, lim - 1
+        for d in ((256, 258) if packed else (256, 101)):
+            rows = torch.tensor([[lo] * d, [hi] * d, [lo, hi] * (d // 2)
+                                 + [lo] * (d % 2)], dtype=torch.int8, device=dev)
+            q = rows.repeat(11, 1)                                # Q = 33
+            x = torch.cat([rows, torch.zeros((1, d), dtype=torch.int8,
+                                             device=dev)]).repeat(17501, 1)
+            xs = PK.pack_int4(x) if packed else x
+            hold_qscore(name, getattr(K, name)(q, xs), qscore_plain(name, q, xs),
+                        f"extreme codes Q=33 N={x.shape[0]} d={d}", err)
+            case += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] {case} score-matrix cases (B6-B8) bit-equal to the plain "
+        "versions, extreme codes included")
+
+
+def time_qscore(err: dict) -> dict:
+    """B6-B8 at the retrieval shapes: a 1,000,000 x 128 int8 candidate
+    table (B8: its packed int4 form), Q=512 (the serve_p99 batch; B6 and
+    B7 also Q=1, the retrieval_cand batch).  Each result is held against
+    the plain version's and the library yardstick's: ``torch._int_mm``
+    (int8 tensor cores, exact int32; it needs more than 16 rows, so Q=1 is
+    padded to 32 query rows), for B7 / B8b with the two norm vectors and
+    the combine inside the clock; for B8 over the unpacked int8 corpus,
+    built before the clock."""
+    import torch
+
+    from repro_torch.core import pack as PK
+    from repro_torch.kernels import ops as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    N, d = 1_000_000, 128
+    x = torch.randint(-128, 128, (N, d), generator=g, device=dev).to(torch.int8)
+    x4 = torch.randint(-8, 8, (N, d), generator=g, device=dev).to(torch.int8)
+    px = PK.pack_int4(x4)
+
+    def lib_l2(q, xc):
+        qq = (q.int() ** 2).sum(1, dtype=torch.int32)
+        xx = (xc.int() ** 2).sum(1, dtype=torch.int32)
+        return -(qq[:, None] + xx[None, :] - 2 * torch._int_mm(q, xc.T))
+
+    out = {}
+    for name in QSCORE:
+        packed = name in PACKED_QSCORE
+        xs, xc = (px, x4) if packed else (x, x)
+        for Q in ((512,) if packed else (1, 512)):
+            lim = 8 if packed else 128
+            q = torch.randint(-lim, lim, (Q, d), generator=g,
+                              device=dev).to(torch.int8)
+            qp = torch.nn.functional.pad(q, (0, 0, 0, 32 - Q)) if Q < 32 else q
+            if name in ("qmip", "qmip4"):
+                lib = lambda: torch._int_mm(qp, xc.T)
+            else:
+                lib = lambda: lib_l2(qp, xc)
+
+            def kern():
+                return getattr(K, name)(q, xs)
+
+            ms = time_ms(kern, REPS)
+            pm = time_ms(lambda: qscore_plain(name, q, xs), PLAIN_REPS, warm=1)
+            lm = time_ms(lib, PLAIN_REPS, warm=1)
+            shape = f"Q={Q} N={N} d={d}" + (" packed int4" if packed else "")
+            got = kern()
+            hold_qscore(name, got, qscore_plain(name, q, xs), shape, err)
+            need(torch.equal(lib()[:Q], got),
+                 f"{name}: the library yardstick disagrees at {shape}")
+            q_bytes, x_bytes, o_bytes = Q * d, N * xs.shape[1], Q * N * 4
+            t_bytes = (q_bytes + x_bytes + o_bytes) / PEAK_BYTES * 1e3
+            t_ops = 2.0 * Q * N * d / PEAK_INT8 * 1e3
+            rec = dict(ms=ms, plain_ms=pm, library_ms=lm,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       shape=shape, bound_formula=(
+                           f"max(({q_bytes} q + {x_bytes} x + {o_bytes} out) B"
+                           f" / 3.35e12 B/s = {t_bytes:.4f} ms, 2*{Q}*{N}*{d}"
+                           f" ops / 1.979e15 /s = {t_ops:.4f} ms)"))
+            log(f"[timing] {name} {shape}: kernel {ms:.4f} ms (median of "
+                f"{REPS}), plain {pm:.4f} ms, library {lm:.4f} ms"
+                f"{' (Q padded to 32)' if Q < 32 else ''}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                f"{rec['bound_formula']}), roofline {rec['bound_ms'] / ms:.4f}"
+                f"; bit-equal to the plain version and the library | {smi()}")
+            if Q == 512:                    # the kernels line: the batched shape
+                out[name] = rec
+            del got
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 4: the main path at full width
 # --------------------------------------------------------------------------
 
@@ -764,10 +946,258 @@ def main_path(err: dict) -> dict:
             check_scan(*checks.pop(0), err)
         del flat, corpus, queries, gt
         torch.cuda.empty_cache()
+    counts = {kname: counts[kname] for kname in MAIN_KERNELS}
     log(f"[main] kernel launches on the main path: {counts}")
     for kname, c in counts.items():
         need(c > 0, f"kernel {kname} was never launched on the main path")
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 6: recsys candidate retrieval at full width (retrieval_cand)
+# --------------------------------------------------------------------------
+
+def retrieval_data(n: int, d: int, n_queries: int, seed: int):
+    """Candidate table and queries in the reference's ``table_init``
+    distribution, N(0, 1) * d^-1/2, drawn with numpy (as
+    scripts/recsys_reference_recall.py draws them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scale = np.float32(d ** -0.5)
+    table = rng.standard_normal((n, d), dtype=np.float32) * scale
+    queries = rng.standard_normal((n_queries, d), dtype=np.float32) * scale
+    return table, queries
+
+
+def keyed_top_k(s, k):
+    """The alternative top-k (timed only): one ``torch.topk`` over unique
+    int64 keys, the score's order key above ``N - 1 - column``."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+
+    n = s.shape[1]
+    key = R.order_key(s).to(torch.int64)
+    key.bitwise_left_shift_(32)
+    key.bitwise_or_(torch.arange(n - 1, -1, -1, device=s.device))
+    ids = (n - 1) - (torch.topk(key, k, dim=1).values & 0xFFFFFFFF)
+    return torch.gather(s, 1, ids), ids.to(torch.int32)
+
+
+def serve_retrieval(step, args, queries, batch):
+    """``queries`` through ``step`` in requests of ``batch``; returns
+    ([n, k] scores, [n, k] ids, QPS, p50 ms)."""
+    import torch
+
+    out_s, out_i, lat = [], [], []
+    t0 = time.perf_counter()
+    for s0 in range(0, queries.shape[0], batch):
+        t = time.perf_counter()
+        s, i = step(queries[s0:s0 + batch], *args)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        out_s.append(s)
+        out_i.append(i)
+    total = time.perf_counter() - t0
+    return (torch.cat(out_s), torch.cat(out_i), queries.shape[0] / total,
+            statistics.median(lat))
+
+
+def retrieval_path(err: dict) -> dict:
+    """DLRM-MLPerf ``retrieval_cand`` at full width: 1,000,000 candidates x
+    embed_dim 128, k=100, one run of the path with the launch counters set
+    to 0 before it and read after: ``QuantizedTable.from_dense`` (abs-max
+    Eq. 1), then ``make_retrieval(True)`` (B1 + B6) and
+    ``make_retrieval(False)`` (fp32) serving single-query requests (the
+    retrieval_cand batch) and 512-query requests (the serve_p99 batch).
+    Then: one B1 and one B6 launch per quantized request, the memory ratio
+    against the reference's formula, ids and scores equal to the plain
+    path's (plain B1, plain B6, the stable-sort top-k of ``ref.topk_ref``),
+    recall@100 of the int8 arm against the fp32 arm, and each request's
+    parts by CUDA events."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import base as CB
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import qmip as IPK
+    from repro_torch.kernels import ref as R
+    from repro_torch.launch import make_retrieval
+    from repro_torch.models.recsys.embedding import QuantizedTable
+    from repro_torch.models.recsys.retrieval import top_k
+
+    card = smi()
+    dev = torch.device("cuda")
+    d = dlrm_mlperf.config().embed_dim
+    n = CB.RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    b_one = CB.RECSYS_SHAPES["retrieval_cand"]["batch"]
+    b_many = CB.RECSYS_SHAPES["serve_p99"]["batch"]
+    k, n_one, n_many = 100, 200, 4 * b_many
+    table_np, queries_np = retrieval_data(n, d, n_many, seed=0)
+    table = torch.from_numpy(table_np).to(dev)
+    queries = torch.from_numpy(queries_np).to(dev)
+    del table_np, queries_np
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    qt = QuantizedTable.from_dense(table)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    p = qt.params
+    step8, step32 = make_retrieval(True, k=k), make_retrieval(False, k=k)
+    args8, args32 = (qt.codes, p.lo, p.hi, p.zero), (table,)
+    res = {}
+    n_quant = 0
+    for batch, nq in ((b_one, n_one), (b_many, n_many)):
+        for arm, step, args in (("int8", step8, args8), ("fp32", step32, args32)):
+            for _ in range(2):                              # warm-up requests
+                step(queries[:batch], *args)
+            n_quant += 2 * (arm == "int8")
+            res[arm, batch] = serve_retrieval(step, args, queries[:nq], batch)
+            n_quant += (nq // batch) * (arm == "int8")
+    run = kernels.launch_counts()
+    log(f"[retrieval] kernel launches on this run of the path: {run} "
+        f"({n_quant} quantized requests)")
+    need(run["quantize"] == n_quant and run["qmip"] == n_quant,
+         f"retrieval: expected one B1 and one B6 launch per quantized request "
+         f"({n_quant}), got {run}")
+    need(all(c == 0 for name, c in run.items() if name not in ("quantize", "qmip")),
+         f"retrieval: a kernel off the path was launched: {run}")
+
+    mem = qt.memory_bytes()
+    want_mem = n * d + 3 * d * 4
+    ratio = mem / (table.numel() * 4)
+    need(mem == want_mem, f"retrieval: memory {mem} is not the reference's "
+         f"formula's {want_mem}")
+    s8, i8, _, _ = res["int8", b_many]
+    _, i32, _, _ = res["fp32", b_many]
+    need(i8.shape == (n_many, k) and bool(torch.all((i8 >= 0) & (i8 < n))),
+         "retrieval: bad int8 ids")
+    need(bool(torch.all(torch.isfinite(s8))), "retrieval: non-finite scores")
+    need(torch.equal(res["int8", b_one][1], i8[:n_one]) and
+         torch.equal(res["int8", b_one][0], s8[:n_one]),
+         "retrieval: a query's int8 result depends on its batch")
+    rec = recall_at_k(i32, i8)
+    rec1 = recall_at_k(res["fp32", b_one][1], res["int8", b_one][1])
+    for (arm, batch), (_, _, qps, p50) in res.items():
+        log(f"[retrieval] {n}x{d} {arm} Q={batch}: QPS {qps:.1f} p50 {p50:.3f} "
+            f"ms | {card}")
+    log(f"[retrieval] recall@100 int8 vs fp32: {rec:.4f} over {n_many} queries "
+        f"(Q={b_many} requests), {rec1:.4f} over {n_one} (Q=1); memory ratio "
+        f"{ratio:.4f} ({mem} B, the reference's (N*d + 3*d*4) / (4*N*d)); "
+        f"QuantizedTable.from_dense {build_s:.2f} s")
+
+    # the plain path on the same codes: plain B1, plain B6, stable-sort top-k
+    for j in range(8):                                    # Q=1 requests, CPU sort
+        qc = R.quantize_ref(queries[j:j + 1], p.lo, p.hi, p.zero, bits=p.bits)
+        ws, wi = R.topk_ref(IPK.qmip_plain(qc, qt.codes).float().cpu(), k)
+        gs, gi = res["int8", b_one][0][j:j + 1], res["int8", b_one][1][j:j + 1]
+        need(torch.equal(gi.cpu(), wi) and torch.equal(gs.cpu(), ws),
+             f"retrieval: Q=1 request {j} differs from the plain path")
+    qc = R.quantize_ref(queries[:b_many], p.lo, p.hi, p.zero, bits=p.bits)
+    plain_s = IPK.qmip_plain(qc, qt.codes)
+    hold_qscore("qmip", K.qmip(qc, qt.codes), plain_s,
+                f"retrieval Q={b_many} N={n} d={d}", err)
+    ws, wi = R.topk_ref(plain_s.float(), k)
+    need(torch.equal(wi, i8[:b_many]) and torch.equal(ws, s8[:b_many]),
+         f"retrieval: the Q={b_many} request differs from the plain path")
+    log(f"[retrieval] ids and scores equal the plain path's (plain B1, B6 and "
+        f"the stable-sort top-k): 8 Q=1 requests (sorted on the CPU) and one "
+        f"Q={b_many} request")
+    del plain_s, ws, wi
+
+    # where a request's time goes (after the counts were read)
+    parts = {}
+    for batch in (b_one, b_many):
+        q = queries[:batch]
+        qc = K.quantize(q, p.lo, p.hi, p.zero, bits=p.bits)
+        s = K.qmip(qc, qt.codes)
+        sf = s.float()
+        f32 = q @ table.T
+        parts[batch] = {
+            "B1 quantize": time_ms(lambda: K.quantize(q, p.lo, p.hi, p.zero,
+                                                      bits=p.bits), REPS),
+            "B6 qmip": time_ms(lambda: K.qmip(qc, qt.codes), REPS),
+            "cast + top-k": time_ms(lambda: top_k(s.float(), k), REPS),
+            "int64-key top-k (not used)": time_ms(lambda: keyed_top_k(sf, k),
+                                                  PLAIN_REPS),
+            "fp32 matmul": time_ms(lambda: q @ table.T, REPS),
+            "fp32 top-k": time_ms(lambda: top_k(f32, k), REPS),
+        }
+        need(torch.equal(keyed_top_k(sf, k)[1], top_k(sf, k)[1]),
+             "retrieval: the two top-k forms disagree")
+        log(f"[retrieval] one Q={batch} request's parts (CUDA events, median): "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in parts[batch].items())
+            + f" | {card}")
+        del s, sf, f32
+    del qt, table, queries
+    torch.cuda.empty_cache()
+    return run
+
+
+def ops_path() -> dict:
+    """The public score-matrix ops as their callers use them (the
+    reference's ``bench_kernels`` and engine tests): ``ops.qmip`` /
+    ``ops.ql2`` over the int8 codes and ``ops.qmip4`` / ``ops.ql24`` over
+    the packed int4 codes of a 1,000,000 x 128 table, one 512-query batch;
+    one run with the counters set to 0 before it and read after."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import pack as PK
+    from repro_torch.kernels import ops as K
+    from repro_torch.models.recsys.embedding import QuantizedTable
+
+    table_np, queries_np = retrieval_data(1_000_000, 128, 512, seed=1)
+    table = torch.from_numpy(table_np).cuda()
+    queries = torch.from_numpy(queries_np).cuda()
+    q8, q4 = (QuantizedTable.from_dense(table, bits=b) for b in (8, 4))
+    packed = PK.pack_int4(q4.codes)
+    qc8 = K.quantize(queries, q8.params.lo, q8.params.hi, q8.params.zero)
+    qc4 = K.quantize(queries, q4.params.lo, q4.params.hi, q4.params.zero, bits=4)
+    kernels.reset_launch_counts()
+    outs = [K.qmip(qc8, q8.codes), K.ql2(qc8, q8.codes),
+            K.qmip4(qc4, packed), K.ql24(qc4, packed)]
+    torch.cuda.synchronize()
+    run = kernels.launch_counts()
+    log(f"[ops] kernel launches on this run of the score-matrix ops: {run}")
+    for name in QSCORE:
+        need(run[name] == 1, f"ops: {name} launched {run[name]} times, not once")
+    for o in outs:
+        need(o.shape == (512, 1_000_000) and o.dtype == torch.int32,
+             "ops: bad score matrix")
+    need(bool(torch.all(outs[1] <= 0)) and bool(torch.all(outs[3] <= 0)),
+         "ops: a negated squared distance is positive")
+    del outs, table, queries, q8, q4, packed
+    torch.cuda.empty_cache()
+    return run
+
+
+def retrieval_recall() -> None:
+    """The card's int8-vs-fp32 recall@100 at n=20000, d=128, 128 queries,
+    within 0.01 of the reference's on the same numpy inputs."""
+    import torch
+
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.launch import make_retrieval
+    from repro_torch.models.recsys.embedding import QuantizedTable
+
+    table_np, queries_np = retrieval_data(20000, 128, 128, seed=0)
+    table = torch.from_numpy(table_np).cuda()
+    queries = torch.from_numpy(queries_np).cuda()
+    qt = QuantizedTable.from_dense(table)
+    p = qt.params
+    _, i8 = make_retrieval(True)(queries, qt.codes, p.lo, p.hi, p.zero)
+    _, i32 = make_retrieval(False)(queries, table)
+    rec = recall_at_k(i32, i8)
+    ok = abs(rec - REF_RETRIEVAL_RECALL) <= 0.01
+    log(f"[retrieval] n=20000 d=128 128 queries: recall@100 {rec:.4f} "
+        f"(reference {REF_RETRIEVAL_RECALL}, |diff| <= 0.01: {ok}) | {smi()}")
+    need(ok, f"retrieval recall {rec:.4f} vs the reference's "
+         f"{REF_RETRIEVAL_RECALL}")
 
 
 def table2() -> None:
@@ -813,7 +1243,7 @@ def main() -> int:
     card = smi()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    err = dict.fromkeys(("quantize", *KERNEL_OF.values(), *ADC_KERNELS), 0.0)
+    err = dict.fromkeys((*MAIN_KERNELS, *QSCORE), 0.0)
     try:
         info = _build.build_all()
         log(f"[build] {info['seconds']:.1f} s for {info['built'] or 'nothing (cached)'}"
@@ -824,10 +1254,16 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
         check_kernels(err)
         check_adc()
+        check_qscore(err)
         timing = time_kernels(err)
         timing.update(time_adc())
+        timing.update(time_qscore(err))
         counts = main_path(err)
+        for path in (retrieval_path(err), ops_path()):
+            for name, c in path.items():
+                counts[name] = counts.get(name, 0) + c
         table2()
+        retrieval_recall()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -843,7 +1279,9 @@ def main() -> int:
                "fused_adc": ("src/repro_torch/csrc/adc.cu",
                              "src/repro/kernels/adc.py:90"),
                "fused_adc4": ("src/repro_torch/csrc/adc.cu",
-                              "src/repro/kernels/adc.py:116")}
+                              "src/repro/kernels/adc.py:116"),
+               **{name: ("src/repro_torch/csrc/qscore.cu", rep)
+                  for name, rep in QSCORE.items()}}
     rows = []
     for name, (src, rep) in sources.items():
         t = timing[name]

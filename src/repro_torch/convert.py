@@ -2,7 +2,8 @@
 
 The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
 ``rr_`` rerank prefix), or a reference-saved npz, holds nothing
-JAX-specific: numpy arrays plus a JSON-able meta record.  These helpers
+JAX-specific: numpy arrays plus a JSON-able meta record; so does a
+recsys ``QuantizedTable`` (int8 codes and Eq. 1 constants).  These helpers
 turn them into the port's objects so both packages can run on the same
 codes, codebooks and Eq. 1 constants.
 """
@@ -14,9 +15,10 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.quant import QuantParams
-from repro_torch.device import to_tensor
+from repro_torch.device import resolve_device, to_tensor
 from repro_torch.knn.flat import FlatIndex
 from repro_torch.knn.pq import PQIndex
+from repro_torch.models.recsys.embedding import QuantizedTable
 
 
 def quant_params_from_numpy(lo: np.ndarray, hi: np.ndarray, zero: np.ndarray,
@@ -53,3 +55,23 @@ def pq_from_reference_state(arrays: dict[str, np.ndarray],
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return PQIndex.from_state(arrays, meta, device=device)
+
+
+def quantized_table_from_numpy(codes: np.ndarray, lo: np.ndarray,
+                               hi: np.ndarray, zero: np.ndarray, bits: int,
+                               scheme: str, device=None) -> QuantizedTable:
+    """A reference ``QuantizedTable``'s int8 codes and Eq. 1 constants
+    (numpy) -> the port's ``QuantizedTable`` on ``device`` (``None``: the
+    GPU)."""
+    dev = resolve_device(device)
+    return QuantizedTable(
+        codes=to_tensor(np.asarray(codes, dtype=np.int8), device=dev),
+        params=quant_params_from_numpy(lo, hi, zero, bits, scheme,
+                                       device=dev))
+
+
+def dense_table_from_numpy(table: np.ndarray, device=None):
+    """A dense [vocab, dim] embedding table (numpy) -> the port's f32
+    tensor on ``device`` (``None``: the GPU)."""
+    return to_tensor(np.asarray(table, dtype=np.float32),
+                     device=resolve_device(device))

@@ -50,6 +50,10 @@ SIGNATURES = {
         "rt_fused_adc": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _L, _I, _I, _I, _P], _I),
     },
+    "qscore": {
+        # i4, l2, bq, q0, q1, x, out, Q, N, width, stream
+        "rt_qscore": ([_I, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P], _I),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -1,11 +1,14 @@
-"""Public wrappers over the kernels (port of ``repro.kernels.ops``, the
-``quantize``, ``fused_topk`` and ``fused_adc_topk`` part).
+"""Public wrappers over the kernels (port of ``repro.kernels.ops``:
+``quantize``, the score matrices ``qmip`` / ``ql2`` / ``qmip4`` /
+``ql24``, ``fused_topk`` and ``fused_adc_topk``).
 
 Dispatch goes by the tensor's device, not by backend: a CUDA tensor runs
-the hand-written kernel (B1-B5) and a CPU tensor its plain version.  The
-kernels mask ragged (Q, N) themselves, so nothing is padded to tile
-multiples here; what stays is the reference's interface: ``k = min(k,
-N)``, the even/odd query split for packed int4 codes
+the hand-written kernel (B1-B8) and a CPU tensor its plain version.  The
+reference's ``use_pallas`` / ``interpret`` switches choose between a TPU
+kernel and its XLA form, which has no counterpart here, so they are not
+carried over.  The kernels mask ragged (Q, N) themselves, so nothing is
+padded to tile multiples here; what stays is the reference's interface:
+``k = min(k, N)``, the even/odd query split for packed int4 codes
 (``repro/kernels/ops.py:155``), the odd-M zero LUT slice and the even/odd
 LUT split for packed 4-bit PQ codes (``repro/kernels/ops.py:319-335``),
 and the optional [N] mask.
@@ -18,9 +21,37 @@ import torch
 from repro_torch.kernels import adc as _adc
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import packed as _packed
+from repro_torch.kernels import ql2 as _ql2
+from repro_torch.kernels import qmip as _qmip
 from repro_torch.kernels import quantize as _quantize
 
 split_nibble_queries = _packed.split_nibble_queries
+
+
+def qmip(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
+    """int8 MIP scores [Q, N] int32 (B6)."""
+    return _qmip.qmip_cuda(q_codes.contiguous(), x_codes.contiguous())
+
+
+def ql2(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
+    """int8 negated squared-L2 scores [Q, N] int32 (B7)."""
+    return _ql2.ql2_cuda(q_codes.contiguous(), x_codes.contiguous())
+
+
+def qmip4(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """int4 MIP scores [Q, N] int32 over bit-packed corpus codes (B8).
+
+    ``q_codes`` are full-width [Q, d] int4-valued int8 (queries stay
+    unpacked: they are tiny); ``packed`` is [N, d/2] uint8.
+    """
+    qe, qo = _packed.split_nibble_queries(q_codes)
+    return _packed.qmip4_cuda(qe, qo, packed.contiguous())
+
+
+def ql24(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """int4 negated squared-L2 scores [Q, N] int32 over packed codes (B8)."""
+    qe, qo = _packed.split_nibble_queries(q_codes)
+    return _packed.ql24_cuda(qe, qo, packed.contiguous())
 
 
 def fused_query_tile(k: int = 100, q: int = _fused.BQ) -> int:

@@ -6,8 +6,9 @@ machine without it:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: B1 codes, the int8 / packed-int4 arms of B2 and B3, and the
-ADC kernels B4 / B5 are bit-equal to the plain versions in ids and scores.  B2 fp32 scores are
+Tolerances: B1 codes, the int8 / packed-int4 arms of B2 and B3, the
+ADC kernels B4 / B5 and the score matrices B6-B8 are bit-equal to the
+plain versions in ids and scores.  B2 fp32 scores are
 within rtol 1e-5 of the plain version's (the kernel sums each dot with
 FFMA in its own order, the plain version through a cuBLAS product), and
 ids differ only where the two scores at that rank are a near-tie.
@@ -98,3 +99,36 @@ def test_fused_adc_matches_plain(dev, bits, m, k):
                                       full[:, 1::2].reshape(Q, -1).contiguous(),
                                       packed, k=k, mask=mk)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("name", ["qmip", "ql2", "qmip4", "ql24"])
+@pytest.mark.parametrize("Q,N,d", [(1, 1, 8), (37, 70001, 100), (300, 511, 128),
+                                   (33, 2049, 258), (2, 1000, 7)])
+def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d):
+    """B6-B8 against their plain versions on ragged Q, N and d (d % 4 != 0,
+    d % 16 != 0, an odd packed width), random codes and extreme ones."""
+    from repro_torch.kernels import packed as PKD
+    from repro_torch.kernels import ql2 as L2K
+    from repro_torch.kernels import qmip as IPK
+
+    packed = name in ("qmip4", "ql24")
+    if packed and d % 2:
+        d += 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    lim = 8 if packed else 128
+    q = torch.randint(-lim, lim, (Q, d), generator=g, device=dev).to(torch.int8)
+    x = torch.randint(-lim, lim, (N, d), generator=g, device=dev).to(torch.int8)
+    q[0] = -lim
+    x[0] = -lim
+    x[-1] = lim - 1
+    plain = {"qmip": IPK.qmip_plain, "ql2": L2K.ql2_plain,
+             "qmip4": PKD.qmip4_plain, "ql24": PKD.ql24_plain}[name]
+    if packed:
+        px = PK.pack_int4(x)
+        got = getattr(K, name)(q, px)
+        want = plain(*K.split_nibble_queries(q), px)
+    else:
+        got = getattr(K, name)(q, x)
+        want = plain(q, x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
