@@ -632,7 +632,8 @@ def check_qscore(err: dict) -> None:
     300}, N in {1, 511, 70001}, d in {8, 100, 128, 256} plus an odd d (B6,
     B7: 101) or an odd packed width (B8: d=258, 129 bytes a row); then on
     extreme codes (all -128 / 127, nibbles -8 / 7, alternating), where a
-    wrong sign extension, a lost norm or a swapped nibble would show."""
+    wrong sign extension, a lost norm or a swapped nibble would show; then
+    at the edges of the tensor-core tiling (``qscore_edge_cases``)."""
     import torch
 
     from repro_torch.core import pack as PK
@@ -669,9 +670,44 @@ def check_qscore(err: dict) -> None:
             hold_qscore(name, getattr(K, name)(q, xs), qscore_plain(name, q, xs),
                         f"extreme codes Q=33 N={x.shape[0]} d={d}", err)
             case += 1
+        for Q, N, d, offset in qscore_edge_cases(dev):
+            if packed and d % 2:
+                d += 1
+            q = torch.randint(-lim, lim, (Q, d), generator=g,
+                              device=dev).to(torch.int8)
+            x = torch.randint(-lim, lim, (N + offset, d), generator=g,
+                              device=dev).to(torch.int8)
+            xs = (PK.pack_int4(x) if packed else x)[offset:]
+            need(offset == 0 or xs.data_ptr() % 16 != 0,
+                 f"{name}: the view at offset {offset} is 16-byte aligned")
+            hold_qscore(name, getattr(K, name)(q, xs), qscore_plain(name, q, xs),
+                        f"edge Q={Q} N={N} d={d} offset={offset}", err)
+            case += 1
     torch.cuda.synchronize()
     log(f"[kernels] {case} score-matrix cases (B6-B8) bit-equal to the plain "
-        "versions, extreme codes included")
+        "versions, extreme codes and the tensor-core tiling's edges included")
+
+
+def qscore_edge_cases(dev) -> list:
+    """(Q, N, d, offset) at the edges of the tensor-core kernel's tiling
+    (B6, B8a; B7 and B8b run them too): Q at each query-tile boundary; N
+    at and just past the corpus tile and k times the SM count of tiles
+    (the persistent stride at k blocks an SM), odd N leaving output rows
+    unaligned; d = 31, 32, 33 and a packed width of 17 bytes (d=34); a
+    corpus view at an unaligned base (``x[offset:]`` of an [N + 1, d]
+    buffer, d = 100 and 102: 50 / 51 packed bytes a row)."""
+    import torch
+
+    from repro_torch.kernels import _qscore
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(q, 1000, 128, 0) for q in (1, 7, 8, 9, 16, 17, 64, 65, 128, 129)]
+    for q in (1, 100):
+        bm = _qscore.mma_tiles(q)[1]
+        cases += [(q, k * bm + p, 64, 0) for k in (1, sms, 2 * sms)
+                  for p in (0, 1)]
+    cases += [(5, 333, d, 0) for d in (31, 32, 33, 34)]
+    return cases + [(9, 1000, d, 1) for d in (100, 102)]
 
 
 def time_qscore(err: dict) -> dict:
@@ -682,7 +718,8 @@ def time_qscore(err: dict) -> dict:
     (int8 tensor cores, exact int32; it needs more than 16 rows, so Q=1 is
     padded to 32 query rows), for B7 / B8b with the two norm vectors and
     the combine inside the clock; for B8 over the unpacked int8 corpus,
-    built before the clock."""
+    built before the clock.  Each kernel and its yardstick are timed
+    alike, before any plain version."""
     import torch
 
     from repro_torch.core import pack as PK
@@ -701,50 +738,58 @@ def time_qscore(err: dict) -> dict:
         xx = (xc.int() ** 2).sum(1, dtype=torch.int32)
         return -(qq[:, None] + xx[None, :] - 2 * torch._int_mm(q, xc.T))
 
-    out = {}
+    runs = []
     for name in QSCORE:
         packed = name in PACKED_QSCORE
-        xs, xc = (px, x4) if packed else (x, x)
+        lim = 8 if packed else 128
         for Q in ((512,) if packed else (1, 512)):
-            lim = 8 if packed else 128
-            q = torch.randint(-lim, lim, (Q, d), generator=g,
-                              device=dev).to(torch.int8)
-            qp = torch.nn.functional.pad(q, (0, 0, 0, 32 - Q)) if Q < 32 else q
-            if name in ("qmip", "qmip4"):
-                lib = lambda: torch._int_mm(qp, xc.T)
-            else:
-                lib = lambda: lib_l2(qp, xc)
+            runs.append((name, packed, Q, torch.randint(
+                -lim, lim, (Q, d), generator=g, device=dev).to(torch.int8)))
 
-            def kern():
-                return getattr(K, name)(q, xs)
+    def operands(name, packed, Q, q):
+        xs, xc = (px, x4) if packed else (x, x)
+        qp = torch.nn.functional.pad(q, (0, 0, 0, 32 - Q)) if Q < 32 else q
+        if name in ("qmip", "qmip4"):
+            return xs, lambda: torch._int_mm(qp, xc.T)
+        return xs, lambda: lib_l2(qp, xc)
 
-            ms = time_ms(kern, REPS)
-            pm = time_ms(lambda: qscore_plain(name, q, xs), PLAIN_REPS, warm=1)
-            lm = time_ms(lib, PLAIN_REPS, warm=1)
-            shape = f"Q={Q} N={N} d={d}" + (" packed int4" if packed else "")
-            got = kern()
-            hold_qscore(name, got, qscore_plain(name, q, xs), shape, err)
-            need(torch.equal(lib()[:Q], got),
-                 f"{name}: the library yardstick disagrees at {shape}")
-            q_bytes, x_bytes, o_bytes = Q * d, N * xs.shape[1], Q * N * 4
-            t_bytes = (q_bytes + x_bytes + o_bytes) / PEAK_BYTES * 1e3
-            t_ops = 2.0 * Q * N * d / PEAK_INT8 * 1e3
-            rec = dict(ms=ms, plain_ms=pm, library_ms=lm,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       shape=shape, bound_formula=(
-                           f"max(({q_bytes} q + {x_bytes} x + {o_bytes} out) B"
-                           f" / 3.35e12 B/s = {t_bytes:.4f} ms, 2*{Q}*{N}*{d}"
-                           f" ops / 1.979e15 /s = {t_ops:.4f} ms)"))
-            log(f"[timing] {name} {shape}: kernel {ms:.4f} ms (median of "
-                f"{REPS}), plain {pm:.4f} ms, library {lm:.4f} ms"
-                f"{' (Q padded to 32)' if Q < 32 else ''}, bound "
-                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-                f"{rec['bound_formula']}), roofline {rec['bound_ms'] / ms:.4f}"
-                f"; bit-equal to the plain version and the library | {smi()}")
-            if Q == 512:                    # the kernels line: the batched shape
-                out[name] = rec
-            del got
+    # each kernel and its yardstick alike (2 warm calls, median of REPS)
+    # before any plain version: right after the plain float64 products of
+    # the op before it, a kernel reads slow for a while
+    kern_ms, lib_ms = {}, {}
+    for name, packed, Q, q in runs:
+        xs, lib = operands(name, packed, Q, q)
+        kern_ms[name, Q] = time_ms(lambda: getattr(K, name)(q, xs), REPS)
+        lib_ms[name, Q] = time_ms(lib, REPS)
+    out = {}
+    for name, packed, Q, q in runs:
+        xs, lib = operands(name, packed, Q, q)
+        ms, lm = kern_ms[name, Q], lib_ms[name, Q]
+        pm = time_ms(lambda: qscore_plain(name, q, xs), PLAIN_REPS, warm=1)
+        shape = f"Q={Q} N={N} d={d}" + (" packed int4" if packed else "")
+        got = getattr(K, name)(q, xs)
+        hold_qscore(name, got, qscore_plain(name, q, xs), shape, err)
+        need(torch.equal(lib()[:Q], got),
+             f"{name}: the library yardstick disagrees at {shape}")
+        q_bytes, x_bytes, o_bytes = Q * d, N * xs.shape[1], Q * N * 4
+        t_bytes = (q_bytes + x_bytes + o_bytes) / PEAK_BYTES * 1e3
+        t_ops = 2.0 * Q * N * d / PEAK_INT8 * 1e3
+        rec = dict(ms=ms, plain_ms=pm, library_ms=lm,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   shape=shape, bound_formula=(
+                       f"max(({q_bytes} q + {x_bytes} x + {o_bytes} out) B"
+                       f" / 3.35e12 B/s = {t_bytes:.4f} ms, 2*{Q}*{N}*{d}"
+                       f" ops / 1.979e15 /s = {t_ops:.4f} ms)"))
+        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms and library "
+            f"{lm:.4f} ms (medians of {REPS}), plain {pm:.4f} ms"
+            f"{' (Q padded to 32)' if Q < 32 else ''}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+            f"{rec['bound_formula']}), roofline {rec['bound_ms'] / ms:.4f}"
+            f"; bit-equal to the plain version and the library | {smi()}")
+        if Q == 512:                    # the kernels line: the batched shape
+            out[name] = rec
+        del got
         torch.cuda.empty_cache()
     return out
 

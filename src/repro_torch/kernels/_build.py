@@ -51,7 +51,7 @@ SIGNATURES = {
                           _I, _L, _I, _I, _I, _P], _I),
     },
     "qscore": {
-        # i4, l2, bq, q0, q1, x, out, Q, N, width, stream
+        # i4, l2, tile, q0, q1, x, out, Q, N, width, stream
         "rt_qscore": ([_I, _I, _I, _P, _P, _P, _P, _I, _L, _I, _P], _I),
     },
 }

@@ -101,12 +101,41 @@ def test_fused_adc_matches_plain(dev, bits, m, k):
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+#: edge cases of the tensor-core kernel's tiling (B6, B8a; run for B7 and
+#: B8b too): Q at each query-tile boundary; N at and just past the corpus
+#: tile ("t") and k times the SM count of tiles ("s<k>", the persistent
+#: stride at k blocks an SM), odd N leaving output rows unaligned; d = 31,
+#: 32, 33 and a packed width of 17 bytes; and a corpus view at an unaligned
+#: base (``offset`` 1: ``x[1:]`` of an [N + 1, d] buffer).
+EDGE_CASES = (
+    [(q, 1000, 128, 0) for q in (1, 7, 8, 9, 16, 17, 64, 65, 128, 129)]
+    + [(q, n, 64, 0) for q in (1, 100)
+       for n in ("t", "t+1", "s1", "s1+1", "s2", "s2+1")]
+    + [(5, 333, d, 0) for d in (31, 32, 33, 34)]
+    + [(9, 1000, d, 1) for d in (100, 102)])
+
+
+def _resolve_n(n, q, dev):
+    """An edge case's N: an int, or a multiple of the corpus tile."""
+    from repro_torch.kernels import _qscore
+
+    if isinstance(n, int):
+        return n
+    bm = _qscore.mma_tiles(q)[1]
+    base, _, plus = n.partition("+")
+    k = 1 if base == "t" else (
+        int(base[1:]) * torch.cuda.get_device_properties(dev).multi_processor_count)
+    return k * bm + int(plus or 0)
+
+
 @pytest.mark.parametrize("name", ["qmip", "ql2", "qmip4", "ql24"])
-@pytest.mark.parametrize("Q,N,d", [(1, 1, 8), (37, 70001, 100), (300, 511, 128),
-                                   (33, 2049, 258), (2, 1000, 7)])
-def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d):
+@pytest.mark.parametrize("Q,N,d,offset", [
+    (1, 1, 8, 0), (37, 70001, 100, 0), (300, 511, 128, 0), (33, 2049, 258, 0),
+    (2, 1000, 7, 0)] + EDGE_CASES)
+def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d, offset):
     """B6-B8 against their plain versions on ragged Q, N and d (d % 4 != 0,
-    d % 16 != 0, an odd packed width), random codes and extreme ones."""
+    d % 16 != 0, an odd packed width), the tensor-core kernel's tile
+    boundaries, unaligned corpus views, random codes and extreme ones."""
     from repro_torch.kernels import packed as PKD
     from repro_torch.kernels import ql2 as L2K
     from repro_torch.kernels import qmip as IPK
@@ -114,21 +143,26 @@ def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d):
     packed = name in ("qmip4", "ql24")
     if packed and d % 2:
         d += 1
+    N = _resolve_n(N, Q, dev)
     g = torch.Generator(device=dev).manual_seed(3)
     lim = 8 if packed else 128
     q = torch.randint(-lim, lim, (Q, d), generator=g, device=dev).to(torch.int8)
-    x = torch.randint(-lim, lim, (N, d), generator=g, device=dev).to(torch.int8)
+    x = torch.randint(-lim, lim, (N + offset, d), generator=g,
+                      device=dev).to(torch.int8)
     q[0] = -lim
-    x[0] = -lim
+    x[offset] = -lim
     x[-1] = lim - 1
     plain = {"qmip": IPK.qmip_plain, "ql2": L2K.ql2_plain,
              "qmip4": PKD.qmip4_plain, "ql24": PKD.ql24_plain}[name]
     if packed:
-        px = PK.pack_int4(x)
+        px = PK.pack_int4(x)[offset:]
         got = getattr(K, name)(q, px)
         want = plain(*K.split_nibble_queries(q), px)
     else:
+        x = x[offset:]
         got = getattr(K, name)(q, x)
         want = plain(q, x)
+    if offset:
+        assert (x if not packed else px).data_ptr() % 16 != 0
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)

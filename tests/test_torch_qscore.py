@@ -118,3 +118,13 @@ def test_kernel_wrappers_check_their_operands():
         TK.qmip(q, x)
     with pytest.raises(ValueError, match="unsupported device"):
         TPK.ql24_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        TPK.qmip4_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8))
+
+
+@pytest.mark.parametrize("q,tile", [(1, (8, 256)), (8, (8, 256)),
+                                    (9, (16, 256)), (512, (128, 128))])
+def test_mma_tiles_follow_q(q, tile):
+    """The tensor-core kernel's output tile (B6, B8a): the smallest query
+    tile that holds Q, so a single query fills 1 of 8 MMA columns."""
+    assert _qscore.mma_tiles(q) == tile
