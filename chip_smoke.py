@@ -9,8 +9,13 @@ Phases (each prints its lines; any failure exits non-zero):
   2. build    nvcc builds every kernel in src/repro_torch/csrc (timed)
   3. kernels  each kernel against its plain PyTorch version on the card at
               ragged shapes (B1, the int arms of B2/B3 and the ADC kernels
-              B4/B5 bit-equal, B2 fp32 within rtol 1e-5 with ids equal
-              outside near-ties), then each kernel's time at its main-path
+              B4/B5 bit-equal; B2 fp32 within rtol 1e-5 of the plain
+              version and of a float64 product, ids equal outside
+              near-ties, its error against float64 logged beside the plain
+              version's), at k past 1024 (1025, 3000) and B4/B5 LUTs of
+              M = 256-1024, the fp32 kernel's tile edges, and a CUDA
+              flat,lpq4+r32 search at k=300 against the CPU's; then each
+              kernel's time at its main-path
               shape (B1-B3: 4,000,000 x 256, one 256-query bucket, k=100; B4:
               pq32 and B5: pq64x4 codes of 4,000,000 rows, 256 queries,
               k=100) beside the plain version's, the library yardstick's and
@@ -157,32 +162,53 @@ def _codes(g, shape, small: bool, dev, dtype):
     return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
 
 
+def _rel_err(q, x, metric, s, ids, scale) -> float:
+    """Largest |score - exact| / row scale over the valid slots, each
+    returned id's exact score recomputed in float64."""
+    import torch
+
+    valid = ids >= 0
+    q64, rows = q.double(), x[ids.clamp_min(0).long()].double()   # [Q, k, d]
+    dot = torch.einsum("qd,qkd->qk", q64, rows)
+    exact = dot if metric == "ip" else -((q64 * q64).sum(1, keepdim=True)
+                                         + (rows * rows).sum(2) - 2 * dot)
+    err = ((s.double() - exact).abs() / scale)[valid]
+    return float(err.max()) if err.numel() else 0.0
+
+
 def _check_fp32(q, x, k, metric, mask, got, want):
-    """fp32: scores within rtol 1e-5 of the plain version's at every rank,
-    and every returned id's own score (recomputed in float64) within the
-    same tolerance of the score returned beside it — so ids can differ
-    from the plain version's only inside near-tie groups."""
+    """fp32: scores within rtol 1e-5 of the row scale (max |plain score| +
+    1) of the plain version's at every rank, and every returned id's own
+    score, recomputed in float64, within the same tolerance of the score
+    returned beside it, so ids can differ from the plain version's only
+    inside near-tie groups.  Also measures the kernel's and the plain
+    version's |score - float64| / row scale (ROADMAP C6: the kernel's one
+    fmaf chain over d does not stay within max(1e-6, the plain version's
+    error) at d = 256, so the gate stays at 1e-5).  Returns (id swaps,
+    kernel error, plain error)."""
     import torch
 
     (gs, gi), (ws, wi) = got, want
     valid = wi >= 0
     need(torch.equal(gi >= 0, valid), "fp32: sentinel slots differ")
     need(bool(torch.all(gs[~valid] == ws[~valid])), "fp32: sentinel scores differ")
-    scale = torch.where(valid, ws.abs(), 0).amax(dim=1, keepdim=True) + 1.0
-    tol = 1e-5 * scale
-    need(bool(torch.all(((gs - ws).abs() <= tol)[valid])),
+    scale = torch.where(valid, ws.abs(), 0).amax(dim=1, keepdim=True).double() + 1.0
+    rank = ((gs.double() - ws.double()).abs() / scale)[valid]
+    need(rank.numel() == 0 or float(rank.max()) <= 1e-5,
          "fp32 scores beyond rtol 1e-5 of the plain version's")
-    ids = gi.clamp_min(0).long()
-    q64, rows = q.double(), x[ids].double()            # rows [Q, k, d]
-    dot = torch.einsum("qd,qkd->qk", q64, rows)
-    own = dot if metric == "ip" else -((q64 * q64).sum(1, keepdim=True)
-                                      + (rows * rows).sum(2) - 2 * dot)
-    need(bool(torch.all(((own - gs.double()).abs() <= tol.double())[valid])),
+    plain_err = _rel_err(q, x, metric, ws, wi, scale)
+    kern_err = _rel_err(q, x, metric, gs, gi, scale)
+    need(kern_err <= 1e-5,
          "fp32: a returned id's own score disagrees with its returned score")
     if mask is not None:
+        ids = gi.clamp_min(0).long()
         need(bool(torch.all(mask[ids][valid] != 0)), "fp32: a masked row returned")
-    return int((gi != wi).sum())
+    return int((gi != wi).sum()), kern_err, plain_err
 
+
+#: the largest fp32 |score - float64| / row scale over the checks, kernel
+#: and plain version (ROADMAP C6)
+FP32_ERR = {"kernel": 0.0, "plain": 0.0}
 
 KERNEL_OF = {"int8": "fused_topk_int8", "fp32": "fused_topk_fp32",
              "int4": "fused_topk4"}
@@ -202,7 +228,9 @@ def hold(name, got, want, q, x, k, metric, mask, tag, err) -> int:
         need(torch.equal(got[1], want[1]), f"ids differ from the plain version: {tag}")
         need(torch.equal(got[0], want[0]), f"scores differ from the plain version: {tag}")
         return 0
-    swaps = _check_fp32(q, x, k, metric, mask, got, want)
+    swaps, kern_err, plain_err = _check_fp32(q, x, k, metric, mask, got, want)
+    FP32_ERR["kernel"] = max(FP32_ERR["kernel"], kern_err)
+    FP32_ERR["plain"] = max(FP32_ERR["plain"], plain_err)
     e = (got[0] - want[0]).abs()[want[1] >= 0]
     if e.numel():
         err[name] = max(err[name], float(e.max()))
@@ -358,6 +386,108 @@ def check_adc() -> None:
         "versions")
 
 
+def check_any_k(err: dict) -> None:
+    """ROADMAP C5 on the card: B2 (int8, fp32) and B3 at k = 1024, 1025 and
+    3000 (buffers in global memory past k = 2016), B4 / B5 at M = 256 / 512
+    (2 / 1 queries a block) and M = 1024 (B4's LUTs from global memory) at
+    k = 100 and 1025, each with and without a mask; the fp32 kernel's
+    edges (Q at each query tile and one past it, N past a tile and a
+    split, d not a multiple of 4, an unaligned view); and a CUDA
+    ``flat,lpq4+r32`` search at k=300 (scan depth 1200) against the same
+    index on the CPU.  Integer paths bit-equal, fp32 by C6's rule."""
+    import torch
+
+    from repro_torch.core import pack as PK
+    from repro_torch.kernels import fused_topk as F
+    from repro_torch.kernels import ops as K
+    from repro_torch.knn import make_index
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    Q, N, d = 37, 70001, 64
+    cases = 0
+    for kind in ("int8", "fp32", "int4"):
+        for k in (1024, 1025, 3000):
+            for metric, masked in (("ip", False), ("l2", True)):
+                mask = ((torch.rand(N, generator=g, device=dev) < 0.5)
+                        .to(torch.int8) if masked else None)
+                if kind == "fp32":
+                    q = torch.randn(Q, d, generator=g, device=dev)
+                    x = torch.randn(N, d, generator=g, device=dev)
+                else:
+                    lim = 8 if kind == "int4" else 128
+                    q = torch.randint(-lim, lim, (Q, d), generator=g,
+                                      device=dev).to(torch.int8)
+                    x = torch.randint(-lim, lim, (N, d), generator=g,
+                                      device=dev).to(torch.int8)
+                if kind == "int4":
+                    x = PK.pack_int4(x)
+                    got = K.fused_topk(q, x, k, metric, packed=True, mask=mask)
+                    want = F.fused_topk4_plain(*K.split_nibble_queries(q), x,
+                                               k=k, metric=metric, mask=mask)
+                else:
+                    got = K.fused_topk(q, x, k, metric, mask=mask)
+                    want = F.fused_topk_plain(q, x, k=k, metric=metric,
+                                              mask=mask)
+                hold(KERNEL_OF[kind], got, want, q, x, k, metric, mask,
+                     f"{kind} Q={Q} N={N} k={k} {metric} mask={masked}", err)
+                cases += 1
+    for bits, m in ((8, 256), (8, 512), (8, 1024), (4, 256), (4, 1024)):
+        kc = 2 ** bits
+        lut = torch.randint(-128, 128, (9, m, kc), generator=g,
+                            device=dev).to(torch.int8)
+        codes = torch.randint(0, kc, (20001, m), generator=g,
+                              device=dev).to(torch.uint8)
+        payload = PK.pack_uint4(codes) if bits == 4 else codes
+        mask = (torch.rand(20001, generator=g, device=dev) < 0.5).to(torch.int8)
+        for k in (100, 1025):
+            for mk in (None, mask):
+                got = K.fused_adc_topk(lut, payload, k, packed=bits == 4, mask=mk)
+                want = adc_plain(lut, payload, k, bits == 4, mk)
+                hold_adc(got, want, f"M={m} K={kc} k={k} mask={mk is not None}")
+                cases += 1
+    edges = ([(q, 5000, 64, 0) for q in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65)]
+             + [(9, n, 32, 0) for n in (255, 256, 257, 2048, 2049)]
+             + [(7, 3001, dd, 0) for dd in (1, 3, 100, 255)]
+             + [(7, 3001, dd, 1) for dd in (64, 100)])
+    for Qe, Ne, de, off in edges:
+        for metric in ("ip", "l2"):
+            q = torch.randn(Qe, de, generator=g, device=dev)
+            x = torch.randn(Ne * de + off, generator=g,
+                            device=dev)[off:].view(Ne, de)
+            need(off == 0 or x.data_ptr() % 16 != 0, "edge view is aligned")
+            ke = min(100, Ne)
+            got = K.fused_topk(q, x, ke, metric)
+            want = F.fused_topk_plain(q, x, k=ke, metric=metric)
+            hold("fused_topk_fp32", got, want, q, x, ke, metric, None,
+                 f"fp32 edge Q={Qe} N={Ne} d={de} offset={off} {metric}", err)
+            cases += 1
+    gen = torch.Generator().manual_seed(8)
+    corpus = torch.randn(30000, 64, generator=gen)
+    queries = torch.randn(16, 64, generator=gen)
+    gpu = make_index("flat,lpq4+r32", corpus, metric="ip", device=dev)
+    cpu = make_index("flat,lpq4+r32", corpus, metric="ip", device="cpu")
+    need(torch.equal(gpu.store.data.cpu(), cpu.store.data),
+         "+r32: CUDA and CPU codes differ")
+    qc = gpu.store.encode_queries(queries.to(dev))
+    got = K.fused_topk(qc, gpu.store.data, 1200, "ip", packed=True)
+    want = K.fused_topk(qc.cpu(), cpu.store.data, 1200, "ip", packed=True)
+    need(torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0]),
+         "+r32: the depth-1200 B3 scan differs from the CPU's")
+    srch = gpu.searcher(300)
+    need(srch.rerank is not None and srch.rerank.depth == 1200,
+         "+r32 at k=300: scan depth is not 1200")
+    res, ref = srch(queries.to(dev)), cpu.searcher(300)(queries)
+    scale = ref.scores.abs().amax(dim=1, keepdim=True) + 1.0
+    need(bool(torch.all((res.scores.cpu() - ref.scores).abs() <= 1e-6 * scale))
+         and (res.ids.cpu() != ref.ids).float().mean().item() < 0.01,
+         "+r32 at k=300: the CUDA search differs from the CPU's")
+    log(f"[kernels] C5: {cases} cases at k in (1024, 1025, 3000), M up to 1024 "
+        "and the fp32 edges agree with the plain versions; the CUDA "
+        "flat,lpq4+r32 search at k=300 (depth 1200) matches the CPU's")
+
+
 def library_topk(q, x, k, packed=False, chunk=1 << 20):
     """Yardstick only (never used by the port): one library GEMM per corpus
     chunk plus ``torch.topk``, ip.  int8 codes (and int4 codes, unpacked
@@ -472,6 +602,18 @@ def time_kernels(err: dict) -> dict:
         msk = time_ms(lambda: F.fused_topk_cuda(qc, codes, k=kk, metric="ip"), REPS)
         log(f"[timing] fused_topk_int8 Q={Q} N={N} d={d} k={kk}: kernel "
             f"{msk:.4f} ms | {smi()}")
+    # the fp32 scan at a single request (bytes-bound) and at depth 400
+    ms1 = time_ms(lambda: F.fused_topk_cuda(qf[:1], x, k=k, metric="ip"), REPS)
+    log(f"[timing] fused_topk_fp32 Q=1 N={N} d={d} k={k}: kernel {ms1:.4f} ms, "
+        f"bound {(N * d * 4) / PEAK_BYTES * 1e3:.4f} ms (bytes) | {smi()}")
+    msk = time_ms(lambda: F.fused_topk_cuda(qf, x, k=400, metric="ip"), REPS)
+    log(f"[timing] fused_topk_fp32 Q={Q} N={N} d={d} k=400: kernel {msk:.4f} "
+        f"ms | {smi()}")
+    dev_ms = device_ms(lambda: F.fused_topk_cuda(qf, x, k=k, metric="ip"),
+                       ("f32_topk_kernel", "merge_topk_kernel"))
+    log(f"[timing] fused_topk_fp32 Q={Q} k={k} device time per call (profiler, "
+        f"3 calls): pass 1 {dev_ms['f32_topk_kernel']:.4f} ms, merge "
+        f"{dev_ms['merge_topk_kernel']:.4f} ms")
     # device time of pass 1 (split) and pass 2 (merge)
     dev_ms = device_ms(lambda: F.fused_topk_cuda(qc, codes, k=k, metric="ip"),
                        ("split_topk_kernel", "merge_topk_kernel"))
@@ -1299,6 +1441,7 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
         check_kernels(err)
         check_adc()
+        check_any_k(err)
         check_qscore(err)
         timing = time_kernels(err)
         timing.update(time_adc())
@@ -1309,6 +1452,9 @@ def main() -> int:
                 counts[name] = counts.get(name, 0) + c
         table2()
         retrieval_recall()
+        log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
+            f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
+            f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -36,11 +36,17 @@
 //     (|s| <= 128*M) and many rows share the k-th score.
 //   pass 2: topk_common.cuh's merge, one block per query.
 //
-// The Python wrapper (kernels/adc.py) is the one place that chooses the
-// layout: the candidate cap of fused_topk.split_cap(k), BQ 16, 8 or 4 so
-// that the BQ LUTs (M*K bytes each: 8 KB at M=32, K=256) plus the BQ
-// buffers (8*cap bytes each) stay within the 227 KB of shared memory, and
-// the split count.
+// The Python wrapper (kernels/adc.py `adc_layout`) is the one place that
+// chooses the layout, so that any k <= N and any M launch: BQ 16, 8, 4, 2
+// or 1 so that the BQ LUTs (M*K bytes each: 8 KB at M=32, K=256) plus the
+// BQ candidate buffers (8*cap bytes each) fit in the 227 KB of shared
+// memory; failing that, the buffers in a global scratch (GBUF); failing
+// that (B4 past about M = 800), the LUTs read from global memory through
+// L2 (LUTG, 4 queries a block).  Below 4 queries a block the 256 threads
+// form BQ query groups of 256 / BQ row lanes, so a tile is 512 or 1024
+// rows and an insert round ROW_LANES * 4 / BQ candidates a query; `cap`
+// holds k plus one round.  At k <= 1024 and M <= 64 the layout, and the
+// compiled shared-memory instances, are the first version's.
 //
 // Bound on the H100: operations for a full query bucket (Q*N*M int32
 // adds; no gather or one-hot form does fewer), bytes for a single request
@@ -63,7 +69,6 @@
 namespace {
 
 constexpr int TR = 4;                   // corpus rows per thread per tile
-constexpr int BN = ROW_LANES * TR;      // 256 code rows per tile
 constexpr int DKC = 8;                  // 32-bit code words per chunk
 constexpr int CS_STRIDE = DKC + 1;      // odd stride: conflict-free rows
 
@@ -81,35 +86,54 @@ __device__ __forceinline__ uint32_t code_word(const uint8_t* row, int mb,
   return v;
 }
 
+// Rows a pass-1 tile holds at BQ queries a block: the 256 threads form
+// QG = min(BQ, 4) query groups of NT / QG row lanes with TR rows each, so
+// a tile is 256 rows at BQ >= 4 and 512 / 1024 at BQ = 2 / 1.
+constexpr int tile_rows(int bq) { return NT / (bq < 4 ? bq : 4) * TR; }
+
 // shared-memory bytes of one pass-1 block (kernels/adc.py smem_bytes
-// computes the same)
-size_t split_smem_bytes(int bq, int cap, int s_pad, int K) {
-  return (size_t)bq * cap * 8 + (size_t)bq * 8 + (size_t)s_pad * bq * K +
-         (size_t)BN * CS_STRIDE * 4 + (size_t)bq * 4 * 2;
+// computes the same): no candidate buffers when they live in global
+// memory (gbuf), no LUTs when they are read from global memory (lutg)
+size_t split_smem_bytes(int bq, int cap, int s_pad, int K, bool gbuf,
+                        bool lutg) {
+  return (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 8 +
+         (lutg ? 0 : (size_t)s_pad * bq * K) +
+         (size_t)tile_rows(bq) * CS_STRIDE * 4 + (size_t)bq * 4 * 2;
 }
 
-template <int KBITS, int BQ>
+// GBUF: the [BQ, cap] candidate buffers live in `gbuf` (global memory, one
+// slice a block) for k whose buffers do not fit in shared memory.  LUTG:
+// the LUTs are read from global memory (through L2) for M so wide that
+// even one query's LUT does not fit in shared memory.
+template <int KBITS, int BQ, bool GBUF, bool LUTG>
 __global__ void __launch_bounds__(NT)
 adc_split_kernel(const int8_t* __restrict__ lut0,
                  const int8_t* __restrict__ lut1,
                  const uint8_t* __restrict__ codes,
                  const int8_t* __restrict__ mask, u64* __restrict__ part,
-                 int Q, long long N, int mb, int k, int cap, int n_splits,
-                 long long rows_per_split, bool codes_aligned,
-                 bool codes_vec) {
+                 u64* __restrict__ gbuf, int Q, long long N, int mb, int k,
+                 int cap, int n_splits, long long rows_per_split,
+                 bool codes_aligned, bool codes_vec) {
   constexpr int K = 1 << KBITS;          // codewords per subspace
   constexpr int KW = K / 4;              // LUT words per (subspace, query)
   constexpr int CPW = 32 / KBITS;        // codes per 32-bit code word
-  constexpr int TQ = BQ / 4;             // queries per thread (4 groups)
+  constexpr int QG = BQ < 4 ? BQ : 4;    // query groups
+  constexpr int TQ = BQ / QG;            // queries per thread
+  constexpr int RL = NT / QG;            // row lanes of a query group
+  constexpr int BN = RL * TR;            // code rows per tile
   const int W = (mb + 3) / 4;            // code words per row
   const int S = KBITS == 8 ? mb : 2 * mb;  // subspaces the LUT covers
   const int s_pad = W * CPW;             // subspaces the code words hold
 
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* buf = reinterpret_cast<u64*>(smem);                     // [BQ, cap]
-  u64* thresh = buf + (size_t)BQ * cap;                        // [BQ]
+  u64* sbase = reinterpret_cast<u64*>(smem);
+  u64* buf = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                               BQ * cap
+                  : sbase;                                     // [BQ, cap]
+  u64* thresh = GBUF ? sbase : sbase + (size_t)BQ * cap;       // [BQ]
   int8_t* lut_s = reinterpret_cast<int8_t*>(thresh + BQ);      // [s_pad, BQ, K]
-  uint32_t* cs = reinterpret_cast<uint32_t*>(lut_s + (size_t)s_pad * BQ * K);
+  uint32_t* cs = reinterpret_cast<uint32_t*>(
+      lut_s + (LUTG ? 0 : (size_t)s_pad * BQ * K));
   int* cnt = reinterpret_cast<int*>(cs + BN * CS_STRIDE);      // [BQ]
   int* need = cnt + BQ;                                        // [BQ]
 
@@ -123,28 +147,40 @@ adc_split_kernel(const int8_t* __restrict__ lut0,
     cnt[tid] = 0;
     thresh[tid] = 0ull;
   }
-  // the block's LUTs, [subspace][query][codeword]; zero for queries past Q
-  // and for the subspaces past S that the last code word's pad bytes
-  // index (those bytes are zero too)
-  uint32_t* lut_w = reinterpret_cast<uint32_t*>(lut_s);
   const long long row_w = (long long)mb * KW;   // LUT words per query row
-  for (int e = tid; e < s_pad * BQ * KW; e += NT) {
-    const int s = e / (BQ * KW);
-    const int rem = e - s * (BQ * KW);
-    const int qi = rem / KW, cw = rem - qi * KW;
-    const int q = q_base + qi;
-    uint32_t v = 0;
-    if (q < Q && s < S) {
-      const int8_t* src = KBITS == 8 ? lut0 : ((s & 1) ? lut1 : lut0);
-      const int sub = KBITS == 8 ? s : (s >> 1);
-      v = reinterpret_cast<const uint32_t*>(src)[q * row_w + (long long)sub * KW + cw];
+  if (!LUTG) {
+    // the block's LUTs, [subspace][query][codeword]; zero for queries past
+    // Q and for the subspaces past S that the last code word's pad bytes
+    // index (those bytes are zero too)
+    uint32_t* lut_w = reinterpret_cast<uint32_t*>(lut_s);
+    for (int e = tid; e < s_pad * BQ * KW; e += NT) {
+      const int s = e / (BQ * KW);
+      const int rem = e - s * (BQ * KW);
+      const int qi = rem / KW, cw = rem - qi * KW;
+      const int q = q_base + qi;
+      uint32_t v = 0;
+      if (q < Q && s < S) {
+        const int8_t* src = KBITS == 8 ? lut0 : ((s & 1) ? lut1 : lut0);
+        const int sub = KBITS == 8 ? s : (s >> 1);
+        v = reinterpret_cast<const uint32_t*>(src)[q * row_w + (long long)sub * KW + cw];
+      }
+      lut_w[e] = v;
     }
-    lut_w[e] = v;
   }
 
-  const int qg = tid / ROW_LANES;
-  const int lane = tid % ROW_LANES;
+  const int qg = tid / RL;
+  const int lane = tid % RL;
   const int8_t* lut_g = lut_s + qg * TQ * K;   // this thread's query group
+  // LUTG: this thread's queries' LUT rows in global memory (a query past Q
+  // reads query Q - 1's; its scores are never offered)
+  const int8_t* lq0[TQ];
+  const int8_t* lq1[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const long long q = min(q_base + qg * TQ + i, Q - 1);
+    lq0[i] = lut0 + q * row_w * 4;
+    lq1[i] = KBITS == 4 ? lut1 + q * row_w * 4 : lut0;
+  }
 
   for (long long t0 = r_begin; t0 < r_end; t0 += BN) {
     int acc[TQ][TR];
@@ -194,24 +230,35 @@ adc_split_kernel(const int8_t* __restrict__ lut0,
       for (int w = 0; w < nw; ++w) {
 #pragma unroll
         for (int j = 0; j < TR; ++j) {
-          const uint32_t word = cs[(lane + j * ROW_LANES) * CS_STRIDE + w];
+          const uint32_t word = cs[(lane + j * RL) * CS_STRIDE + w];
 #pragma unroll
           for (int b = 0; b < CPW; ++b) {
             const int code = (word >> (KBITS * b)) & (K - 1);
-            const int8_t* p = lut_g + ((c0 + w) * CPW + b) * (BQ * K) + code;
+            const int s = (c0 + w) * CPW + b;
+            if (LUTG) {
+              if (s < S) {
+                const int sub = KBITS == 8 ? s : (s >> 1);
 #pragma unroll
-            for (int i = 0; i < TQ; ++i) acc[i][j] += p[i * K];
+                for (int i = 0; i < TQ; ++i)
+                  acc[i][j] += __ldg((KBITS == 4 && (s & 1) ? lq1[i] : lq0[i])
+                                     + (long long)sub * K + code);
+              }
+            } else {
+              const int8_t* p = lut_g + s * (BQ * K) + code;
+#pragma unroll
+              for (int i = 0; i < TQ; ++i) acc[i][j] += p[i * K];
+            }
           }
         }
       }
     }
 
-    // insert in TR rounds: at most ROW_LANES candidates per query per
-    // round, and cap >= k + ROW_LANES, so a buffer compacted to k between
-    // rounds never overflows
+    // insert in TR rounds: at most RL candidates per query per round, and
+    // cap >= k + RL, so a buffer compacted to k between rounds never
+    // overflows
 #pragma unroll
     for (int j = 0; j < TR; ++j) {
-      const long long row = t0 + lane + j * ROW_LANES;
+      const long long row = t0 + lane + j * RL;
       const bool ok_row = row < r_end && (mask == nullptr || mask[row] != 0);
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
@@ -220,7 +267,7 @@ adc_split_kernel(const int8_t* __restrict__ lut0,
           offer(buf, thresh, cnt, qi, cap,
                 make_key(__int2float_rn(acc[i][j]), row));
       }
-      compact(buf, thresh, cnt, need, BQ, cap, k, cap - ROW_LANES);
+      compact(buf, thresh, cnt, need, BQ, cap, k, cap - RL);
     }
   }
 
@@ -228,41 +275,50 @@ adc_split_kernel(const int8_t* __restrict__ lut0,
                 n_splits);
 }
 
-template <int KBITS, int BQ>
+template <int KBITS, int BQ, bool GBUF, bool LUTG>
 cudaError_t launch_split(const int8_t* lut0, const int8_t* lut1,
                          const uint8_t* codes, const int8_t* mask, u64* part,
-                         int Q, long long N, int mb, int k, int cap,
-                         int n_splits, bool aligned, bool vec,
+                         u64* gbuf, int Q, long long N, int mb, int k,
+                         int cap, int n_splits, bool aligned, bool vec,
                          cudaStream_t stream) {
   const int s_pad = ((mb + 3) / 4) * (32 / KBITS);
-  const size_t smem = split_smem_bytes(BQ, cap, s_pad, 1 << KBITS);
-  auto fn = adc_split_kernel<KBITS, BQ>;
+  const size_t smem =
+      split_smem_bytes(BQ, cap, s_pad, 1 << KBITS, GBUF, LUTG);
+  auto fn = adc_split_kernel<KBITS, BQ, GBUF, LUTG>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long rows_per_split = (N + n_splits - 1) / n_splits;
   dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  fn<<<grid, NT, smem, stream>>>(lut0, lut1, codes, mask, part, Q, N, mb, k,
-                                 cap, n_splits, rows_per_split, aligned, vec);
+  fn<<<grid, NT, smem, stream>>>(lut0, lut1, codes, mask, part, gbuf, Q, N,
+                                 mb, k, cap, n_splits, rows_per_split,
+                                 aligned, vec);
   return cudaGetLastError();
 }
 
-template <int KBITS>
-cudaError_t launch_split_bq(int bq, const int8_t* lut0, const int8_t* lut1,
-                            const uint8_t* codes, const int8_t* mask,
-                            u64* part, int Q, long long N, int mb, int k,
-                            int cap, int n_splits, bool aligned, bool vec,
-                            cudaStream_t st) {
-  if (bq == 16)
-    return launch_split<KBITS, 16>(lut0, lut1, codes, mask, part, Q, N, mb, k,
-                                   cap, n_splits, aligned, vec, st);
-  if (bq == 8)
-    return launch_split<KBITS, 8>(lut0, lut1, codes, mask, part, Q, N, mb, k,
-                                  cap, n_splits, aligned, vec, st);
-  if (bq == 4)
-    return launch_split<KBITS, 4>(lut0, lut1, codes, mask, part, Q, N, mb, k,
-                                  cap, n_splits, aligned, vec, st);
-  return cudaErrorInvalidValue;
+// the layouts kernels/adc.py adc_layout chooses: BQ 16, 8, 4, 2 or 1 with
+// the LUTs in shared memory (buffers in shared or global memory), or BQ 4
+// with the LUTs in global memory
+template <int KBITS, bool GBUF>
+cudaError_t launch_split_bq(int bq, bool lutg, const int8_t* lut0,
+                            const int8_t* lut1, const uint8_t* codes,
+                            const int8_t* mask, u64* part, u64* gbuf, int Q,
+                            long long N, int mb, int k, int cap, int n_splits,
+                            bool aligned, bool vec, cudaStream_t st) {
+#define ADC_LAUNCH(BQ_, LUTG_)                                               \
+  launch_split<KBITS, BQ_, GBUF, LUTG_>(lut0, lut1, codes, mask, part, gbuf, \
+                                        Q, N, mb, k, cap, n_splits, aligned, \
+                                        vec, st)
+  if (lutg) return bq == 4 ? ADC_LAUNCH(4, true) : cudaErrorInvalidValue;
+  switch (bq) {
+    case 16: return ADC_LAUNCH(16, false);
+    case 8: return ADC_LAUNCH(8, false);
+    case 4: return ADC_LAUNCH(4, false);
+    case 2: return ADC_LAUNCH(2, false);
+    case 1: return ADC_LAUNCH(1, false);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ADC_LAUNCH
 }
 
 }  // namespace
@@ -271,18 +327,23 @@ cudaError_t launch_split_bq(int bq, const int8_t* lut0, const int8_t* lut1,
 // uint8 codewords.  kbits 4 (B5): lut0 / lut1 = [Q, mb*16] int8 even / odd
 // subspace LUT halves, codes [N, mb] uint8 packed nibbles (low = even
 // subspace).  The caller chooses the pass-1 layout: bq queries per block,
-// a candidate buffer of `cap` keys per query (a power of two holding k kept
-// keys plus one round of ROW_LANES inserts) and n_splits corpus ranges;
-// `part` holds Q * n_splits * k keys.  Launches pass 1 and pass 2 on
-// `stream` and returns the first cudaError_t (0 on success).
-extern "C" int rt_fused_adc(int kbits, int bq, int cap, const void* lut0,
-                            const void* lut1, const void* codes,
-                            const void* mask, void* part, void* out_s,
-                            void* out_i, int Q, long long N, int mb, int k,
-                            int n_splits, void* stream) {
+// whether the LUTs are read from global memory (lutg), a candidate buffer
+// of `cap` keys per query (a power of two holding k kept keys plus one
+// round of NT / min(bq, 4) inserts), n_splits corpus ranges, and where the
+// buffers live: `gbuf` null keeps them in shared memory, else gbuf holds
+// [ceil(Q / bq) * n_splits, bq, cap] keys.  `part` holds Q * n_splits * k
+// keys; `mbuf` null merges in shared memory, else it holds
+// [Q, next_pow2(k + NT)] keys.  Launches pass 1 and pass 2 on `stream` and
+// returns the first cudaError_t (0 on success).
+extern "C" int rt_fused_adc(int kbits, int bq, int lutg, int cap,
+                            const void* lut0, const void* lut1,
+                            const void* codes, const void* mask, void* part,
+                            void* gbuf, void* mbuf, void* out_s, void* out_i,
+                            int Q, long long N, int mb, int k, int n_splits,
+                            void* stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
-  if (cap != next_pow2(cap) || cap < k + ROW_LANES || n_splits <= 0 ||
-      mb <= 0 || ((uintptr_t)lut0 & 3) != 0 ||
+  if (bq <= 0 || cap != next_pow2(cap) || cap < k + NT / (bq < 4 ? bq : 4) ||
+      n_splits <= 0 || mb <= 0 || ((uintptr_t)lut0 & 3) != 0 ||
       (kbits == 4 && (lut1 == nullptr || ((uintptr_t)lut1 & 3) != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -293,15 +354,16 @@ extern "C" int rt_fused_adc(int kbits, int bq, int cap, const void* lut0,
   const uint8_t* c = (const uint8_t*)codes;
   const int8_t* m = (const int8_t*)mask;
   u64* p = (u64*)part;
+  u64* g = (u64*)gbuf;
   cudaError_t err;
   if (kbits == 8)
-    err = launch_split_bq<8>(bq, l0, l1, c, m, p, Q, N, mb, k, cap, n_splits,
-                             aligned, vec, st);
+    err = g ? launch_split_bq<8, true>(bq, lutg, l0, l1, c, m, p, g, Q, N, mb, k, cap, n_splits, aligned, vec, st)
+            : launch_split_bq<8, false>(bq, lutg, l0, l1, c, m, p, g, Q, N, mb, k, cap, n_splits, aligned, vec, st);
   else if (kbits == 4)
-    err = launch_split_bq<4>(bq, l0, l1, c, m, p, Q, N, mb, k, cap, n_splits,
-                             aligned, vec, st);
+    err = g ? launch_split_bq<4, true>(bq, lutg, l0, l1, c, m, p, g, Q, N, mb, k, cap, n_splits, aligned, vec, st)
+            : launch_split_bq<4, false>(bq, lutg, l0, l1, c, m, p, g, Q, N, mb, k, cap, n_splits, aligned, vec, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(p, out_s, out_i, Q, n_splits, k, st);
+  return (int)launch_merge(p, (u64*)mbuf, out_s, out_i, Q, n_splits, k, st);
 }

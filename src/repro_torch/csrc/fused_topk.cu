@@ -9,52 +9,66 @@
 // masked rows never returned, the [Q, N] score matrix never written to
 // device memory.  The TPU grid walks corpus tiles in order with the
 // [bq, k] best set in VMEM; that gives 8 blocks at Q=1000 and cannot fill
-// 132 SMs, so the layout here is different:
+// 132 SMs, so both kernels here split the corpus: pass 1 is grid
+// (ceil(Q / BQ), S), block (qb, s) scoring BQ queries against the s-th
+// contiguous range of corpus rows (block x is the query block, so the
+// blocks that read one range are resident together and share it through
+// L2) and writing each query's best k of it to a [Q, S, k] scratch; pass 2
+// (topk_common.cuh `merge_topk_kernel`) merges the S lists of each query
+// and writes ([Q, k] f32, [Q, k] i32).  The Python wrapper
+// (kernels/fused_topk.py `layout`) is the one place that chooses BQ, S,
+// the candidate capacity and where the candidates live.
 //
-//   pass 1 (split_topk_kernel): grid (ceil(Q/BQ), S).  Block (qb, s) scores
-//     BQ queries against the s-th contiguous range of corpus rows, in tiles
-//     of BN=256 rows and d-chunks of DK 32-bit words staged in shared
-//     memory (16-byte loads, all in flight before the shared stores).  Each
-//     thread holds a TQ x 4 (query x row) register tile, TQ = BQ / 4.
-//     Per query the block keeps a candidate buffer of `cap` keys in shared
-//     memory and a threshold (its current k-th best); a score enters the
-//     buffer only if it beats the threshold, and a bitonic sort truncates
-//     the buffer to k whenever it could overflow.  The Python wrapper
-//     (kernels/fused_topk.py) is the one place that chooses the layout:
-//     cap = next_pow2(2k + 64), BQ 16, 8 or 4 so that the buffers stay
-//     within 64-128 KB, and S.  Block x is the query block, so the
-//     blocks that read the same corpus range are resident together and
-//     share it through L2.
-//   pass 2 (merge_topk_kernel): one block per query merges the S partial
-//     top-k lists the same way and writes ([Q, k] f32, [Q, k] i32).
+// B2 fp32 (`f32_topk_kernel`).  Bound on the H100 by operations: 2*Q*N*d
+// FLOP at 67 TFLOP/s on the CUDA cores (7.8 ms at Q=256 over 4M x 256),
+// since the contract is fp32 (no TF32, no tensor cores); a single request
+// is bound by the N*d*4 bytes.  The design against that bound:
+//   - a register tile of 4 queries x 8 rows a thread at 32 queries a block
+//     (1 x 8 at 8, 1 x 1 at one query, the warps then split the rows), so
+//     each 16-byte shared load feeds 8-32 FFMA, within 128 registers so
+//     that two blocks share an SM: at one block an SM (8 x 8 at 64
+//     queries, 252 registers) the FFMA pipes idled; each accumulator is
+//     one fmaf chain over d in dimension order (the order ROADMAP C6
+//     measures);
+//   - a 2-stage cp.async ring (16 floats a row, or 32 where the copies
+//     bound the tile), rows landing row-major with a 4-float pad so
+//     16-byte reads of 8 consecutive rows are conflict-free; 16-byte copies
+//     for aligned rows with d % 4 == 0, 4-byte copies otherwise; ragged Q,
+//     N and d zero-filled in shared memory only;
+//   - candidates kept per warp: each warp owns one list per query it
+//     scores (and per row group at one query a block), appends a tile's
+//     survivors with one ballot per 32 rows, and sorts a list down to k
+//     (warp_compact) only when the next 32 could overflow it, so the
+//     upkeep takes no block barrier (the parent's four `compact` barriers
+//     a tile also stalled its dot loop); the lists live in shared memory
+//     (two blocks an SM while k <= 160), or in a global scratch for k past
+//     about 2000.
+//   What still holds it back (PERF.md): its dot loop, at about 0.42 of
+//   the FFMA peak.
+//
+// B2 int8 and B3 (`split_topk_kernel`) keep their first design, which
+// waits for its own redesign: a TQ x 4 (query x row) tile a thread, TQ =
+// BQ / 4, tiles of BN=256 rows and d-chunks of DK 32-bit words staged in
+// shared memory, a candidate buffer of `cap` keys a query in shared memory
+// (global memory past k = 2016) compacted block-wide whenever one more
+// round of ROW_LANES inserts could overflow it.  int8 and unpacked int4
+// dots are __dp4a with int32 accumulation (exact); B3 unpacks nibbles in
+// registers, (b & 0xF) - 8 and (b >> 4) - 8 via __vsub4 (Hopper has no
+// int4 MMA), and scores the pre-split even/odd query halves against the
+// two nibble planes, as repro/kernels/ops.py:155 splits them.  Their bound
+// is the int8 tensor cores' (2*Q*N*d at 1,979 TOP/s) or the N*d bytes.
 //
 // Order: (f32 score desc under the IEEE total order, row id asc), the
 // reference's (`_merge_tile` takes the first position on ties; `lax.top_k`
-// is stable).  The candidate buffers, their 64-bit (score, ~id) keys, the
-// bitonic compaction and pass 2 live in topk_common.cuh, shared with the
-// ADC scans (adc.cu).  Integer scores are cast to f32 before the key is
+// is stable): every candidate is one 64-bit (score, ~id) key
+// (topk_common.cuh).  Integer scores are cast to f32 before the key is
 // made, as the reference casts before its merge (fused_topk.py:123): above
 // 2^24, distinct int32 scores that round to one f32 become ties broken by
-// id.
-//
-// Arithmetic: int8 and unpacked int4 dots are __dp4a with int32
-// accumulation (exact); f32 dots are FFMA (no TF32); l2 is
-// -(|q|^2 + |x|^2 - 2 q.x) in the accumulator type.  B3 unpacks nibbles in
-// registers, (b & 0xF) - 8 and (b >> 4) - 8 via __vsub4 (Hopper has no int4
-// MMA), and scores the pre-split even/odd query halves against the two
-// nibble planes, as repro/kernels/ops.py:155 splits them.
-//
-// Bound on the H100: operations for large query batches (2*Q*N*d int8 ops
-// at 1,979 TOP/s on the tensor cores, f32 at 67 TFLOP/s on the CUDA
-// cores), bytes for a single request (N*d bytes at 3.35 TB/s).  This first
-// version runs its dots on the CUDA cores (dp4a / FFMA) out of shared
-// memory, so it stays well above the int8 bound; mma.sync / wgmma int8
-// with TMA-fed tiles is the later step.  Allocates nothing: the wrapper
-// passes the [Q, S, k] partial-key scratch and the outputs.
+// id.  l2 is -(|q|^2 + |x|^2 - 2 q.x) in the accumulator type.
+// Allocates nothing: the wrapper passes the scratch and the outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <type_traits>
 
 #include "topk_common.cuh"
 
@@ -112,9 +126,7 @@ struct Rows {
   __device__ __forceinline__ static uint32_t x_word(const void* x, long long r,
                                                     int width, int wh, int w,
                                                     bool aligned) {
-    if (KIND == KIND_F32) {
-      return __float_as_uint(static_cast<const float*>(x)[r * width + w]);
-    } else if (KIND == KIND_I8) {
+    if (KIND == KIND_I8) {
       return load_i8_word(static_cast<const int8_t*>(x) + r * width, width, w,
                           aligned);
     } else {
@@ -127,9 +139,7 @@ struct Rows {
                                                     const void* q1, int q,
                                                     int width, int wh, int w,
                                                     bool aligned) {
-    if (KIND == KIND_F32) {
-      return __float_as_uint(static_cast<const float*>(q0)[(long long)q * width + w]);
-    } else if (KIND == KIND_I8) {
+    if (KIND == KIND_I8) {
       return load_i8_word(static_cast<const int8_t*>(q0) + (long long)q * width,
                           width, w, aligned);
     } else {
@@ -162,12 +172,6 @@ __device__ __forceinline__ uint4 x_vec4(const void* x, long long r, int W,
   return v;
 }
 
-template <int KIND>
-using AccT = typename std::conditional<KIND == KIND_F32, float, int>::type;
-
-__device__ __forceinline__ float dot_word(uint32_t a, uint32_t b, float acc) {
-  return fmaf(__uint_as_float(a), __uint_as_float(b), acc);
-}
 __device__ __forceinline__ int dot_word(uint32_t a, uint32_t b, int acc) {
   return __dp4a((int)a, (int)b, acc);
 }
@@ -181,8 +185,9 @@ __device__ __forceinline__ float finish(int dot, int qn, int xn, bool l2) {
   return __int2float_rn(-(qn + xn - 2 * dot));
 }
 
-size_t split_smem_bytes(int bq, int cap) {
-  return (size_t)bq * cap * 8 + (size_t)bq * 8 + (size_t)BN * XS_STRIDE * 4 +
+size_t split_smem_bytes(int bq, int cap, bool gbuf) {
+  return (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 8 +
+         (size_t)BN * XS_STRIDE * 4 +
          (size_t)bq * DK * 4 + (size_t)BN * 4 + (size_t)bq * 4 * 3;
 }
 
@@ -190,18 +195,24 @@ size_t split_smem_bytes(int bq, int cap) {
 // layout's shared memory (about 100 KB a block up to k = 400) allows two.
 // Left free, nvcc gave the packed-int4 ip variant at BQ = 8 (k = 400) 169
 // registers, one block per SM, and 1.4x the time.
-template <int KIND, bool L2, int BQ>
+// GBUF: the [BQ, cap] candidate buffers live in `gbuf` (global memory,
+// one slice a block) for k whose buffers do not fit in shared memory.
+template <int KIND, bool L2, int BQ, bool GBUF>
 __global__ void __launch_bounds__(NT, 2)
 split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
                   const void* __restrict__ x, const int8_t* __restrict__ mask,
-                  u64* __restrict__ part, int Q, long long N, int width,
-                  int k, int cap, int n_splits, long long rows_per_split,
-                  bool x_aligned, bool q_aligned, bool x_vec) {
-  using Acc = AccT<KIND>;
+                  u64* __restrict__ part, u64* __restrict__ gbuf, int Q,
+                  long long N, int width, int k, int cap, int n_splits,
+                  long long rows_per_split, bool x_aligned, bool q_aligned,
+                  bool x_vec) {
+  using Acc = int;
   constexpr int TQ = BQ / 4;            // queries per thread (4 query groups)
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* buf = reinterpret_cast<u64*>(smem);                  // [BQ, cap]
-  u64* thresh = buf + (size_t)BQ * cap;                     // [BQ]
+  u64* sbase = reinterpret_cast<u64*>(smem);
+  u64* buf = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                               BQ * cap
+                  : sbase;                                  // [BQ, cap]
+  u64* thresh = GBUF ? sbase : sbase + (size_t)BQ * cap;    // [BQ]
   uint32_t* xs = reinterpret_cast<uint32_t*>(thresh + BQ);  // [BN, XS_STRIDE]
   uint32_t* qs = xs + BN * XS_STRIDE;                       // [BQ, DK]
   Acc* xn = reinterpret_cast<Acc*>(qs + BQ * DK);           // [BN]
@@ -215,7 +226,7 @@ split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min(N, r_begin + rows_per_split);
   const int wh = (width + 3) / 4;
-  const int W = KIND == KIND_F32 ? width : (KIND == KIND_I8 ? wh : 2 * wh);
+  const int W = KIND == KIND_I8 ? wh : 2 * wh;
 
   if (tid < BQ) {
     cnt[tid] = 0;
@@ -330,84 +341,466 @@ split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
                 n_splits);
 }
 
-template <int KIND, bool L2, int BQ>
+template <int KIND, bool L2, int BQ, bool GBUF>
 cudaError_t launch_split(const void* q0, const void* q1, const void* x,
-                         const int8_t* mask, u64* part, int Q, long long N,
-                         int width, int k, int cap, int n_splits,
+                         const int8_t* mask, u64* part, u64* gbuf, int Q,
+                         long long N, int width, int k, int cap, int n_splits,
                          bool x_aligned, bool q_aligned, bool x_vec,
                          cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(BQ, cap);
-  auto fn = split_topk_kernel<KIND, L2, BQ>;
+  const size_t smem = split_smem_bytes(BQ, cap, GBUF);
+  auto fn = split_topk_kernel<KIND, L2, BQ, GBUF>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long rows_per_split = (N + n_splits - 1) / n_splits;
   dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  fn<<<grid, NT, smem, stream>>>(q0, q1, x, mask, part, Q, N, width, k, cap,
-                                 n_splits, rows_per_split, x_aligned,
+  fn<<<grid, NT, smem, stream>>>(q0, q1, x, mask, part, gbuf, Q, N, width, k,
+                                 cap, n_splits, rows_per_split, x_aligned,
                                  q_aligned, x_vec);
   return cudaGetLastError();
 }
 
+// shared-memory buffers at BQ 16, 8 or 4; global ones at BQ 4 (the
+// wrapper takes them only where k is too wide for shared memory, and
+// there the query tile is 4)
 template <int KIND, bool L2>
 cudaError_t launch_split_bq(int bq, const void* q0, const void* q1,
                             const void* x, const int8_t* mask, u64* part,
-                            int Q, long long N, int width, int k, int cap,
-                            int n_splits, bool xa, bool qa, bool xv,
+                            u64* gbuf, int Q, long long N, int width, int k,
+                            int cap, int n_splits, bool xa, bool qa, bool xv,
                             cudaStream_t st) {
+  if (gbuf != nullptr)
+    return bq == 4 ? launch_split<KIND, L2, 4, true>(
+                         q0, q1, x, mask, part, gbuf, Q, N, width, k, cap,
+                         n_splits, xa, qa, xv, st)
+                   : cudaErrorInvalidValue;
   if (bq == 16)
-    return launch_split<KIND, L2, 16>(q0, q1, x, mask, part, Q, N, width, k,
-                                      cap, n_splits, xa, qa, xv, st);
+    return launch_split<KIND, L2, 16, false>(q0, q1, x, mask, part, nullptr, Q,
+                                             N, width, k, cap, n_splits, xa,
+                                             qa, xv, st);
   if (bq == 8)
-    return launch_split<KIND, L2, 8>(q0, q1, x, mask, part, Q, N, width, k,
-                                     cap, n_splits, xa, qa, xv, st);
+    return launch_split<KIND, L2, 8, false>(q0, q1, x, mask, part, nullptr, Q,
+                                            N, width, k, cap, n_splits, xa,
+                                            qa, xv, st);
   if (bq == 4)
-    return launch_split<KIND, L2, 4>(q0, q1, x, mask, part, Q, N, width, k,
-                                     cap, n_splits, xa, qa, xv, st);
+    return launch_split<KIND, L2, 4, false>(q0, q1, x, mask, part, nullptr, Q,
+                                            N, width, k, cap, n_splits, xa,
+                                            qa, xv, st);
   return cudaErrorInvalidValue;
+}
+
+// ---- B2 fp32: the register-tiled FFMA scan ---------------------------------
+
+// Thread layout of one config: WQ warps along queries x WR = 8 / WQ warps
+// along rows; a thread holds TQ queries x TR rows of accumulators, rows
+// lane + 32 j of its warp's row group, so a tile is BN = WR * 32 * TR rows.
+// Each 16-byte shared load of a query (a broadcast) or a row feeds TR or
+// TQ x 4 FFMA: at 4 x 8 a warp reads 12 such words for 128 FFMA.
+// The ring holds 2 stages of DK floats a row, rows padded to DK + 4
+// floats (16-byte reads of 8 consecutive rows hit 32 distinct banks): 16
+// floats where the FFMAs bound the tile (4 queries a thread), 32 where
+// the copies do (1 query a thread: fewer, larger steps keep more bytes in
+// flight).  A third stage would leave room for one block an SM only.
+template <int WQ, int TQ, int TR>
+struct F32Cfg {
+  static constexpr int WR = 8 / WQ;
+  static constexpr int BQ = WQ * TQ;                // queries per block
+  static constexpr int BN = WR * 32 * TR;           // corpus rows per tile
+  static constexpr int DK = TQ >= 4 ? 16 : 32;      // floats a row a stage
+  static constexpr int STAGES = 2;
+  static constexpr int FROW = DK + 4;               // padded row stride
+  static constexpr int STAGE = (BQ + BN) * FROW;    // floats per stage
+  static_assert(BN % NT == 0, "a tile is a multiple of 256 rows");
+};
+
+// shared memory of one block: the ring, then (lists = bq * WR) thresholds,
+// the candidate lists of `cap` keys unless they live in global memory,
+// |x|^2 of the tile's rows, |q|^2, the lists' counts and the block
+// compaction's flags (kernels/fused_topk.py f32_smem_bytes computes the same)
+template <int WQ, int TQ, int TR>
+size_t f32_smem_bytes(int cap, bool gbuf) {
+  using C = F32Cfg<WQ, TQ, TR>;
+  const int bq = C::BQ, lists = C::BQ * C::WR;
+  return (size_t)C::STAGES * C::STAGE * 4 + (size_t)lists * 8 +
+         (gbuf ? 0 : (size_t)lists * cap * 8) + (size_t)C::BN * 4 +
+         (size_t)bq * 4 + (size_t)lists * 4 + (size_t)bq * 4;
+}
+
+// Sort a warp's list of `cap` keys (a power of two) descending: the
+// bitonic network of topk_common.cuh's `compact`, one warp, no block
+// barrier.  The whole warp calls it.
+__device__ void warp_sort_desc(u64* b, int cap, int lane) {
+  for (int size = 2; size <= cap; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll 4
+      for (int i = lane; i < cap / 2; i += 32) {
+        // 2 * stride * (i / stride) + i % stride, stride a power of two
+        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const u64 a = b[lo], c = b[hi];
+        if (desc ? (a < c) : (a > c)) {
+          b[lo] = c;
+          b[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// Truncate a warp's list holding c keys to its best k: zero-fill past c,
+// sort, and raise the threshold to the k-th key once there are k.
+__device__ void warp_compact(u64* b, int& c, u64& thr, int cap, int k,
+                             int lane) {
+  __syncwarp();
+  for (int e = c + lane; e < cap; e += 32) b[e] = 0ull;
+  __syncwarp();
+  warp_sort_desc(b, cap, lane);
+  c = min(c, k);
+  if (c >= k) thr = b[k - 1];
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// n of the 16 (4) bytes are copied, the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage floats [c0, c0 + DKF) of rows [row0, row0 + R) of an [n_rows, d]
+// fp32 matrix row-major into dst (stride DKF + 4), zero past n_rows and d:
+// 16-byte copies where `vec` (d % 4 == 0, base 16-byte aligned), else
+// 4-byte copies (any d, any 4-byte aligned base).
+template <int R, int DKF>
+__device__ __forceinline__ void f32_stage(float* dst,
+                                          const float* __restrict__ src,
+                                          long long row0, long long n_rows,
+                                          int d, int c0, bool vec, int tid) {
+  constexpr int FROW = DKF + 4;
+  if (vec) {
+    constexpr int ALL = R * (DKF / 4);
+#pragma unroll
+    for (int j = 0; j < (ALL + NT - 1) / NT; ++j) {
+      const int e = tid + j * NT;
+      if (ALL % NT == 0 || e < ALL) {
+        const int r = e / (DKF / 4), c = c0 + (e % (DKF / 4)) * 4;
+        const bool ok = row0 + r < n_rows && c < d;
+        cp_async16(dst + r * FROW + (e % (DKF / 4)) * 4,
+                   ok ? src + (row0 + r) * d + c : src, ok ? 16 : 0);
+      }
+    }
+  } else {
+    constexpr int ALL = R * DKF;
+#pragma unroll 4
+    for (int j = 0; j < (ALL + NT - 1) / NT; ++j) {
+      const int e = tid + j * NT;
+      if (ALL % NT == 0 || e < ALL) {
+        const int r = e / DKF, c = c0 + e % DKF;
+        const bool ok = row0 + r < n_rows && c < d;
+        cp_async4(dst + r * FROW + e % DKF,
+                  ok ? src + (row0 + r) * d + c : src, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// Pass 1 of B2 fp32: grid (ceil(Q / BQ), S); block (qb, s) scores BQ
+// queries against the s-th contiguous range of corpus rows, 256-row tiles
+// through a F_STAGES-deep cp.async ring of DKF-float row chunks.  Each
+// accumulator is one fmaf chain over d in dimension order.  Every warp
+// owns its candidate lists (one per query it scores and per row group of
+// the tile it covers: list query * WR + wr), so the upkeep needs no block
+// barrier: at the end of a tile a warp appends each row group's surviving
+// (score, row) keys to its list with one ballot, and sorts the list down to
+// k (warp_compact) only when another round could overflow it.  The lists
+// live in shared memory (GBUF false) or, for k too wide, in `gbuf`.
+// Two blocks an SM: at one, 8 warps could not keep the FFMA pipes busy
+// (8 x 8 accumulators at 64 queries a block took 252 registers and ran
+// its dots at 0.37 of the peak; 4 x 8 at two blocks an SM ran them 14%
+// faster, PERF.md).
+template <bool L2, int WQ, int TQ, int TR, bool GBUF>
+__global__ void __launch_bounds__(NT, 2)
+f32_topk_kernel(const float* __restrict__ qm, const float* __restrict__ x,
+                const int8_t* __restrict__ mask, u64* __restrict__ part,
+                u64* __restrict__ gbuf, int Q, long long N, int d, int k,
+                int cap, int n_splits, long long rows_per_split, bool x_vec,
+                bool q_vec) {
+  using C = F32Cfg<WQ, TQ, TR>;
+  constexpr int BQ = C::BQ, WR = C::WR, LISTS = BQ * WR;
+  constexpr int DKF = C::DK, F_STAGES = C::STAGES, FROW = C::FROW;
+  constexpr int BN = C::BN, RPT = BN / NT;   // rows a tile, |x|^2 a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);               // [STAGES][STAGE]
+  u64* thresh = reinterpret_cast<u64*>(ring + F_STAGES * C::STAGE);  // [LISTS]
+  u64* lists = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                 LISTS * cap
+                    : thresh + LISTS;                         // [LISTS, cap]
+  float* xn = reinterpret_cast<float*>(
+      GBUF ? thresh + LISTS : thresh + LISTS + (size_t)LISTS * cap);  // [BN]
+  float* qn = xn + BN;                                       // [BQ]
+  int* cnt = reinterpret_cast<int*>(qn + BQ);                // [LISTS]
+  int* need = cnt + LISTS;                                   // [BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wq = warp / WR, wr = warp % WR;
+  const int q_base = blockIdx.x * BQ;
+  const long long r_begin = (long long)blockIdx.y * rows_per_split;
+  const long long r_end = min(N, r_begin + rows_per_split);
+  auto query_of = [&](int i) { return wq * TQ + i; };
+  auto row_of = [&](int j) { return wr * 32 * TR + lane + 32 * j; };
+
+  if (tid < LISTS) {
+    cnt[tid] = 0;
+    thresh[tid] = 0ull;
+  }
+  if (tid < BQ) {
+    float s = 0.0f;
+    const int q = q_base + tid;
+    if (L2 && q < Q)
+      for (int c = 0; c < d; ++c) {
+        const float v = qm[(long long)q * d + c];
+        s = fmaf(v, v, s);
+      }
+    qn[tid] = s;
+  }
+
+  const int n_chunks = (d + DKF - 1) / DKF;
+  const long long n_rows = max(0LL, r_end - r_begin);
+  const int n_steps = (int)((n_rows + BN - 1) / BN) * n_chunks;
+  auto load_step = [&](int s) {
+    float* st = ring + (s % F_STAGES) * C::STAGE;
+    const int c0 = (s % n_chunks) * DKF;
+    const long long row0 = r_begin + (long long)(s / n_chunks) * BN;
+    f32_stage<BQ, DKF>(st, qm, q_base, Q, d, c0, q_vec, tid);
+    f32_stage<BN, DKF>(st + BQ * FROW, x, row0, r_end, d, c0, x_vec, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+
+  float acc[TQ][TR];
+  float xsq[RPT];                       // |x|^2 of rows tid + NT u
+  long long t0 = r_begin;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    if (s + F_STAGES - 1 < n_steps) load_step(s + F_STAGES - 1);
+    cp_async_commit();
+    const int c = s % n_chunks;
+    if (c == 0) {
+      t0 = r_begin + (long long)(s / n_chunks) * BN;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) xsq[u] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) acc[i][j] = 0.0f;
+    }
+    const float* qs = ring + (s % F_STAGES) * C::STAGE;
+    const float* xs = qs + BQ * FROW;
+#pragma unroll
+    for (int dd = 0; dd < DKF; dd += 4) {
+      float4 qv[TQ];
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + query_of(i) * FROW + dd);
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(xs + row_of(j) * FROW + dd);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          acc[i][j] = fmaf(qv[i].x, xv.x, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].y, xv.y, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].z, xv.z, acc[i][j]);
+          acc[i][j] = fmaf(qv[i].w, xv.w, acc[i][j]);
+        }
+      }
+      if (L2) {
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(xs + (tid + NT * u) * FROW + dd);
+          xsq[u] = fmaf(v.x, v.x, xsq[u]);
+          xsq[u] = fmaf(v.y, v.y, xsq[u]);
+          xsq[u] = fmaf(v.z, v.z, xsq[u]);
+          xsq[u] = fmaf(v.w, v.w, xsq[u]);
+        }
+      }
+    }
+    if (c != n_chunks - 1) continue;
+
+    // ---- epilogue of the tile at t0: warp-private, no block barrier
+    // (l2 waits once for the tile's |x|^2) ----
+    if (L2) {
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) xn[tid + NT * u] = xsq[u];
+      __syncthreads();
+    }
+    bool ok_row[TR];
+#pragma unroll
+    for (int j = 0; j < TR; ++j) {
+      const long long row = t0 + row_of(j);
+      ok_row[j] = row < r_end && (mask == nullptr || mask[row] != 0);
+    }
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int qi = query_of(i);
+      if (q_base + qi >= Q) continue;
+      const int l = qi * WR + wr;
+      u64* b = lists + (size_t)l * cap;
+      u64 thr = thresh[l];
+      int n = cnt[l];
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        const u64 key = make_key(
+            finish(acc[i][j], qn[qi], L2 ? xn[row_of(j)] : 0.0f, L2),
+            t0 + row_of(j));
+        const bool pass = ok_row[j] && key > thr;
+        const unsigned m = __ballot_sync(0xffffffffu, pass);
+        if (m == 0u) continue;
+        if (pass) b[n + __popc(m & ((1u << lane) - 1u))] = key;
+        n += __popc(m);
+        if (n > cap - 32) warp_compact(b, n, thr, cap, k, lane);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        cnt[l] = n;
+        thresh[l] = thr;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // each query's WR lists, zero-filled past their counts, are one buffer
+  // of WR * cap keys: the block's compaction truncates it to the best k
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int l = query_of(i) * WR + wr;
+    __syncwarp();
+    const int n = cnt[l];
+    for (int e = n + lane; e < cap; e += 32) lists[(size_t)l * cap + e] = 0ull;
+  }
+  __syncthreads();
+  if (tid < BQ) {
+    cnt[tid] = WR * cap;
+    thresh[tid] = 0ull;
+  }
+  flush_partial(lists, thresh, cnt, need, BQ, WR * cap, k, part, q_base, Q,
+                blockIdx.y, n_splits);
+}
+
+template <bool L2, int WQ, int TQ, int TR, bool GBUF>
+cudaError_t launch_f32(const float* q, const float* x, const int8_t* mask,
+                       u64* part, u64* gbuf, int Q, long long N, int d, int k,
+                       int cap, int n_splits, bool x_vec, bool q_vec,
+                       cudaStream_t stream) {
+  using C = F32Cfg<WQ, TQ, TR>;
+  const size_t smem = f32_smem_bytes<WQ, TQ, TR>(cap, GBUF);
+  auto fn = f32_topk_kernel<L2, WQ, TQ, TR, GBUF>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long rows_per_split = (N + n_splits - 1) / n_splits;
+  dim3 grid((Q + C::BQ - 1) / C::BQ, n_splits);
+  fn<<<grid, NT, smem, stream>>>(q, x, mask, part, gbuf, Q, N, d, k, cap,
+                                 n_splits, rows_per_split, x_vec, q_vec);
+  return cudaGetLastError();
+}
+
+// the query tiles of kernels/fused_topk.py f32_query_tile: 32 (4 x 8
+// accumulators a thread), 8 (1 x 8) and 1 (1 x 1, the warps along rows);
+// lists in shared memory unless `gbuf` is given
+template <bool L2>
+cudaError_t launch_f32_bq(int bq, const float* q, const float* x,
+                          const int8_t* mask, u64* part, u64* gbuf, int Q,
+                          long long N, int d, int k, int cap, int n_splits,
+                          bool xv, bool qv, cudaStream_t st) {
+#define F32_LAUNCH(WQ_, TQ_, TR_)                                            \
+  (gbuf ? launch_f32<L2, WQ_, TQ_, TR_, true>(q, x, mask, part, gbuf, Q, N, \
+                                               d, k, cap, n_splits, xv, qv,  \
+                                               st)                           \
+        : launch_f32<L2, WQ_, TQ_, TR_, false>(q, x, mask, part, gbuf, Q, N, \
+                                                d, k, cap, n_splits, xv, qv, \
+                                                st))
+  switch (bq) {
+    case 32: return F32_LAUNCH(8, 4, 8);
+    case 8: return F32_LAUNCH(8, 1, 8);
+    case 1: return F32_LAUNCH(1, 1, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef F32_LAUNCH
 }
 
 }  // namespace
 
-// kind: 0 f32, 1 int8, 2 packed int4 (q0/q1 = even/odd query halves,
-// width = bytes per packed row).  The caller chooses the pass-1 layout:
-// bq queries per block, a candidate buffer of `cap` keys per query (a power
-// of two holding k kept keys plus one round of ROW_LANES inserts) and
-// n_splits corpus ranges; `part` holds Q * n_splits * k keys.  Launches
+// kind: 0 f32 (f32_topk_kernel), 1 int8 or 2 packed int4
+// (split_topk_kernel; q0/q1 = even/odd query halves, width = bytes per
+// packed row).  The caller chooses the pass-1 layout: bq queries per
+// block, a candidate buffer of `cap` keys (a power of two holding k kept
+// keys plus one insert round: 32 rows for a warp's f32 list, ROW_LANES for
+// an int query's buffer), n_splits corpus ranges, and where the buffers
+// live: `gbuf` null keeps them in shared memory, else gbuf holds
+// [ceil(Q / bq) * n_splits, lists, cap] keys (lists = bq, or 8 at f32
+// bq 1).  `part` holds Q * n_splits * k keys; `mbuf` null merges in
+// shared memory, else it holds [Q, next_pow2(k + NT)] keys.  Launches
 // pass 1 and pass 2 on `stream` and returns the first cudaError_t (0 on
 // success).
 extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
                              const void* q0, const void* q1, const void* x,
-                             const void* mask, void* part, void* out_s,
-                             void* out_i, int Q, long long N, int width,
-                             int k, int n_splits, void* stream) {
+                             const void* mask, void* part, void* gbuf,
+                             void* mbuf, void* out_s, void* out_i, int Q,
+                             long long N, int width, int k, int n_splits,
+                             void* stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
-  if (cap != next_pow2(cap) || cap < k + ROW_LANES || n_splits <= 0)
+  // room for k kept keys and one insert round: 32 rows a warp (f32),
+  // ROW_LANES a query (int kinds)
+  if (cap != next_pow2(cap) || cap < k + (kind == KIND_F32 ? 32 : ROW_LANES) ||
+      n_splits <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool x_aligned =
-      kind == KIND_F32 || (width % 4 == 0 && ((uintptr_t)x & 3) == 0);
-  const bool q_aligned =
-      kind == KIND_F32 || (width % 4 == 0 && ((uintptr_t)q0 & 3) == 0 &&
-                           (q1 == nullptr || ((uintptr_t)q1 & 3) == 0));
-  // 16-byte corpus loads: 16-byte aligned rows (f32: d % 4 == 0; int8 and
-  // packed int4: bytes per row % 16 == 0)
-  const bool x_vec = ((uintptr_t)x & 15) == 0 &&
-                     (kind == KIND_F32 ? width % 4 == 0 : width % 16 == 0);
   const int8_t* m = (const int8_t*)mask;
   u64* p = (u64*)part;
+  u64* g = (u64*)gbuf;
   cudaError_t err;
-  if (kind == KIND_F32)
-    err = l2 ? launch_split_bq<KIND_F32, true>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-             : launch_split_bq<KIND_F32, false>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
-  else if (kind == KIND_I8)
-    err = l2 ? launch_split_bq<KIND_I8, true>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-             : launch_split_bq<KIND_I8, false>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
-  else if (kind == KIND_I4)
-    err = l2 ? launch_split_bq<KIND_I4, true>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-             : launch_split_bq<KIND_I4, false>(bq, q0, q1, x, m, p, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
-  else
-    err = cudaErrorInvalidValue;
+  if (kind == KIND_F32) {
+    // 16-byte copies: d % 4 == 0 and a 16-byte aligned base
+    const bool xv = width % 4 == 0 && ((uintptr_t)x & 15) == 0;
+    const bool qv = width % 4 == 0 && ((uintptr_t)q0 & 15) == 0;
+    const float* qf = (const float*)q0;
+    const float* xf = (const float*)x;
+    err = l2 ? launch_f32_bq<true>(bq, qf, xf, m, p, g, Q, N, width, k, cap, n_splits, xv, qv, st)
+             : launch_f32_bq<false>(bq, qf, xf, m, p, g, Q, N, width, k, cap, n_splits, xv, qv, st);
+  } else {
+    const bool x_aligned = width % 4 == 0 && ((uintptr_t)x & 3) == 0;
+    const bool q_aligned = width % 4 == 0 && ((uintptr_t)q0 & 3) == 0 &&
+                           (q1 == nullptr || ((uintptr_t)q1 & 3) == 0);
+    // 16-byte corpus loads: 16-byte aligned rows (bytes per row % 16 == 0)
+    const bool x_vec = ((uintptr_t)x & 15) == 0 && width % 16 == 0;
+    if (kind == KIND_I8)
+      err = l2 ? launch_split_bq<KIND_I8, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
+               : launch_split_bq<KIND_I8, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
+    else if (kind == KIND_I4)
+      err = l2 ? launch_split_bq<KIND_I4, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
+               : launch_split_bq<KIND_I4, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
+    else
+      err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(p, out_s, out_i, Q, n_splits, k, st);
+  return (int)launch_merge(p, (u64*)mbuf, out_s, out_i, Q, n_splits, k, st);
 }

@@ -2,8 +2,12 @@
 // B4/B5 (adc.cu).
 //
 // Pass 1 of every fused scan keeps, per query of its block, a candidate
-// buffer of `cap` 64-bit keys in shared memory plus a threshold (the
-// current k-th best key).  A scored row enters the buffer only if its key
+// buffer of `cap` 64-bit keys plus a threshold (the current k-th best
+// key).  The buffers live in shared memory where they fit and in a
+// global-memory scratch the wrapper allocates where they do not (wide k);
+// every function here works through a pointer, so the placement is the
+// caller's template flag and the shared-memory instances compile as they
+// did before the global ones existed.  A scored row enters the buffer only if its key
 // beats the threshold (`offer`); a bitonic sort truncates a buffer to its
 // best k whenever one more insert round could overflow it (`compact`).
 // `flush_partial` writes each query's best k of the block's corpus range
@@ -118,15 +122,21 @@ __device__ void flush_partial(u64* buf, u64* thresh, int* cnt, int* need,
   }
 }
 
+// GBUF: the [Q, cap] merge buffers live in `gbuf` (global memory), for k
+// whose buffer does not fit in shared memory; shared memory then holds the
+// threshold and counters only.
+template <bool GBUF>
 __global__ void __launch_bounds__(NT)
-merge_topk_kernel(const u64* __restrict__ part, float* __restrict__ out_s,
-                  int* __restrict__ out_i, int n_splits, int k, int cap) {
+merge_topk_kernel(const u64* __restrict__ part, u64* __restrict__ gbuf,
+                  float* __restrict__ out_s, int* __restrict__ out_i,
+                  int n_splits, int k, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* buf = reinterpret_cast<u64*>(smem);   // [cap]
-  u64* thresh = buf + cap;                   // [1]
+  u64* base = reinterpret_cast<u64*>(smem);
+  const int q = blockIdx.x;
+  u64* buf = GBUF ? gbuf + (size_t)q * cap : base;  // [cap]
+  u64* thresh = GBUF ? base : base + cap;           // [1]
   int* cnt = reinterpret_cast<int*>(thresh + 1);
   int* need = cnt + 1;
-  const int q = blockIdx.x;
   const long long total = (long long)n_splits * k;
   const u64* src = part + (size_t)q * total;
   if (threadIdx.x == 0) {
@@ -134,8 +144,8 @@ merge_topk_kernel(const u64* __restrict__ part, float* __restrict__ out_s,
     thresh[0] = 0ull;
   }
   __syncthreads();
-  for (long long base = 0; base < total; base += NT) {
-    const long long e = base + threadIdx.x;
+  for (long long base_e = 0; base_e < total; base_e += NT) {
+    const long long e = base_e + threadIdx.x;
     if (e < total) offer(buf, thresh, cnt, 0, cap, src[e]);
     compact(buf, thresh, cnt, need, 1, cap, k, cap - NT);
   }
@@ -153,17 +163,19 @@ int next_pow2(int v) {
   return p;
 }
 
-// Pass 2: one block per query merges its n_splits partial lists.
-cudaError_t launch_merge(const u64* part, void* out_s, void* out_i, int Q,
-                         int n_splits, int k, cudaStream_t st) {
+// Pass 2: one block per query merges its n_splits partial lists, in a
+// buffer of next_pow2(k + NT) keys: in shared memory when `gbuf` is null,
+// else in gbuf ([Q, next_pow2(k + NT)] keys, the wrapper's scratch).
+cudaError_t launch_merge(const u64* part, u64* gbuf, void* out_s, void* out_i,
+                         int Q, int n_splits, int k, cudaStream_t st) {
   const int merge_cap = next_pow2(k + NT);
-  const size_t smem = (size_t)merge_cap * 8 + 8 + 8;
+  const size_t smem = (gbuf ? 0 : (size_t)merge_cap * 8) + 8 + 8;
+  auto fn = gbuf ? merge_topk_kernel<true> : merge_topk_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      merge_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  merge_topk_kernel<<<Q, NT, smem, st>>>(part, (float*)out_s, (int*)out_i,
-                                         n_splits, k, merge_cap);
+  fn<<<Q, NT, smem, st>>>(part, gbuf, (float*)out_s, (int*)out_i, n_splits,
+                          k, merge_cap);
   return cudaGetLastError();
 }
 

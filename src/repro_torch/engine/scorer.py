@@ -172,7 +172,8 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
                             packed=store.packed, mask=mask)
         chunks = -(-store.n // _fused.BN)
         # pass 1 re-streams the corpus once per query block
-        bq = K.fused_query_tile(k_eff, q.shape[0])
+        bq = K.fused_query_tile(k_eff, q.shape[0],
+                                fp32=q.dtype == torch.float32)
         passes = max(1, -(-q.shape[0] // bq))
     else:
         s, i = _scan_topk(q, store, k_eff, metric, chunk, mask)

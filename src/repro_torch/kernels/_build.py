@@ -39,16 +39,16 @@ SIGNATURES = {
         "rt_quantize": ([_P, _P, _P, _P, _P, _L, _I, _I, _P], _I),
     },
     "fused_topk": {
-        # kind, l2, bq, cap, q0, q1, x, mask, part, out_s, out_i,
-        # Q, N, width, k, n_splits, stream
-        "rt_fused_topk": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _L, _I, _I, _I, _P], _I),
+        # kind, l2, bq, cap, q0, q1, x, mask, part, gbuf, mbuf, out_s,
+        # out_i, Q, N, width, k, n_splits, stream
+        "rt_fused_topk": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _L, _I, _I, _I, _P], _I),
     },
     "adc": {
-        # kbits, bq, cap, lut0, lut1, codes, mask, part, out_s, out_i,
-        # Q, N, mb, k, n_splits, stream
-        "rt_fused_adc": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _L, _I, _I, _I, _P], _I),
+        # kbits, bq, lutg, cap, lut0, lut1, codes, mask, part, gbuf, mbuf,
+        # out_s, out_i, Q, N, mb, k, n_splits, stream
+        "rt_fused_adc": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _L, _I, _I, _I, _P], _I),
     },
     "qscore": {
         # i4, l2, tile, q0, q1, x, out, Q, N, width, stream

@@ -19,55 +19,100 @@ agree bit for bit.  The kernel's design notes are in the CUDA source.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_topk as _fused
 
-#: query rows per block when the LUTs and buffers fit: 16, else 8, else 4
+#: query rows per block when the LUTs and buffers fit: 16, else 8, 4, 2, 1
 BQ = _fused.BQ
-#: code rows per pass-1 tile (``BN`` in the CUDA source)
+#: code rows per pass-1 tile at 4 or more queries a block (``tile_rows`` in
+#: the CUDA source: 512 at 2, 1024 at 1)
 BN = 256
 #: 32-bit code words staged per chunk (``DKC`` in the CUDA source)
 _DKC = 8
 #: dynamic shared memory one block may use on the H100 (227 KB)
-SMEM_MAX = 232448
-K_MAX = _fused.K_MAX
+SMEM_MAX = _fused.SMEM_MAX
 
 #: kernel launches on CUDA tensors, per variant (plain versions do not count)
 LAUNCHES = {"fused_adc": 0, "fused_adc4": 0}
 
 
-def smem_bytes(bq: int, cap: int, code_bytes: int, kbits: int) -> int:
+class AdcLayout(NamedTuple):
+    """One launch of ``rt_fused_adc``: queries a block, LUTs read from
+    global memory or not, candidate keys a query, corpus splits, and the
+    global-memory scratch in keys (0: none) for the pass-1 buffers and the
+    pass-2 merge."""
+    bq: int
+    lutg: bool
+    cap: int
+    splits: int
+    gbuf_keys: int
+    mbuf_keys: int
+
+
+def tile_rows(bq: int) -> int:
+    """Code rows of a pass-1 tile: min(bq, 4) query groups of 256 /
+    min(bq, 4) row lanes, 4 rows each."""
+    return _fused.NT // min(bq, 4) * 4
+
+
+def adc_cap(k: int, bq: int) -> int:
+    """Candidate keys a query: k kept keys, one insert round (one row per
+    row lane) and about k more; ``split_cap(k)`` at 4 or more queries."""
+    return _fused._pow2(2 * k + _fused.NT // min(bq, 4))
+
+
+def smem_bytes(bq: int, cap: int, code_bytes: int, kbits: int,
+               gbuf: bool = False, lutg: bool = False) -> int:
     """Shared memory of one pass-1 block (``split_smem_bytes`` in the CUDA
-    source): candidate buffers and thresholds, the block's LUTs over the
-    subspaces the staged code words hold, the code tile, counters."""
+    source): candidate buffers (unless in global memory) and thresholds,
+    the block's LUTs over the subspaces the staged code words hold (unless
+    read from global memory), the code tile, counters."""
     s_pad = -(-code_bytes // 4) * (32 // kbits)
-    return (bq * cap * 8 + bq * 8 + s_pad * bq * (1 << kbits)
-            + BN * (_DKC + 1) * 4 + bq * 8)
+    return ((0 if gbuf else bq * cap * 8) + bq * 8
+            + (0 if lutg else s_pad * bq * (1 << kbits))
+            + tile_rows(bq) * (_DKC + 1) * 4 + bq * 8)
+
+
+def _modes(q: int):
+    """(bq, buffers in global memory, LUTs in global memory) in order of
+    preference: the widest query tile whose LUTs and buffers fit in shared
+    memory (a batch of at most 4 queries starts at 4), then the buffers in
+    global memory, then the LUTs too."""
+    tiles = (4, 2, 1) if q <= 4 else (16, 8, 4, 2, 1)
+    for gbuf in (False, True):
+        for bq in tiles:
+            yield bq, gbuf, False
+    yield 4, False, True
+    yield 4, True, True
+
+
+def adc_layout(k: int, code_bytes: int, kbits: int, q: int,
+               n: int) -> AdcLayout:
+    """The whole launch layout of one fused ADC scan; the wrapper's one
+    place that decides it (the CUDA source takes it as arguments)."""
+    for bq, gbuf, lutg in _modes(q):
+        cap = adc_cap(k, bq)
+        if smem_bytes(bq, cap, code_bytes, kbits, gbuf, lutg) <= SMEM_MAX:
+            break
+    splits = n_splits(q, n, bq, k)
+    return AdcLayout(bq, lutg, cap, splits,
+                     -(-q // bq) * splits * bq * cap if gbuf else 0,
+                     0 if _fused.merge_in_shared(k) else
+                     q * _fused._pow2(k + _fused.NT))
 
 
 def query_tile(k: int, code_bytes: int, kbits: int, q: int = BQ) -> int:
-    """Query rows per block: the largest of 16 / 8 / 4 whose LUTs and
-    ``split_cap(k)`` buffers fit in shared memory (a batch of at most 4
-    queries takes 4).  Raises when even 4 do not fit: the LUT of one query
-    is M*K bytes, so a very wide M at 256 codewords is out of reach."""
-    cap = _fused.split_cap(k)
-    for bq in (16, 8, 4):
-        if (bq == 4 or q > 4) and smem_bytes(bq, cap, code_bytes,
-                                             kbits) <= SMEM_MAX:
-            return bq
-    raise ValueError(
-        f"fused_adc: {code_bytes} code bytes a row at {2 ** kbits} codewords "
-        f"and k={k} need {smem_bytes(4, cap, code_bytes, kbits)} bytes of "
-        f"shared memory for 4 queries; the H100 gives a block {SMEM_MAX}")
+    """Query rows per block (``adc_layout``'s choice)."""
+    return adc_layout(k, code_bytes, kbits, q, 1).bq
 
 
-def n_splits(q: int, n: int, bq: int) -> int:
+def n_splits(q: int, n: int, bq: int, k: int = 1) -> int:
     """Corpus ranges pass 1 splits the scan into (blocks along y), as B2."""
-    qblocks = -(-q // bq)
-    s = -(-_fused._TARGET_BLOCKS // qblocks)
-    return max(1, min(s, -(-n // _fused._MIN_SPLIT_ROWS), 65535))
+    return _fused._split_count(-(-q // bq), n, k, _fused._TARGET_BLOCKS)
 
 
 # --------------------------------------------------------------------------
@@ -113,8 +158,7 @@ def _check(cond: bool, msg: str) -> None:
 def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
     dev = codes.device
     Q, N, mb = lut0.shape[0], codes.shape[0], codes.shape[1]
-    _check(1 <= k <= K_MAX, f"k={k} outside [1, {K_MAX}] (the kernels' cap)")
-    _check(k <= N, f"k={k} exceeds the corpus rows N={N}")
+    _check(1 <= k <= N, f"k={k} outside [1, N={N}]")
     _check(N < 2 ** 31, "row ids are int32")
     _check(codes.dtype == torch.uint8, f"codes must be uint8, got {codes.dtype}")
     for t in (lut0, lut1, codes, mask):
@@ -132,14 +176,19 @@ def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    bq = query_tile(k, mb, kbits, Q)
-    splits = n_splits(Q, N, bq)
-    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    lay = adc_layout(k, mb, kbits, Q, N)
+    part = torch.empty(Q * lay.splits * k, dtype=torch.int64, device=dev)
+    gbuf = (torch.empty(lay.gbuf_keys, dtype=torch.int64, device=dev)
+            if lay.gbuf_keys else None)
+    mbuf = (torch.empty(lay.mbuf_keys, dtype=torch.int64, device=dev)
+            if lay.mbuf_keys else None)
     rc = _build.lib("adc").rt_fused_adc(
-        kbits, bq, _fused.split_cap(k), lut0.data_ptr(),
+        kbits, lay.bq, int(lay.lutg), lay.cap, lut0.data_ptr(),
         None if lut1 is None else lut1.data_ptr(), codes.data_ptr(),
         None if mask is None else mask.data_ptr(), part.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, splits,
+        None if gbuf is None else gbuf.data_ptr(),
+        None if mbuf is None else mbuf.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, lay.splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_adc")
     LAUNCHES[name] += 1

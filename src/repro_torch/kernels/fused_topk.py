@@ -15,6 +15,8 @@ CUDA source.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import distances as D
@@ -22,57 +24,181 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.packed import merge_nibble_queries
 
-#: query rows per block: 16 for k <= 224, fewer for wider k and tiny batches
+#: query rows per block of the int scans: 16 for k <= 224, fewer for wider
+#: k and tiny batches
 BQ = 16
-#: corpus rows per pass-1 tile (``BN`` in the CUDA source)
+#: corpus rows per pass-1 tile of the int scans (``BN`` in the CUDA source)
 BN = 256
-#: largest k the kernels take (the +r32 tail at k=100 asks for depth 400)
-K_MAX = 1024
+#: dynamic shared memory one block may use on the H100 (227 KB), and an
+#: SM's whole shared memory, of which each resident block also takes 1 KB
+SMEM_MAX = 232448
+SM_SMEM = 233472
 
 NEG = _ref.NEG
 
 #: threads of a pass-1 block that insert one query's candidates in one
 #: round (``ROW_LANES`` in the CUDA source)
 ROW_LANES = 64
+#: threads a block (``NT``)
+NT = 256
 
-#: blocks pass 1 aims for (four per SM on 132 SMs), and the fewest corpus
-#: rows worth one split
+#: blocks pass 1 aims for, four per SM on 132 SMs (the fp32 scan: as many
+#: as are resident at once, one or two an SM), and the fewest corpus rows
+#: worth one split
 _TARGET_BLOCKS = 528
+_SMS = 132
 _MIN_SPLIT_ROWS = 2048
 
-_KIND_F32, _KIND_I8, _KIND_I4 = 0, 1, 2
+KIND_F32, KIND_I8, KIND_I4 = 0, 1, 2
 
 #: kernel launches on CUDA tensors, per variant (plain versions do not count)
 LAUNCHES = {"fused_topk_int8": 0, "fused_topk_fp32": 0, "fused_topk4": 0}
 
 
+class Layout(NamedTuple):
+    """One launch of ``rt_fused_topk``: queries a block, candidate keys a
+    query, corpus splits, and the global-memory scratch in keys (0: none)
+    for the pass-1 buffers (``gbuf``) and the pass-2 merge (``mbuf``)."""
+    bq: int
+    cap: int
+    splits: int
+    gbuf_keys: int
+    mbuf_keys: int
+
+
+def _pow2(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
 def split_cap(k: int) -> int:
-    """Candidate-buffer keys per query in pass 1: room for k kept keys,
-    one round of ROW_LANES inserts and about k more, so a buffer is
-    compacted roughly once per k threshold-passing candidates.  The launch
-    layout is chosen here only; the CUDA source takes it as arguments and
-    rejects a buffer that could overflow."""
-    cap = 1
-    while cap < 2 * k + ROW_LANES:
-        cap <<= 1
-    return cap
+    """Candidate-buffer keys per query in the int scans' pass 1: room for k
+    kept keys, one round of ROW_LANES inserts and about k more, so a buffer
+    is compacted roughly once per k threshold-passing candidates.  The
+    launch layout is chosen here only; the CUDA source takes it as
+    arguments and rejects a buffer that could overflow."""
+    return _pow2(2 * k + ROW_LANES)
+
+
+def f32_cap(k: int) -> int:
+    """Keys of one candidate list of the fp32 scan (a warp's, per query
+    and row group): k kept keys, one round of 32 inserts and at least 64
+    more, so a list is sorted down to k at most once per 64 survivors."""
+    return _pow2(k + 96)
 
 
 def query_tile(k: int, q: int = BQ) -> int:
-    """Query rows per block.  A block keeps one ``split_cap(k)`` buffer per
-    query in shared memory, so wider k take fewer queries per block; a
-    batch of at most 4 queries takes 4 rather than computing empty rows."""
+    """Query rows per block of the int scans.  A block keeps one
+    ``split_cap(k)`` buffer per query in shared memory, so wider k take
+    fewer queries per block; a batch of at most 4 queries takes 4 rather
+    than computing empty rows."""
     cap = split_cap(k)
     if q <= 4 or cap > 1024:
         return 4
     return 16 if cap <= 512 else 8
 
 
+def f32_batch_tile(q: int) -> int:
+    """Query rows per block of the fp32 scan that the arithmetic asks for:
+    32 (4 x 8 accumulators a thread), 8 for batches of at most 16, and 1
+    for at most 4 (the warps then split the rows)."""
+    return 1 if q <= 4 else 8 if q <= 16 else 32
+
+
+def f32_lists(bq: int) -> int:
+    """Candidate lists of an fp32 block: one per query, or at one query a
+    block one per warp (8 row groups)."""
+    return 8 if bq == 1 else bq
+
+
+def f32_tile(bq: int) -> tuple[int, int, int]:
+    """(corpus rows a tile, ring stages, floats a staged row with its pad)
+    of the fp32 block at ``bq`` queries (``F32Cfg`` in the CUDA source):
+    256 rows, 2 stages, 16 floats a stage (rows padded to 20) at 32
+    queries, else 32 (padded to 36)."""
+    return (256, 2, 20) if bq >= 32 else (256, 2, 36)
+
+
+def f32_smem_bytes(bq: int, cap: int, gbuf: bool) -> int:
+    """Shared memory of one fp32 pass-1 block (``f32_smem_bytes`` in the
+    CUDA source): the ring, thresholds, the lists unless in global memory,
+    |x|^2, |q|^2, counts."""
+    lists = f32_lists(bq)
+    bn, stages, row = f32_tile(bq)
+    return (stages * (bq + bn) * row * 4 + lists * 8
+            + (0 if gbuf else lists * cap * 8) + bn * 4 + bq * 4
+            + lists * 4 + bq * 4)
+
+
+def f32_query_tile(k: int, q: int) -> tuple[int, bool]:
+    """(query rows per fp32 block, lists in global memory): the batch's
+    tile, narrowed (32 -> 8) only where its lists do not fit in shared
+    memory at this k; past that the lists move to global memory."""
+    cap = f32_cap(k)
+    bq = f32_batch_tile(q)
+    if f32_smem_bytes(bq, cap, False) > SMEM_MAX and bq == 32:
+        bq = 8
+    return bq, f32_smem_bytes(bq, cap, False) > SMEM_MAX
+
+
+def f32_blocks_per_sm(bq: int, cap: int, gbuf: bool) -> int:
+    """Resident fp32 blocks an SM: two (the launch bounds hold a thread to
+    128 registers) where shared memory takes both, else one."""
+    return 2 if 2 * (f32_smem_bytes(bq, cap, gbuf) + 1024) <= SM_SMEM else 1
+
+
+def split_smem_bytes(bq: int, cap: int, gbuf: bool) -> int:
+    """Shared memory of one int-scan pass-1 block (``split_smem_bytes`` in
+    the CUDA source)."""
+    return ((0 if gbuf else bq * cap * 8) + bq * 8 + BN * 33 * 4
+            + bq * 32 * 4 + BN * 4 + bq * 4 * 3)
+
+
+def buffers_in_shared(k: int) -> bool:
+    """Whether the int scans' pass-1 buffers fit in shared memory at k
+    (true up to k = 2016; wider k keep them in global memory)."""
+    return split_smem_bytes(query_tile(k), split_cap(k), False) <= SMEM_MAX
+
+
+def merge_in_shared(k: int) -> bool:
+    """Whether pass 2's buffer of next_pow2(k + 256) keys fits in shared
+    memory (true up to k = 16128)."""
+    return _pow2(k + NT) * 8 + 16 <= SMEM_MAX
+
+
+def _split_count(qblocks: int, n: int, k: int, target: int) -> int:
+    s = -(-target // qblocks)
+    # a split holds at least 2048 rows and 2k rows
+    return max(1, min(s, -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
+
+
 def n_splits(q: int, n: int, k: int) -> int:
-    """Corpus ranges pass 1 splits the scan into (blocks along y)."""
-    qblocks = -(-q // query_tile(k, q))
-    s = -(-_TARGET_BLOCKS // qblocks)
-    return max(1, min(s, -(-n // _MIN_SPLIT_ROWS), 65535))
+    """Corpus ranges the int scans' pass 1 splits the scan into (blocks
+    along y)."""
+    return _split_count(-(-q // query_tile(k, q)), n, k, _TARGET_BLOCKS)
+
+
+def layout(kind: int, q: int, n: int, k: int) -> Layout:
+    """The whole launch layout of one fused scan; the wrapper's one place
+    that decides it (the CUDA source takes it as arguments)."""
+    if kind == KIND_F32:
+        (bq, gbuf), cap = f32_query_tile(k, q), f32_cap(k)
+        qblocks = -(-q // bq)
+        # one wave: as many blocks as are resident at once (two an SM where
+        # shared memory allows, else one), never a partial second wave
+        per_sm = f32_blocks_per_sm(bq, cap, gbuf)
+        splits = max(1, min(per_sm * _SMS // qblocks,
+                            -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
+        gbuf = qblocks * splits * f32_lists(bq) * cap if gbuf else 0
+    else:
+        bq, cap = query_tile(k, q), split_cap(k)
+        splits = n_splits(q, n, k)
+        gbuf = (0 if buffers_in_shared(k)
+                else -(-q // bq) * splits * bq * cap)
+    mbuf = 0 if merge_in_shared(k) else q * _pow2(k + NT)
+    return Layout(bq, cap, splits, gbuf, mbuf)
 
 
 # --------------------------------------------------------------------------
@@ -117,8 +243,7 @@ def _launch(name: str, kind: int, metric: str, q0, q1, x, mask, k: int,
     _check(metric in ("ip", "l2"), f"metric must be ip or l2, got {metric!r}")
     dev = x.device
     Q, N = q0.shape[0], x.shape[0]
-    _check(1 <= k <= K_MAX, f"k={k} outside [1, {K_MAX}] (the kernels' cap)")
-    _check(k <= N, f"k={k} exceeds the corpus rows N={N}")
+    _check(1 <= k <= N, f"k={k} outside [1, N={N}]")
     _check(N < 2 ** 31, "row ids are int32")
     for t in (q0, q1, x, mask):
         _check(t is None or (t.device == dev and t.is_contiguous()),
@@ -130,14 +255,19 @@ def _launch(name: str, kind: int, metric: str, q0, q1, x, mask, k: int,
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    bq = query_tile(k, Q)
-    splits = n_splits(Q, N, k)
-    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    lay = layout(kind, Q, N, k)
+    part = torch.empty(Q * lay.splits * k, dtype=torch.int64, device=dev)
+    gbuf = (torch.empty(lay.gbuf_keys, dtype=torch.int64, device=dev)
+            if lay.gbuf_keys else None)
+    mbuf = (torch.empty(lay.mbuf_keys, dtype=torch.int64, device=dev)
+            if lay.mbuf_keys else None)
     rc = _build.lib("fused_topk").rt_fused_topk(
-        kind, int(metric == "l2"), bq, split_cap(k), q0.data_ptr(),
+        kind, int(metric == "l2"), lay.bq, lay.cap, q0.data_ptr(),
         None if q1 is None else q1.data_ptr(), x.data_ptr(),
         None if mask is None else mask.data_ptr(), part.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), Q, N, width, k, splits,
+        None if gbuf is None else gbuf.data_ptr(),
+        None if mbuf is None else mbuf.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), Q, N, width, k, lay.splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_topk")
     LAUNCHES[name] += 1
@@ -153,9 +283,9 @@ def fused_topk_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int, metric: str,
     _check(q.dim() == 2 and x.dim() == 2 and q.shape[1] == x.shape[1],
            f"shapes {tuple(q.shape)} x {tuple(x.shape)}")
     if x.dtype == torch.int8 and q.dtype == torch.int8:
-        kind, name = _KIND_I8, "fused_topk_int8"
+        kind, name = KIND_I8, "fused_topk_int8"
     elif x.dtype == torch.float32 and q.dtype == torch.float32:
-        kind, name = _KIND_F32, "fused_topk_fp32"
+        kind, name = KIND_F32, "fused_topk_fp32"
     else:
         raise ValueError(f"fused_topk: dtypes {q.dtype} x {x.dtype} "
                          "(both int8 or both float32)")
@@ -177,5 +307,5 @@ def fused_topk4_cuda(q_even: torch.Tensor, q_odd: torch.Tensor,
            and q_even.shape[1] == packed.shape[1],
            f"shapes {tuple(q_even.shape)}, {tuple(q_odd.shape)} x "
            f"{tuple(packed.shape)}")
-    return _launch("fused_topk4", _KIND_I4, metric, q_even, q_odd, packed,
+    return _launch("fused_topk4", KIND_I4, metric, q_even, q_odd, packed,
                    mask, k, packed.shape[1])

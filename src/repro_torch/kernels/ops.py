@@ -54,10 +54,12 @@ def ql24(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return _packed.ql24_cuda(qe, qo, packed.contiguous())
 
 
-def fused_query_tile(k: int = 100, q: int = _fused.BQ) -> int:
+def fused_query_tile(k: int = 100, q: int = _fused.BQ,
+                     fp32: bool = False) -> int:
     """Query rows per fused-kernel block — the corpus re-stream granularity
     the engine's ``bytes_read`` accounting derives from."""
-    return _fused.query_tile(k, q)
+    return (_fused.f32_query_tile(k, q)[0] if fp32
+            else _fused.query_tile(k, q))
 
 
 def fused_adc_query_tile(k: int, code_bytes: int, kbits: int = 8,

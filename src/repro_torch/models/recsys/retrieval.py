@@ -32,9 +32,18 @@ from repro_torch.kernels import ref as R
 def top_k(s: torch.Tensor, k: int):
     """Best ``k`` of each row of [Q, N] f32 scores: ([Q, k] f32, [Q, k]
     int32 columns), score descending under the IEEE total order (-0.0
-    below +0.0), ties to the lowest column."""
-    thr = torch.topk(s, k, dim=-1).values[:, -1:]       # the k-th best value
-    rows, cols = torch.nonzero(s >= thr, as_tuple=True)  # columns ascending
+    below +0.0, NaN above +inf), ties to the lowest column.  A NaN never
+    passes ``s >= thr``, so where a row holds NaN (``torch.topk`` ranks it
+    first) the threshold and the comparison are taken on the order key
+    instead, and every row still keeps exactly k entries; without NaN the
+    float comparison keeps the one pass it needs over the matrix."""
+    top = torch.topk(s, k, dim=-1).values
+    if bool(torch.isnan(top[:, 0]).any()):
+        key = R.order_key(s)
+        sel = key >= torch.topk(key, k, dim=-1).values[:, -1:]
+    else:
+        sel = s >= top[:, -1:]                          # the k-th best value
+    rows, cols = torch.nonzero(sel, as_tuple=True)      # columns ascending
     vals = s[rows, cols]
     # (row asc, score desc, column asc): stable sorts, innermost key first
     o = torch.sort(R.order_key(vals), descending=True, stable=True).indices

@@ -154,24 +154,33 @@ def test_many_exact_ties_break_by_id():
 def test_launch_layout_fits_shared_memory():
     """The Python-side layout (the CUDA source takes it as given): the
     query tile shrinks with M and k so the block's LUTs and candidate
-    buffers stay within the H100's 227 KB, and a LUT that cannot fit even
-    four queries raises rather than launching."""
-    for kbits, widths in ((8, (1, 7, 16, 32, 64, 128)), (4, (1, 4, 32, 64))):
+    buffers stay within the H100's 227 KB, down to 1 query; then the
+    buffers move to global memory, and a LUT too wide for one query is
+    read from global memory, so every M and k launches."""
+    for kbits, widths in ((8, (1, 7, 16, 32, 64, 128, 256, 512, 1024)),
+                          (4, (1, 4, 32, 64, 512))):
         for mb in widths:
-            for k in (1, 100, 400, 1024):
-                try:
-                    bq = A.query_tile(k, mb, kbits, 256)
-                except ValueError:
-                    assert kbits == 8 and mb >= 128
-                    continue
-                assert bq in (16, 8, 4)
-                assert A.smem_bytes(bq, F.split_cap(k), mb, kbits) <= A.SMEM_MAX
-                assert A.query_tile(k, mb, kbits, 3) == 4
+            for k in (1, 100, 400, 1024, 1025, 5000):
+                lay = A.adc_layout(k, mb, kbits, 256, 4_000_000)
+                assert lay.bq in (16, 8, 4, 2, 1)
+                gbuf = lay.gbuf_keys > 0
+                assert A.smem_bytes(lay.bq, lay.cap, mb, kbits, gbuf,
+                                    lay.lutg) <= A.SMEM_MAX
+                assert lay.cap == A.adc_cap(k, lay.bq) >= k + A.tile_rows(
+                    lay.bq) // 4
+                assert lay.lutg == (kbits == 8 and mb >= 1024)
+                if k <= 1024 and mb <= 64:      # unchanged below the old caps
+                    assert not gbuf and lay.bq in (16, 8, 4)
+                    assert lay.cap == F.split_cap(k)
+                assert A.query_tile(k, mb, kbits, 3) in (4, 2, 1)
     assert A.query_tile(100, 32, 8, 256) == 16          # pq32: 8 KB LUTs
     assert A.query_tile(100, 32, 4, 256) == 16          # pq64x4: 1 KB LUTs
     assert A.query_tile(400, 32, 8, 256) == 8           # pq32 at depth 400
-    with pytest.raises(ValueError, match="shared memory"):
-        A.query_tile(1024, 256, 8, 256)
+    assert A.query_tile(100, 256, 8, 256) == 2          # 64 KB LUTs
+    assert A.query_tile(100, 512, 8, 256) == 1          # 128 KB LUTs
+    assert A.adc_layout(100, 1024, 8, 256, 10 ** 6).lutg  # 256 KB: global
+    assert A.tile_rows(16) == A.tile_rows(4) == A.BN == 256
+    assert (A.tile_rows(2), A.tile_rows(1)) == (512, 1024)
     assert A.n_splits(256, 4_000_000, 16) == 33
     assert A.n_splits(1, 1, 4) == 1
 

@@ -8,10 +8,14 @@ machine without it:
 
 Tolerances: B1 codes, the int8 / packed-int4 arms of B2 and B3, the
 ADC kernels B4 / B5 and the score matrices B6-B8 are bit-equal to the
-plain versions in ids and scores.  B2 fp32 scores are
-within rtol 1e-5 of the plain version's (the kernel sums each dot with
-FFMA in its own order, the plain version through a cuBLAS product), and
-ids differ only where the two scores at that rank are a near-tie.
+plain versions in ids and scores, at every k up to N and every M.  B2
+fp32 (``hold_fp32``) is within rtol 1e-5 of the row scale of the plain
+version's scores at every rank and of a float64 product at every
+returned id, so ids differ only inside near-tie groups: the kernel sums
+each dot as one FFMA chain in dimension order, the plain version is a
+cuBLAS product (TF32 off), and the chain's error against float64 at
+d = 256 reaches about 1.1e-6 of the row scale, past max(1e-6, the plain
+version's), so the gate stays at 1e-5 (ROADMAP C6).
 """
 
 import pytest
@@ -70,11 +74,100 @@ def test_fused_topk_matches_plain(dev, kind, metric):
     if kind != "fp32":
         assert torch.equal(gs, ws) and torch.equal(gi, wi)
         return
-    tol = 1e-5 * (ws.abs().amax(dim=1, keepdim=True) + 1.0)
-    assert bool(torch.all((gs - ws).abs() <= tol))
-    diff = gi != wi
-    assert bool(torch.all(((gs - ws).abs() <= tol)[diff]))
-    assert diff.float().mean().item() < 0.05
+    hold_fp32(q, x, metric, mask, got, want)
+    assert (gi != wi).float().mean().item() < 0.05
+
+
+def _rel_err(q, x, metric, s, ids, scale):
+    """Largest |score - exact| / row scale over the valid slots, the exact
+    score of each returned id computed in float64."""
+    valid = ids >= 0
+    rows = x[ids.clamp_min(0).long()].double()           # [Q, k, d]
+    q64 = q.double()
+    dot = torch.einsum("qd,qkd->qk", q64, rows)
+    exact = dot if metric == "ip" else -((q64 * q64).sum(1, keepdim=True)
+                                         + (rows * rows).sum(2) - 2 * dot)
+    err = ((s.double() - exact).abs() / scale)[valid]
+    return float(err.max()) if err.numel() else 0.0
+
+
+def hold_fp32(q, x, metric, mask, got, want):
+    """B2 fp32: the ranks within rtol 1e-5 (of the row scale, max |plain
+    score| + 1) of the plain version's, every returned id's own float64
+    score within the same tolerance, the sentinels and the mask as the
+    plain version's.  Returns (kernel error, plain error) against
+    float64."""
+    (gs, gi), (ws, wi) = got, want
+    valid = wi >= 0
+    assert torch.equal(gi >= 0, valid)
+    assert torch.equal(gs[~valid], ws[~valid])
+    scale = torch.where(valid, ws.abs(), 0).amax(dim=1, keepdim=True).double() + 1.0
+    rank = ((gs.double() - ws.double()).abs() / scale)[valid]
+    assert rank.numel() == 0 or float(rank.max()) <= 1e-5
+    kern_err = _rel_err(q, x, metric, gs, gi, scale)
+    assert kern_err <= 1e-5
+    if mask is not None:
+        assert bool(torch.all(mask[gi.clamp_min(0).long()][valid] != 0))
+    return kern_err, _rel_err(q, x, metric, ws, wi, scale)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp32", "int4"])
+@pytest.mark.parametrize("k", [1024, 1025, 3000])
+def test_fused_topk_at_any_k(dev, kind, k):
+    """C5: B2 and B3 past the old k cap of 1024 (buffers in global memory
+    beyond k = 2016), with and without a mask, both metrics."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    Q, N, d = 37, 70001, 64
+    mask = (torch.rand(N, generator=g, device=dev) < 0.5).to(torch.int8)
+    for metric, mk in (("ip", None), ("l2", mask)):
+        if kind == "fp32":
+            q = torch.randn(Q, d, generator=g, device=dev)
+            x = torch.randn(N, d, generator=g, device=dev)
+        else:
+            lim = 8 if kind == "int4" else 128
+            q = torch.randint(-lim, lim, (Q, d), generator=g,
+                              device=dev).to(torch.int8)
+            x = torch.randint(-lim, lim, (N, d), generator=g,
+                              device=dev).to(torch.int8)
+        if kind == "int4":
+            x = PK.pack_int4(x)
+            got = K.fused_topk(q, x, k, metric, packed=True, mask=mk)
+            want = F.fused_topk4_plain(*K.split_nibble_queries(q), x, k=k,
+                                       metric=metric, mask=mk)
+        else:
+            got = K.fused_topk(q, x, k, metric, mask=mk)
+            want = F.fused_topk_plain(q, x, k=k, metric=metric, mask=mk)
+        if kind == "fp32":
+            hold_fp32(q, x, metric, mk, got, want)
+        else:
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+#: B2 fp32 edge cases: Q at 1 and at each query tile and one past it, N
+#: just past a tile (256 rows) and a split (2048 rows), d not a multiple
+#: of 4 or of the 16-float stage, an unaligned corpus view x[1:]
+FP32_EDGES = (
+    [(q, 5000, 64, 0) for q in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 129)]
+    + [(9, n, 32, 0) for n in (1, 255, 256, 257, 2048, 2049, 4097)]
+    + [(7, 3001, d, 0) for d in (1, 3, 100, 255)]
+    + [(7, 3001, d, 1) for d in (64, 100)])
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("Q,N,d,offset", FP32_EDGES)
+def test_fused_topk_fp32_edges(dev, metric, Q, N, d, offset):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(Q, d, generator=g, device=dev)
+    # offset 1: the rows of an [N, d] view one float into a flat buffer
+    x = torch.randn(N * d + offset, generator=g,
+                    device=dev)[offset:].view(N, d)
+    if offset:
+        assert x.data_ptr() % 16 != 0
+    k = min(100, N)
+    got = K.fused_topk(q, x, k, metric)
+    want = F.fused_topk_plain(q, x, k=k, metric=metric)
+    torch.cuda.synchronize()
+    hold_fp32(q, x, metric, None, got, want)
 
 
 @pytest.mark.parametrize("bits,m", [(8, 32), (8, 7), (4, 64), (4, 7)])
@@ -99,6 +192,59 @@ def test_fused_adc_matches_plain(dev, bits, m, k):
                                       full[:, 1::2].reshape(Q, -1).contiguous(),
                                       packed, k=k, mask=mk)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("bits,m", [(8, 256), (8, 512), (8, 1024), (4, 256),
+                                    (4, 1024)])
+@pytest.mark.parametrize("k", [100, 1025])
+def test_fused_adc_wide_lut_and_any_k(dev, bits, m, k):
+    """C5: B4 / B5 at M whose LUTs leave room for 2 or 1 queries a block
+    (B4 M = 256, 512) or none (B4 M = 1024: LUTs read from global memory),
+    and past the old k cap; bit-equal with and without a mask."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    Q, N, kc = 9, 20001, 2 ** bits
+    lut = torch.randint(-128, 128, (Q, m, kc), generator=g,
+                        device=dev).to(torch.int8)
+    codes = torch.randint(0, kc, (N, m), generator=g, device=dev).to(torch.uint8)
+    mask = (torch.rand(N, generator=g, device=dev) < 0.5).to(torch.int8)
+    for mk in (None, mask):
+        if bits == 8:
+            got = K.fused_adc_topk(lut, codes, k, mask=mk)
+            want = A.fused_adc_plain(lut.reshape(Q, -1), codes, k=k,
+                                     n_codewords=kc, mask=mk)
+        else:
+            packed = PK.pack_uint4(codes)
+            got = K.fused_adc_topk(lut, packed, k, packed=True, mask=mk)
+            want = A.fused_adc4_plain(lut[:, 0::2].reshape(Q, -1).contiguous(),
+                                      lut[:, 1::2].reshape(Q, -1).contiguous(),
+                                      packed, k=k, mask=mk)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_rerank_search_at_wide_depth_matches_cpu(dev):
+    """C5: a ``flat,lpq4+r32`` search at k=300 scans at depth 1200 (B3
+    past the old cap) on a CUDA store and answers as the same index built
+    on the CPU does."""
+    from repro_torch.knn import make_index
+
+    g = torch.Generator().manual_seed(8)
+    corpus = torch.randn(30000, 64, generator=g)
+    queries = torch.randn(16, 64, generator=g)
+    gpu = make_index("flat,lpq4+r32", corpus, metric="ip", device=dev)
+    cpu = make_index("flat,lpq4+r32", corpus, metric="ip", device="cpu")
+    assert torch.equal(gpu.store.data.cpu(), cpu.store.data)
+    qc = gpu.store.encode_queries(queries.to(dev))
+    got = K.fused_topk(qc, gpu.store.data, 1200, "ip", packed=True)
+    want = K.fused_topk(qc.cpu(), cpu.store.data, 1200, "ip", packed=True)
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+    s = gpu.searcher(300)
+    assert s.rerank is not None and s.rerank.depth == 1200
+    got = s(queries.to(dev))
+    want = cpu.searcher(300)(queries)
+    # the fp32 rerank sums on the card and on the CPU in their own orders
+    scale = want.scores.abs().amax(dim=1, keepdim=True) + 1.0
+    assert bool(torch.all((got.scores.cpu() - want.scores).abs() <= 1e-6 * scale))
+    assert (got.ids.cpu() != want.ids).float().mean().item() < 0.01
 
 
 #: edge cases of the tensor-core kernel's tiling (B6, B8a; run for B7 and

@@ -163,11 +163,11 @@ def test_launch_geometry():
     # candidate buffers of next_pow2(2k + 64) keys bound the query block;
     # each holds k kept keys plus one round of ROW_LANES inserts
     assert F.split_cap(1) == 128 and F.split_cap(100) == 512
-    assert F.split_cap(400) == 1024 and F.split_cap(F.K_MAX) == 4096
-    assert all(F.split_cap(k) >= k + F.ROW_LANES for k in range(1, F.K_MAX + 1))
+    assert F.split_cap(400) == 1024 and F.split_cap(1024) == 4096
+    assert all(F.split_cap(k) >= k + F.ROW_LANES for k in range(1, 5001))
     assert F.query_tile(100) == F.query_tile(224) == F.BQ == 16
     assert F.query_tile(225) == F.query_tile(480) == 8
-    assert F.query_tile(481) == F.query_tile(F.K_MAX) == 4
+    assert F.query_tile(481) == F.query_tile(1024) == 4
     assert F.query_tile(100, q=3) == 4                # tiny batches
     # one request over a big corpus spreads over many blocks; a big batch
     # needs fewer splits; a tiny corpus is never split below 2048 rows/split
@@ -175,3 +175,53 @@ def test_launch_geometry():
     assert F.n_splits(256, 4_000_000, 100) == 33
     assert F.n_splits(256, 4_000_000, 400) == 17
     assert F.n_splits(1000, 300, 100) == 1
+
+
+@pytest.mark.parametrize("k", [1, 100, 1024, 1025, 5000])
+@pytest.mark.parametrize("q", [1, 37, 256])
+def test_fused_layout_at_any_k(k, q):
+    """The whole launch layout (``layout``), as plain Python: the int scans
+    keep their shared-memory buffers (and layout) up to k = 2016 and move
+    them to a global scratch beyond; the fp32 scan's query tile follows the
+    batch, never k, and its buffers are always global; every buffer holds
+    k keys plus one round of inserts; the merge stays in shared memory."""
+    n = 4_000_000
+    for kind in (F.KIND_I8, F.KIND_I4):
+        lay = F.layout(kind, q, n, k)
+        assert (lay.bq, lay.cap) == (F.query_tile(k, q), F.split_cap(k))
+        assert lay.splits == F.n_splits(q, n, k)
+        shared = F.split_smem_bytes(lay.bq, lay.cap, False) <= F.SMEM_MAX
+        assert shared == (k <= 2016) == (lay.gbuf_keys == 0)
+        assert F.split_smem_bytes(lay.bq, lay.cap, not shared) <= F.SMEM_MAX
+        if not shared:
+            assert lay.bq == 4 and lay.gbuf_keys == (
+                -(-q // 4) * lay.splits * 4 * lay.cap)
+        assert lay.mbuf_keys == 0
+    lay = F.layout(F.KIND_F32, q, n, k)
+    bq, gbuf = F.f32_query_tile(k, q)
+    assert lay.bq == bq == {1: 1, 37: 32, 256: 32}[q] if k <= 100 else True
+    assert lay.bq == bq == (1 if q == 1 else 8) if k >= 1024 else True
+    assert lay.cap == F.f32_cap(k) >= k + 96
+    assert F.f32_smem_bytes(bq, lay.cap, gbuf) <= F.SMEM_MAX
+    assert gbuf == (k > 1952) == (lay.gbuf_keys > 0)
+    if gbuf:
+        assert lay.gbuf_keys == (-(-q // bq) * lay.splits * F.f32_lists(bq)
+                                 * lay.cap)
+    per_sm = F.f32_blocks_per_sm(bq, lay.cap, gbuf)
+    assert per_sm == (2 if 2 * (F.f32_smem_bytes(bq, lay.cap, gbuf) + 1024)
+                      <= F.SM_SMEM else 1)
+    qblocks = -(-q // bq)
+    assert lay.splits == max(1, min(per_sm * F._SMS // qblocks,
+                                    -(-n // max(2048, 2 * k))))
+    assert qblocks * lay.splits <= per_sm * F._SMS or lay.splits == 1
+    assert F.merge_in_shared(k) and F.merge_in_shared(16128)
+    assert not F.merge_in_shared(16129)
+    assert F.layout(F.KIND_I8, 4, 40_000, 20_000).mbuf_keys == 4 * 32768
+    assert [F.f32_batch_tile(v) for v in (1, 4, 5, 16, 17, 32, 33, 512)] == [
+        1, 1, 8, 8, 32, 32, 32, 32]
+    # k narrows the fp32 tile only where its lists leave shared memory;
+    # two blocks an SM while the lists are small (k <= 160)
+    assert [F.f32_query_tile(k, 256)[0] for k in (160, 161, 416, 417)] == [
+        32, 32, 32, 8]
+    assert [F.f32_blocks_per_sm(32, F.f32_cap(k), False)
+            for k in (100, 160, 161)] == [2, 2, 1]

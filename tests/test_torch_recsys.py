@@ -190,6 +190,57 @@ def test_top_k_keeps_lax_top_k_order():
                                   np.asarray(want_s).view(np.int32))
 
 
+#: C4: rows holding NaN (the reference's ``lax.top_k`` ranks NaN above
+#: +inf), a row of NaN only, and NaN beside +-inf and -0.0
+NAN_ROWS = {
+    "c4_example": ([[1.0, np.nan, 3.0, 2.0], [4.0, 5.0, 6.0, 7.0]], 2),
+    "all_nan": ([[np.nan] * 5, [1.0, 2.0, np.nan, 0.5, 3.0]], 3),
+    "nan_inf_zero": ([[-0.0, np.inf, np.nan, -np.inf, 0.0, np.nan, -0.0],
+                      [0.0, -0.0, -np.inf, np.inf, np.nan, 1.0, -1.0]], 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NAN_ROWS))
+def test_top_k_with_nan_matches_lax_top_k(case):
+    rows, k = NAN_ROWS[case]
+    s = np.array(rows, dtype=np.float32)
+    want_s, want_i = jax.lax.top_k(jnp.asarray(s), k)
+    got_s, got_i = TRT.top_k(torch.from_numpy(s), k)
+    assert got_s.shape == (s.shape[0], k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy().view(np.int32),
+                                  np.asarray(want_s).view(np.int32))
+
+
+def test_retrieval_with_a_nan_table_row_matches_reference():
+    """A NaN candidate row: the fp32 arm ranks it first for every query,
+    as the reference does, and the quantized arm (on the reference's
+    codes of the same table) raises nothing and returns its ids."""
+    table, queries = _table(3000, 32, 11), _table(8, 32, 12)
+    table[17] = np.nan
+    want = RRT.retrieve_fp32(jnp.asarray(queries), jnp.asarray(table), k=40)
+    got = TRT.retrieve_fp32(torch.from_numpy(queries),
+                            convert.dense_table_from_numpy(table, device="cpu"),
+                            k=40)
+    gs, gi = got[0].numpy(), got[1].numpy()
+    ws, wi = np.asarray(want[0]), np.asarray(want[1])
+    assert np.all(wi[:, 0] == 17) and np.all(gi[:, 0] == 17)
+    assert np.all(np.isnan(gs[:, 0])) and np.all(np.isnan(ws[:, 0]))
+    _assert_fp32_topk_close((gs[:, 1:], gi[:, 1:]), (ws[:, 1:], wi[:, 1:]),
+                            queries, table)
+    ref_qt = _ref_qt(table)
+    port_qt = convert.quantized_table_from_numpy(
+        np.asarray(ref_qt.codes), np.asarray(ref_qt.params.lo),
+        np.asarray(ref_qt.params.hi), np.asarray(ref_qt.params.zero),
+        ref_qt.params.bits, ref_qt.params.scheme, device="cpu")
+    ws, wi = RRT.retrieve_quantized(jnp.asarray(queries), ref_qt.codes,
+                                    ref_qt.params, k=40)
+    gs, gi = TRT.retrieve_quantized(torch.from_numpy(queries), port_qt.codes,
+                                    port_qt.params, k=40)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+
+
 def test_retrieve_fp32_matches_reference():
     table, queries = _table(5000, 64, 7), _table(32, 64, 8)
     want = RRT.retrieve_fp32(jnp.asarray(queries), jnp.asarray(table), k=50)
