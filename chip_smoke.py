@@ -20,7 +20,9 @@ Phases (each prints its lines; any failure exits non-zero):
               pq32 and B5: pq64x4 codes of 4,000,000 rows, 256 queries,
               k=100) beside the plain version's, the library yardstick's and
               the bound, with its result there held against the plain
-              version's and the yardstick's scores; the score-matrix
+              version's and the yardstick's scores (B2 int8 also at 1 and 32
+              queries, k = 10 and 400, and l2 at the SIFT-like 1,000,000 x
+              128, held bit-equal there); the score-matrix
               kernels B6-B8 bit-equal to their plain versions at ragged Q, N
               and d and on extreme codes, and timed at the retrieval shapes
               (1,000,000 x 128, Q=512; B6/B7 also Q=1)
@@ -602,6 +604,22 @@ def time_kernels(err: dict) -> dict:
         msk = time_ms(lambda: F.fused_topk_cuda(qc, codes, k=kk, metric="ip"), REPS)
         log(f"[timing] fused_topk_int8 Q={Q} N={N} d={d} k={kk}: kernel "
             f"{msk:.4f} ms | {smi()}")
+    # l2 at the SIFT-like shape (flat,lpq8@global_minmax's scan), held
+    # bit-equal to the plain version there
+    ns, ds = 1_000_000, 128
+    xs = _codes(g, (ns, ds), False, dev, torch.int8)
+    qs = _codes(g, (Q, ds), False, dev, torch.int8)
+    msl = time_ms(lambda: F.fused_topk_cuda(qs, xs, k=k, metric="l2"), REPS)
+    pml = time_ms(lambda: F.fused_topk_plain(qs, xs, k=k, metric="l2"),
+                  PLAIN_REPS, warm=1)
+    hold("fused_topk_int8", F.fused_topk_cuda(qs, xs, k=k, metric="l2"),
+         F.fused_topk_plain(qs, xs, k=k, metric="l2"), qs, xs, k, "l2", None,
+         f"int8 l2 Q={Q} N={ns} d={ds} k={k}", err)
+    log(f"[timing] fused_topk_int8 Q={Q} N={ns} d={ds} k={k} l2: kernel "
+        f"{msl:.4f} ms, plain {pml:.4f} ms, bound "
+        f"{(ns * ds) / PEAK_BYTES * 1e3:.4f} ms (bytes); bit-equal to the "
+        f"plain version | {smi()}")
+    del xs, qs
     # the fp32 scan at a single request (bytes-bound) and at depth 400
     ms1 = time_ms(lambda: F.fused_topk_cuda(qf[:1], x, k=k, metric="ip"), REPS)
     log(f"[timing] fused_topk_fp32 Q=1 N={N} d={d} k={k}: kernel {ms1:.4f} ms, "
@@ -614,13 +632,13 @@ def time_kernels(err: dict) -> dict:
     log(f"[timing] fused_topk_fp32 Q={Q} k={k} device time per call (profiler, "
         f"3 calls): pass 1 {dev_ms['f32_topk_kernel']:.4f} ms, merge "
         f"{dev_ms['merge_topk_kernel']:.4f} ms")
-    # device time of pass 1 (split) and pass 2 (merge)
+    # device time of pass 1 and pass 2 (merge)
     dev_ms = device_ms(lambda: F.fused_topk_cuda(qc, codes, k=k, metric="ip"),
-                       ("split_topk_kernel", "merge_topk_kernel"))
+                       ("i8_topk_kernel", "merge_topk_kernel"))
     total = sum(dev_ms.values()) or 1.0
     log(f"[timing] fused_topk_int8 Q={Q} k={k} device time per call (profiler, "
-        f"3 calls): split {dev_ms['split_topk_kernel']:.4f} ms "
-        f"({dev_ms['split_topk_kernel'] / total:.1%}), merge "
+        f"3 calls): pass 1 {dev_ms['i8_topk_kernel']:.4f} ms "
+        f"({dev_ms['i8_topk_kernel'] / total:.1%}), merge "
         f"{dev_ms['merge_topk_kernel']:.4f} ms "
         f"({dev_ms['merge_topk_kernel'] / total:.1%})")
     return out

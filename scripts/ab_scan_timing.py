@@ -5,8 +5,9 @@ under a given ``src`` directory.
 
 Corpus 4,000,000 x 256 (N(0, 1) fp32 for B2 fp32; random int8 / int4
 codes for B2 int8 and B3), 256 queries, ip: B2 fp32 at k=100, k=400 and
-one query; B2 int8 at k=100 and k=400; B3 at k=100 and k=400, and l2 at
-k=400.  B4 on pq32 codes (32 bytes a row) and B5 on pq64x4 codes (32
+one query; B2 int8 at k=100 and k=400, at 1 and 32 queries (k=100), and
+l2 at k=100, also at the SIFT-like shape (1,000,000 x 128); B3 at k=100
+and k=400, and l2 at k=400.  B4 on pq32 codes (32 bytes a row) and B5 on pq64x4 codes (32
 packed bytes a row) of 4,000,000 rows, random int8 LUTs, 256 queries,
 k=100.  Each time is the median of 10 warm calls by CUDA events around
 the public wrapper.  To compare two checkouts, unpack both and run them
@@ -63,6 +64,17 @@ def main():
     for k in (100, 400):
         r[f"B2 int8 k={k}"] = median_ms(
             lambda: F.fused_topk_cuda(q, x, k=k, metric="ip"))
+    for qn in (1, 32):
+        qq = q[:qn].contiguous()
+        r[f"B2 int8 Q={qn} k=100"] = median_ms(
+            lambda: F.fused_topk_cuda(qq, x, k=100, metric="ip"))
+    r["B2 int8 l2 k=100"] = median_ms(
+        lambda: F.fused_topk_cuda(q, x, k=100, metric="l2"))
+    xs = x[:1_000_000, :128].contiguous()
+    qs = q[:, :128].contiguous()
+    r["B2 int8 l2 1M x 128 k=100"] = median_ms(
+        lambda: F.fused_topk_cuda(qs, xs, k=100, metric="l2"))
+    del xs
     for k in (100, 400):
         r[f"B3 k={k}"] = median_ms(
             lambda: F.fused_topk4_cuda(qe, qo, c4, k=k, metric="ip"))

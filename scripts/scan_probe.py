@@ -1,9 +1,11 @@
-"""Time probe variants of the fused-scan source (B2 fp32) on one GPU: the
-kernels of a ``fused_topk.cu`` rebuilt with a few lines changed, launched
-directly through ``rt_fused_topk`` (no Python wrapper inside the clock),
-beside the library yardstick split into its two halves.
+"""Time probe variants of the fused-scan source (B2 fp32, or B2 int8 with
+``--int8``) on one GPU: the kernels of a ``fused_topk.cu`` rebuilt with a
+few lines changed, launched directly through ``rt_fused_topk`` (no Python
+wrapper inside the clock), beside the library yardstick split into its
+two halves.
 
     python scripts/scan_probe.py <fused_topk.cu> <variant> [<variant> ...]
+    python scripts/scan_probe.py --int8 <fused_topk.cu> <variant> [...]
 
 The source's directory must hold its ``topk_common.cuh``.  Variants of
 the fp32 scan as ``split_topk_kernel`` ran it (before the register-tiled
@@ -37,6 +39,25 @@ the yardstick's halves: ``torch.matmul`` (cuBLAS SGEMM, TF32 off) into
 the [256, N] matrix alone, and ``torch.topk`` of that matrix alone, and
 the SM clock and power nvidia-smi reads while ``as_is`` and the SGEMM run
 100 times back to back.  Builds into build/scan_probe/.
+
+With ``--int8``: variants of B2 int8 as ``split_topk_kernel`` ran it
+(before ``i8_topk_kernel``; e.g. ``git show 394f8eb:src/repro_torch/csrc/
+fused_topk.cu``), or of ``i8_topk_kernel`` where the source has it:
+  as_is        the source unchanged
+  dots_only    the dots kept, the top-k upkeep predicated off on the data
+  upkeep_only  the dot loop removed; each int score a hash of (query, row)
+  pipe_only    the dots and the upkeep removed: the loads and barriers
+  sort_twice   each list sorted once more after its compaction: what the
+               sorts cost (the new kernel only)
+Corpus 4,000,000 x 256 random int8 codes in [-128, 128), 256, 32 and 1
+queries, k = 10, 100 and 400, ip, seed 7; ``as_is`` is checked bit for
+bit against the library's scores.  For the new kernel, ``as_is`` also
+runs Q=1 at 132, 264 and 528 corpus splits (pass 2 merges splits x k
+keys), and Q=32 / 256 at blocks of 8, 16 and 32 queries.  Then a
+``torch.amax`` over the code bytes (what one read of them costs), and the
+yardstick's halves: ``torch._int_mm`` (int8 tensor cores, exact int32
+sums) into the [256, N] matrix alone, ``torch.topk`` of that matrix
+alone, and both.
 """
 
 import ctypes
@@ -59,6 +80,10 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: hashed score of (query, row) in [0, 1): as random as real scores
 HASH = ("__uint_as_float(0x3f800000u | (((unsigned)({row}) * 2654435761u "
         "^ (unsigned)({q}) * 40503u) >> 9)) - 1.0f")
+
+#: hashed int score of (query, row): distinct, in [0, 2^23)
+HASH_I = ("(int)((((unsigned)({row}) * 2654435761u) ^ ((unsigned)({q}) * "
+          "40503u)) >> 9)")
 
 #: variant -> [(text in the source, replacement)], split_topk_kernel form
 OLD = {
@@ -107,10 +132,53 @@ NEW = {
 }
 
 
-def build(path: Path, names: list[str]):
+#: B2 int8 as split_topk_kernel ran it (``--int8`` on the parent's source)
+I8_DOTS_ONLY = [
+    ("        if (ok_row && q_base + qi < Q)\n          offer(",
+     "        if (ok_row && q_base + qi < Q && acc[i][j] == 1234567)\n"
+     "          offer("),
+    OLD["dots_only"][1]]
+I8_OLD = {
+    "as_is": [],
+    "dots_only": I8_DOTS_ONLY,
+    "upkeep_only": [
+        ("for (int c0 = 0; c0 < W; c0 += DK) {",
+         "for (int c0 = 0; c0 < 0; c0 += DK) {"),
+        ("      for (int j = 0; j < TR; ++j) acc[i][j] = 0;",
+         "      for (int j = 0; j < TR; ++j) acc[i][j] = " +
+         HASH_I.format(row="t0 + lane + j * ROW_LANES", q="q_base + qg * TQ + i")
+         + ";")],
+    "pipe_only": I8_DOTS_ONLY + [
+        ("#pragma unroll 4\n      for (int w = 0; w < DK; ++w) {",
+         "#pragma unroll 4\n      for (int w = 0; w < 0; ++w) {")],
+}
+#: B2 int8 as i8_topk_kernel runs it (markers in the source: the k-step
+#: loop of the dots, the accumulator reset and the epilogue's vote)
+I8_VOTE = "if (!__any_sync(FULL, any)) continue;"
+I8_NO_VOTE = ("if (!__any_sync(FULL, any && acc[0][0][0] == 1234567)) "
+              "continue;")
+I8_NO_DOTS = ("for (int kk = 0; kk < I8_KC / 32; ++kk) {",
+              "for (int kk = 0; kk < 0; ++kk) {")
+I8_NEW = {
+    "as_is": [],
+    "dots_only": [(I8_VOTE, I8_NO_VOTE)],
+    "upkeep_only": [
+        I8_NO_DOTS,
+        ("for (int e = 0; e < 4; ++e) acc[0][mi][e] = acc[1][mi][e] = 0;",
+         "for (int e = 0; e < 4; ++e) acc[1][mi][e] = 0, acc[0][mi][e] = " +
+         HASH_I.format(row="t0 + mi * 16 + g + (e >> 1) * 8",
+                       q="q_base + warp * 8 + 2 * t4 + (e & 1)") + ";")],
+    "pipe_only": [I8_NO_DOTS, (I8_VOTE, I8_NO_VOTE)],
+    "sort_twice": [("      warp_compact(lists + (size_t)l * cap, n, thr, cap, k, lane);\n",
+                    "      warp_compact(lists + (size_t)l * cap, n, thr, cap, k, lane);\n"
+                    "      warp_sort_desc(lists + (size_t)l * cap, cap, lane);\n")],
+}
+
+
+def build(path: Path, names: list[str], int8: bool = False):
     source = path.read_text()
-    new = "f32_topk_kernel" in source
-    table = NEW if new else OLD
+    new = ("i8_topk_kernel" if int8 else "f32_topk_kernel") in source
+    table = (I8_NEW if new else I8_OLD) if int8 else (NEW if new else OLD)
     OUT.mkdir(parents=True, exist_ok=True)
     shutil.copy(path.parent / "topk_common.cuh", OUT / "topk_common.cuh")
     procs = {}
@@ -120,7 +188,8 @@ def build(path: Path, names: list[str]):
             if old not in text:
                 raise SystemExit(f"{name}: {old!r} is not in the source")
             text = text.replace(old, rep)
-        cu = OUT / f"{'new' if new else 'old'}_{name}.cu"
+        tag = ("i8_" if int8 else "") + ("new" if new else "old")
+        cu = OUT / f"{tag}_{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [NVCC, *FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
@@ -133,7 +202,7 @@ def build(path: Path, names: list[str]):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
-        lib = ctypes.CDLL(str(OUT / f"{'new' if new else 'old'}_{name}.so"))
+        lib = ctypes.CDLL(str(OUT / f"{tag}_{name}.so"))
         fn = lib.rt_fused_topk
         n_args = len(re.search(r"rt_fused_topk\(([^)]*)\)", source)
                      .group(1).split(","))
@@ -144,7 +213,11 @@ def build(path: Path, names: list[str]):
             fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, P, P,
                            I, L, I, I, I, P]
         fn.restype = I
-        libs[name] = (fn, n_args == 17)
+        if hasattr(lib, "rt_i8_blocks_per_sm"):
+            fn.occupancy = lib.rt_i8_blocks_per_sm
+            fn.occupancy.argtypes = [I, I, I, I, I]
+            fn.occupancy.restype = I
+        libs[name] = (fn, n_args == 17, new)
     return libs
 
 
@@ -226,7 +299,113 @@ def launcher(fn, old: bool, q, x, k):
     return call, out_s
 
 
+def i8_launcher(fn, new: bool, q, x, k, splits=None):
+    """A closure launching B2 int8 ip with the layout its source expects:
+    ``layout`` for ``i8_topk_kernel``, else the parent's int layout (the
+    one B3 keeps: ``query_tile``, ``split_cap``, ``n_splits``)."""
+    from repro_torch.kernels import fused_topk as F
+
+    Q, N = q.shape[0], x.shape[0]
+    dev = x.device
+    st = torch.cuda.current_stream().cuda_stream
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if new:
+        lay = F.layout(F.KIND_I8, Q, N, k, x.shape[1])
+        bq, cap, gkeys = lay.bq, lay.cap, lay.gbuf_keys
+        splits = splits or lay.splits
+        occ = fn.occupancy(0, bq, cap, int(gkeys > 0), x.shape[1])
+        print(f"  Q={Q} k={k}: {bq} queries a block, {splits} splits, "
+              f"{occ} blocks an SM by the occupancy API (layout: "
+              f"{F.i8_blocks_per_sm(bq, cap, gkeys > 0, x.shape[1])})",
+              flush=True)
+    else:
+        bq, cap, splits = F.query_tile(k, Q), F.split_cap(k), F.n_splits(Q, N, k)
+        gkeys = 0 if F.buffers_in_shared(k) else -(-Q // bq) * splits * bq * cap
+    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    gbuf = torch.empty(gkeys, dtype=torch.int64, device=dev) if gkeys else None
+
+    def call():
+        rc = fn(1, 0, bq, cap, q.data_ptr(), None, x.data_ptr(), None,
+                part.data_ptr(), None if gbuf is None else gbuf.data_ptr(),
+                None, out_s.data_ptr(), out_i.data_ptr(), Q, N, x.shape[1], k,
+                splits, st)
+        if rc:
+            raise SystemExit(f"CUDA error {rc}")
+    return call, out_s
+
+
+def main_int8(path: str, names: list[str]):
+    libs = build(Path(path), names, int8=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    N, d = 4_000_000, 256
+    x = torch.randint(-128, 128, (N, d), generator=g, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.randint(-128, 128, (256, d), generator=g, device="cuda",
+                       dtype=torch.int8)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    ks = (10, 100, 400)
+    want = {}
+    for Q in (256, 32, 1):
+        s = torch._int_mm(qs[:Q].repeat(17, 1)[:max(Q, 17)], x.T)[:Q] \
+            if Q < 17 else torch._int_mm(qs[:Q], x.T)
+        for k in ks:
+            want[Q, k] = torch.topk(s, k, dim=1).values.float()
+        del s
+    for name, (fn, _, new) in libs.items():
+        for k in ks:
+            row = []
+            for Q in (256, 32, 1):
+                call, out_s = i8_launcher(fn, new, qs[:Q].contiguous(), x, k)
+                ms = median_ms(call)
+                tag = ""
+                if name == "as_is":
+                    tag = (" =library" if torch.equal(out_s, want[Q, k])
+                           else " DIFFERS")
+                row.append(f"Q={Q}: {ms:.4f} ms{tag}")
+            print(f"{path} int8 {name} k={k} | " + "; ".join(row) +
+                  f" | {card}", flush=True)
+    if "as_is" in libs and libs["as_is"][2]:
+        from repro_torch.kernels import fused_topk as F
+
+        # the Q=1 scan at other split counts (pass 2 merges splits x k keys)
+        q1 = qs[:1].contiguous()
+        for sp in (132, 264, 528):
+            call, _ = i8_launcher(libs["as_is"][0], True, q1, x, 100, sp)
+            print(f"as_is Q=1 k=100 at {sp} splits: {median_ms(call):.4f} ms",
+                  flush=True)
+        # Q=32 and Q=256 at each query tile (blocks of 8, 16, 32 queries)
+        tile = F.i8_query_tile
+        for bq in (8, 16, 32):
+            F.i8_query_tile = lambda q, bq=bq: min(bq, tile(q))
+            for Q, k in ((32, 100), (256, 100), (256, 400)):
+                call, _ = i8_launcher(libs["as_is"][0], True,
+                                      qs[:Q].contiguous(), x, k)
+                print(f"as_is Q={Q} k={k} at {bq} queries a block: "
+                      f"{median_ms(call):.4f} ms", flush=True)
+        F.i8_query_tile = tile
+    if "as_is" in libs:
+        call, _ = i8_launcher(libs["as_is"][0], libs["as_is"][2], qs, x, 100)
+        print(f"as_is Q=256 k=100 under load: {clocks(call)}", flush=True)
+    rd = median_ms(lambda: torch.amax(x.view(torch.int32)))
+    print(f"read-only reference: torch.amax over the {N * d} code bytes "
+          f"{rd:.4f} ms (bound {N * d / 3.35e9:.4f} ms) | {card}", flush=True)
+    s = torch._int_mm(qs, x.T)
+    mm = median_ms(lambda: torch._int_mm(qs, x.T))
+    for k in ks:
+        tk = median_ms(lambda: torch.topk(s, k, dim=1))
+        both = median_ms(lambda: torch.topk(torch._int_mm(qs, x.T), k, dim=1))
+        print(f"yardstick int8 Q=256 N={N} d={d} k={k}: _int_mm alone "
+              f"{mm:.4f} ms, torch.topk alone {tk:.4f} ms, both {both:.4f} ms"
+              f" | {card}", flush=True)
+
+
 def main():
+    if sys.argv[1] == "--int8":
+        return main_int8(sys.argv[2], sys.argv[3:])
     libs = build(Path(sys.argv[1]), sys.argv[2:])
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
@@ -241,7 +420,7 @@ def main():
         s = qs[:Q] @ x.T
         want[Q] = torch.topk(s, k, dim=1).values
         del s
-    for name, (fn, old) in libs.items():
+    for name, (fn, old, _) in libs.items():
         row = []
         for Q in (256, 1):
             call, out_s = launcher(fn, old, qs[:Q].contiguous(), x, k)
@@ -255,7 +434,7 @@ def main():
         print(f"{sys.argv[1]} {name} | " + "; ".join(row) + f" | {card}",
               flush=True)
     if "as_is" in libs:
-        call, _ = launcher(*libs["as_is"], qs, x, k)
+        call, _ = launcher(*libs["as_is"][:2], qs, x, k)
         print(f"as_is Q=256 under load: {clocks(call)}", flush=True)
     s = torch.empty((256, N), dtype=torch.float32, device="cuda")
     print("SGEMM under load: "

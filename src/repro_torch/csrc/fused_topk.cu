@@ -9,11 +9,12 @@
 // masked rows never returned, the [Q, N] score matrix never written to
 // device memory.  The TPU grid walks corpus tiles in order with the
 // [bq, k] best set in VMEM; that gives 8 blocks at Q=1000 and cannot fill
-// 132 SMs, so both kernels here split the corpus: pass 1 is grid
+// 132 SMs, so every kernel here splits the corpus: pass 1 is grid
 // (ceil(Q / BQ), S), block (qb, s) scoring BQ queries against the s-th
 // contiguous range of corpus rows (block x is the query block, so the
 // blocks that read one range are resident together and share it through
-// L2) and writing each query's best k of it to a [Q, S, k] scratch; pass 2
+// L2; B2 int8 strides its 32-row tiles over the splits instead) and
+// writing each query's best k of it to a [Q, S, k] scratch; pass 2
 // (topk_common.cuh `merge_topk_kernel`) merges the S lists of each query
 // and writes ([Q, k] f32, [Q, k] i32).  The Python wrapper
 // (kernels/fused_topk.py `layout`) is the one place that chooses BQ, S,
@@ -46,17 +47,48 @@
 //   What still holds it back (PERF.md): its dot loop, at about 0.42 of
 //   the FFMA peak.
 //
-// B2 int8 and B3 (`split_topk_kernel`) keep their first design, which
+// B2 int8 (`i8_topk_kernel`).  Bound on the H100 by the N*d code bytes
+// (0.306 ms over 4M x 256 at any batch: 2*Q*N*d operations need 0.27 ms at
+// Q=256 on the int8 tensor cores).  The first design (split_topk_kernel,
+// still B3's) spent its time on dp4a dots, synchronous staging and a
+// block-wide sort of every query's buffer after each 64-row insert round
+// (PERF.md).  The design against that:
+//   - dots on the int8 tensor cores: mma.sync m16n8k32 s8 -> s32 (exact),
+//     corpus rows in M and queries in N, fragments by ldmatrix; each
+//     consumer warp owns 8 queries (one n8 tile) and scores every row of a
+//     32-row tile, so a block of 1, 2 or 4 consumer warps scores 8, 16 or
+//     32 queries (at one query 7/8 of each MMA is wasted, which costs
+//     nothing there: the bytes bound it); the block's queries stay in
+//     shared memory;
+//   - a ring of 4 tiles filled by a producer warp and drained by the
+//     consumers through full / empty mbarriers, so no block barrier ties
+//     the warps together: a stage is 32 whole rows of up to 256 bytes
+//     (one contiguous span of the corpus for d <= 256; wider d in 256-byte
+//     chunks), copied by 16-byte cp.async where rows are 16-byte aligned,
+//     else 4-byte cp.async or byte loads (d % 16 != 0, a view off 16
+//     bytes), zero past d in shared memory only;
+//   - top-k upkeep per warp: each int score is tested in registers against
+//     its list's int bound (the smallest int score whose f32 cast beats
+//     the list's k-th key), one vote a tile; the rows that pass are
+//     masked, keyed and appended to the warp's own list (offsets by a
+//     shuffle scan, no atomics), and a list is sorted down to k
+//     (warp_compact) only when the next tile could overflow it; lists live
+//     in shared memory (two blocks of 32 queries an SM while k <= 160), or
+//     in a global scratch where shared memory cannot hold them;
+//   - l2: |x|^2 from the A fragments already in registers (dp4a, summed over
+//     the quad holding a row), never per query; |q|^2 once a block.
+//
+// B3 (`split_topk_kernel`, KIND_I4 only) keeps the first design, which
 // waits for its own redesign: a TQ x 4 (query x row) tile a thread, TQ =
 // BQ / 4, tiles of BN=256 rows and d-chunks of DK 32-bit words staged in
 // shared memory, a candidate buffer of `cap` keys a query in shared memory
 // (global memory past k = 2016) compacted block-wide whenever one more
-// round of ROW_LANES inserts could overflow it.  int8 and unpacked int4
-// dots are __dp4a with int32 accumulation (exact); B3 unpacks nibbles in
-// registers, (b & 0xF) - 8 and (b >> 4) - 8 via __vsub4 (Hopper has no
-// int4 MMA), and scores the pre-split even/odd query halves against the
-// two nibble planes, as repro/kernels/ops.py:155 splits them.  Their bound
-// is the int8 tensor cores' (2*Q*N*d at 1,979 TOP/s) or the N*d bytes.
+// round of ROW_LANES inserts could overflow it.  It unpacks nibbles in
+// registers, (b & 0xF) - 8 and (b >> 4) - 8 via __vsub4 (Hopper has no int4
+// MMA), scores the pre-split even/odd query halves against the two nibble
+// planes, as repro/kernels/ops.py:155 splits them, with __dp4a (int32,
+// exact).  Its bound is the int8 tensor cores' (2*Q*N*d at 1,979 TOP/s) or
+// the N*d/2 bytes.
 //
 // Order: (f32 score desc under the IEEE total order, row id asc), the
 // reference's (`_merge_tile` takes the first position on ties; `lax.top_k`
@@ -120,47 +152,34 @@ __device__ __forceinline__ uint32_t load_i4_word(const uint8_t* row, int h,
   return v;
 }
 
+// B3's operands (KIND_I4, the only kind split_topk_kernel still runs)
 template <int KIND>
 struct Rows {
   // corpus word w of row r
   __device__ __forceinline__ static uint32_t x_word(const void* x, long long r,
                                                     int width, int wh, int w,
                                                     bool aligned) {
-    if (KIND == KIND_I8) {
-      return load_i8_word(static_cast<const int8_t*>(x) + r * width, width, w,
-                          aligned);
-    } else {
-      return load_i4_word(static_cast<const uint8_t*>(x) + r * width, width,
-                          wh, w, aligned);
-    }
+    return load_i4_word(static_cast<const uint8_t*>(x) + r * width, width, wh,
+                        w, aligned);
   }
-  // query word w of query q (B3: q0 = even half, q1 = odd half)
+  // query word w of query q (q0 = even half, q1 = odd half)
   __device__ __forceinline__ static uint32_t q_word(const void* q0,
                                                     const void* q1, int q,
                                                     int width, int wh, int w,
                                                     bool aligned) {
-    if (KIND == KIND_I8) {
-      return load_i8_word(static_cast<const int8_t*>(q0) + (long long)q * width,
-                          width, w, aligned);
-    } else {
-      const int plane = w >= wh;
-      const int8_t* src = static_cast<const int8_t*>(plane ? q1 : q0);
-      return load_i8_word(src + (long long)q * width, width, plane ? w - wh : w,
-                          aligned);
-    }
+    const int plane = w >= wh;
+    const int8_t* src = static_cast<const int8_t*>(plane ? q1 : q0);
+    return load_i8_word(src + (long long)q * width, width, plane ? w - wh : w,
+                        aligned);
   }
 };
 
 // words w..w+3 of corpus row r as one 16-byte load (the `x_vec` layout:
-// rows 16-byte aligned, so no 4-word group straddles a row end or, for
-// B3, a nibble plane); B3 unpacks the 16 raw bytes into 4 plane words
+// rows 16-byte aligned, so no 4-word group straddles a row end or a nibble
+// plane), the 16 raw bytes unpacked into 4 plane words
 template <int KIND>
 __device__ __forceinline__ uint4 x_vec4(const void* x, long long r, int W,
                                         int wh, int w) {
-  if (KIND != KIND_I4) {
-    return *reinterpret_cast<const uint4*>(
-        static_cast<const uint32_t*>(x) + r * W + w);
-  }
   const int plane = w >= wh;
   uint4 v = *reinterpret_cast<const uint4*>(
       static_cast<const uint32_t*>(x) + r * wh + (plane ? w - wh : w));
@@ -205,6 +224,7 @@ split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
                   long long N, int width, int k, int cap, int n_splits,
                   long long rows_per_split, bool x_aligned, bool q_aligned,
                   bool x_vec) {
+  static_assert(KIND == KIND_I4, "B2 int8 runs i8_topk_kernel");
   using Acc = int;
   constexpr int TQ = BQ / 4;            // queries per thread (4 query groups)
   extern __shared__ __align__(16) unsigned char smem[];
@@ -226,7 +246,7 @@ split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min(N, r_begin + rows_per_split);
   const int wh = (width + 3) / 4;
-  const int W = KIND == KIND_I8 ? wh : 2 * wh;
+  const int W = 2 * wh;
 
   if (tid < BQ) {
     cnt[tid] = 0;
@@ -478,6 +498,27 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// mbarriers in shared memory (the int8 scan's ring)
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
+               "r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// arrives once every cp.async this thread issued before it has landed
+__device__ __forceinline__ void mbar_arrive_copies(u64* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+               "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // Stage floats [c0, c0 + DKF) of rows [row0, row0 + R) of an [n_rows, d]
@@ -747,17 +788,475 @@ cudaError_t launch_f32_bq(int bq, const float* q, const float* x,
 #undef F32_LAUNCH
 }
 
+// ---- B2 int8: the tensor-core scan with per-warp top-k upkeep ---------------
+
+// A block is WN consumer warps scoring BQ = 8 WN queries (32, 16 or 8: the
+// batch's tile, kernels/fused_topk.py i8_query_tile) and one producer
+// warp: each consumer owns 8 queries (one n8 MMA tile), one candidate list
+// per query, and every row of a 32-row tile (two m16 tiles).  The block's
+// queries stay in shared memory for the whole scan; the ring holds
+// I8_STAGES tiles of KC = 256 bytes a row (whole rows for d <= 256), rows
+// KC + 16 bytes apart so ldmatrix's eight 16-byte rows hit distinct banks.
+constexpr int I8_BM = 32;                 // rows a tile
+constexpr int I8_MT = I8_BM / 16;         // m16 tiles a tile
+constexpr int I8_KC = 256;                // bytes of a row a stage
+constexpr int I8_SROW = I8_KC + 16;       // staged row stride
+constexpr int I8_STAGES = 4;
+constexpr int I8_STAGE = I8_BM * I8_SROW;
+
+// bytes of one resident query row: every KC-byte chunk of d, and the pad
+__host__ __device__ __forceinline__ int i8_qrow(int d) {
+  return (d + I8_KC - 1) / I8_KC * I8_KC + 16;
+}
+
+// shared memory of one block: the ring, the queries, the ring's full and
+// empty mbarriers, the lists' thresholds, the lists unless they live in
+// global memory, |q|^2, the lists' counts and the flush's flags
+// (kernels/fused_topk.py i8_smem_bytes computes the same)
+size_t i8_smem_bytes(int bq, int cap, bool gbuf, int d) {
+  return (size_t)I8_STAGES * (I8_STAGE + 16) + (size_t)bq * i8_qrow(d) +
+         (size_t)bq * 8 +
+         (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 4 * 3;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)));
+}
+// c += a (16 x 32, row) . b (32 x 8, col), s8 inputs, s32 accumulators
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage bytes [k0, k0 + KC) of rows [row0, row0 + R) of an [n_rows, width]
+// int8 matrix into dst (rows `stride` bytes apart) with NTH threads, zero
+// past n_rows and width: mode 2 16-byte cp.async (rows and base 16-byte
+// aligned), mode 1 4-byte cp.async (4-byte aligned), mode 0 byte loads and
+// one shared store a word.
+template <int R, int NTH>
+__device__ __forceinline__ void i8_stage(uint8_t* dst, int stride,
+                                         const int8_t* __restrict__ src,
+                                         long long row0, long long n_rows,
+                                         int width, int k0, int mode, int tid) {
+  const uint8_t* s = reinterpret_cast<const uint8_t*>(src);
+  if (mode == 2) {
+    constexpr int SEGS = I8_KC / 16, ALL = R * SEGS;
+#pragma unroll
+    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
+      const int i = tid + j * NTH;
+      if (ALL % NTH == 0 || i < ALL) {
+        const int r = i / SEGS, b = k0 + (i % SEGS) * 16;
+        const bool ok = row0 + r < n_rows && b < width;
+        cp_async16(dst + r * stride + (i % SEGS) * 16,
+                   ok ? s + (row0 + r) * width + b : s, ok ? 16 : 0);
+      }
+    }
+  } else {
+    constexpr int WORDS = I8_KC / 4, ALL = R * WORDS;
+#pragma unroll 4
+    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
+      const int i = tid + j * NTH;
+      if (ALL % NTH == 0 || i < ALL) {
+        const int r = i / WORDS, b = k0 + (i % WORDS) * 4;
+        uint8_t* to = dst + r * stride + (i % WORDS) * 4;
+        const bool ok = row0 + r < n_rows && b < width;
+        if (mode == 1) {
+          cp_async4(to, ok ? s + (row0 + r) * width + b : s, ok ? 4 : 0);
+        } else {
+          uint32_t v = 0;
+          if (ok) {
+            const uint8_t* p = s + (row0 + r) * width + b;
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              if (b + t < width) v |= (uint32_t)__ldg(p + t) << (8 * t);
+          }
+          *reinterpret_cast<uint32_t*>(to) = v;
+        }
+      }
+    }
+  }
+}
+
+// The smallest int32 score whose f32 cast (round to nearest even) orders
+// above the key `thr` (INT_MIN while a list holds fewer than k keys): a row
+// scanned after every row in the list beats `thr` exactly when its int
+// score reaches this bound, since its larger id loses a tie in f32 score.
+// Past INT_MAX the bound is INT_MAX, which lets a superset through.
+__device__ int int_bound(u64 thr) {
+  if (thr == 0ull) return (int)0x80000000u;
+  const float t = key_score(thr);
+  const double m =
+      0.5 * ((double)t + (double)nextafterf(t, __int_as_float(0x7f800000)));
+  double v = ceil(m);
+  if (__ll2float_rn((long long)v) <= t) v += 1.0;
+  return v > 2147483647.0 ? 0x7fffffff : (int)v;
+}
+
+// Pass 1 of B2 int8: grid (ceil(Q / BQ), S); block (qb, s) scores BQ
+// queries against the 32-row tiles s, s + S, s + 2 S, ... of the corpus
+// (the blocks in flight read neighbouring tiles) through an
+// I8_STAGES-deep ring that the producer warp fills and the
+// consumer warps drain (full / empty mbarriers, no block barrier in the
+// loop).  Each consumer multiplies the tile against its 8 queries with
+// mma.sync m16n8k32 s8 (corpus rows in M, queries in N; s32 sums, exact;
+// even and odd k-steps in two accumulator sets) and keeps |x|^2 of the rows
+// from the same A fragments (dp4a, summed over the quad that holds a row).
+// Its epilogue is its own: each int score is tested in registers against
+// its list's bound (`int_bound`), one vote a tile; only the rows that pass
+// are masked, keyed and appended to the warp's own list, and a list is
+// sorted down to k (warp_compact) only when the next tile could overflow
+// it.  Lists live in shared memory (GBUF false) or, for k too wide, in
+// `gbuf`.  The launch bounds hold registers for two blocks of 32 queries
+// an SM, or four of fewer; shared memory may allow fewer.
+template <bool L2, int WN, bool GBUF>
+__global__ void __launch_bounds__(32 * (WN + 1), WN == 4 ? 2 : 4)
+i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
+               const int8_t* __restrict__ mask, u64* __restrict__ part,
+               u64* __restrict__ gbuf, int Q, long long N, int d, int k,
+               int cap, int n_splits, int x_mode, int q_mode) {
+  constexpr int NTH = 32 * (WN + 1), BQ = 8 * WN, MT = I8_MT;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int qrow = i8_qrow(d);
+  constexpr int STAGES = I8_STAGES;
+  uint8_t* qs = smem + STAGES * I8_STAGE;                     // [BQ, qrow]
+  u64* full = reinterpret_cast<u64*>(qs + BQ * qrow);         // [STAGES]
+  u64* empty = full + STAGES;                                 // [STAGES]
+  u64* thresh = empty + STAGES;                               // [BQ]
+  u64* lists = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                 BQ * cap
+                    : thresh + BQ;                            // [BQ, cap]
+  int* qn = reinterpret_cast<int*>(
+      GBUF ? thresh + BQ : thresh + BQ + (size_t)BQ * cap);   // [BQ]
+  int* cnt = qn + BQ;                                         // [BQ]
+  int* need = cnt + BQ;                                       // [BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q_base = blockIdx.x * BQ;
+
+  if (tid < BQ) {
+    cnt[tid] = 0;
+    thresh[tid] = 0ull;
+    int s = 0;
+    const int q = q_base + tid;
+    if (L2 && q < Q)
+      for (int c = 0; c < d; ++c) {
+        const int v = qm[(long long)q * d + c];
+        s += v * v;
+      }
+    qn[tid] = s;
+  }
+  // this lane's two queries (the C fragment's columns 2 t4, 2 t4 + 1),
+  // each its block query index and so its list
+  const int l0 = warp * 8 + 2 * t4, l1 = l0 + 1;
+  const bool ok0 = q_base + l0 < Q, ok1 = q_base + l1 < Q;
+  int T[2] = {ok0 ? (int)0x80000000u : 0x7fffffff,
+              ok1 ? (int)0x80000000u : 0x7fffffff};
+
+  // split s scans the tiles s, s + S, s + 2 S, ...
+  const int n_chunks = (d + I8_KC - 1) / I8_KC;
+  const long long n_tiles = (N + I8_BM - 1) / I8_BM;
+  const long long my_tiles =
+      n_tiles > blockIdx.y ? (n_tiles - 1 - blockIdx.y) / n_splits + 1 : 0;
+  const int n_steps = (int)my_tiles * n_chunks;
+  auto row_of = [&](int s) {            // first row of step s's tile
+    return ((long long)(s / n_chunks) * n_splits + blockIdx.y) * I8_BM;
+  };
+  // the queries, every chunk, once; the ring's barriers: a stage is full
+  // once the producer warp's 32 lanes have landed their copies, empty once
+  // each of the WN consumer warps has read it
+  for (int c = 0; c < n_chunks; ++c)
+    i8_stage<BQ, NTH>(qs + c * I8_KC, qrow, qm, q_base, Q, d, c * I8_KC,
+                      q_mode, tid);
+  cp_async_commit();
+  if (tid == 0)
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], WN);
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp == WN) {
+    // the producer warp: stage s goes into slot s % STAGES once the
+    // consumers have emptied that slot's previous use
+    for (int s = 0; s < n_steps; ++s) {
+      const int slot = s % STAGES;
+      if (s >= STAGES) mbar_wait(&empty[slot], (s / STAGES - 1) & 1);
+      i8_stage<I8_BM, 32>(smem + slot * I8_STAGE, I8_SROW, x, row_of(s), N,
+                          d, (s % n_chunks) * I8_KC, x_mode, lane);
+      if (x_mode == 0)
+        mbar_arrive(&full[slot]);
+      else
+        mbar_arrive_copies(&full[slot]);
+    }
+  }
+
+  // ldmatrix row addresses of this lane: A (x4: rows 0-15, bytes +0 /
+  // +16), B (x2: this warp's queries 0-7, bytes +0 / +16)
+  const int a_off = (lane & 15) * I8_SROW + (lane >> 4) * 16;
+  const int b_off = (warp * 8 + (lane & 7)) * qrow + ((lane >> 3) & 1) * 16;
+  int acc[2][MT][4];                    // even / odd k-steps: 4 MMA chains
+  int xsq[MT][2];                       // |x|^2 parts of rows g, g + 8
+  long long t0 = 0;
+  for (int s = 0; s < (warp < WN ? n_steps : 0); ++s) {
+    const int slot = s % STAGES;
+    mbar_wait(&full[slot], (s / STAGES) & 1);
+    const int c = s % n_chunks;
+    if (c == 0) {
+      t0 = row_of(s);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][mi][e] = acc[1][mi][e] = 0;
+        xsq[mi][0] = xsq[mi][1] = 0;
+      }
+    }
+    const uint8_t* As = smem + slot * I8_STAGE + a_off;
+    const uint8_t* Bs = qs + b_off + c * I8_KC;
+    const int nk = d - c * I8_KC;       // bytes of d in this chunk
+#pragma unroll
+    for (int kk = 0; kk < I8_KC / 32; ++kk) {
+      if (kk * 32 >= nk) break;
+      uint32_t b0, b1;
+      ldsm_x2(b0, b1, Bs + kk * 32);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        uint32_t a[4];
+        ldsm_x4(a, As + mi * 16 * I8_SROW + kk * 32);
+        mma_s8(acc[kk & 1][mi], a, b0, b1);
+        if (L2) {
+          xsq[mi][0] = __dp4a((int)a[0], (int)a[0], xsq[mi][0]);
+          xsq[mi][0] = __dp4a((int)a[2], (int)a[2], xsq[mi][0]);
+          xsq[mi][1] = __dp4a((int)a[1], (int)a[1], xsq[mi][1]);
+          xsq[mi][1] = __dp4a((int)a[3], (int)a[3], xsq[mi][1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (c != n_chunks - 1) continue;
+
+    // ---- epilogue of the tile at t0: warp-private, no block barrier ----
+    int qn0 = 0, qn1 = 0;
+    if (L2) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          xsq[mi][h] += __shfl_xor_sync(FULL, xsq[mi][h], 1);
+          xsq[mi][h] += __shfl_xor_sync(FULL, xsq[mi][h], 2);
+        }
+      qn0 = qn[l0];
+      qn1 = qn[l1];
+    }
+    int sc[MT][4];
+    bool p[MT][4], any = false;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dot = acc[0][mi][e] + acc[1][mi][e];
+        // l2: -(|q|^2 + |x|^2 - 2 q.x), wrapping as the reference's int32
+        sc[mi][e] = L2 ? (int)(2u * (unsigned)dot - (unsigned)xsq[mi][e >> 1] -
+                               (unsigned)(e & 1 ? qn1 : qn0))
+                       : dot;
+        p[mi][e] = sc[mi][e] >= T[e & 1];
+        any |= p[mi][e];
+      }
+    if (!__any_sync(FULL, any)) continue;
+    // the rows that pass, masked; each lane's count for its two queries,
+    // and their offsets in the lists by a scan over the 8 lanes (g = 0..7)
+    // that hold each query's column: no atomics
+    int c0 = 0, c1 = 0;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long row = t0 + mi * 16 + g + (e >> 1) * 8;
+        p[mi][e] = p[mi][e] && (e & 1 ? ok1 : ok0) && row < N &&
+                   (mask == nullptr || mask[row] != 0);
+        c0 += (e & 1) ? 0 : p[mi][e];
+        c1 += (e & 1) ? p[mi][e] : 0;
+      }
+    int i0 = c0, i1 = c1;                 // inclusive scans over g
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      const int u0 = __shfl_up_sync(FULL, i0, off);
+      const int u1 = __shfl_up_sync(FULL, i1, off);
+      if (lane >= off) {
+        i0 += u0;
+        i1 += u1;
+      }
+    }
+    const int base0 = cnt[l0], base1 = cnt[l1];
+    int w0 = base0 + i0 - c0, w1 = base1 + i1 - c1;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (p[mi][e]) {
+          const u64 key = make_key(__int2float_rn(sc[mi][e]),
+                                   t0 + mi * 16 + g + (e >> 1) * 8);
+          if (e & 1)
+            lists[(size_t)l1 * cap + w1++] = key;
+          else
+            lists[(size_t)l0 * cap + w0++] = key;
+        }
+    __syncwarp();
+    if (g == 7) {
+      cnt[l0] = base0 + i0;
+      cnt[l1] = base1 + i1;
+    }
+    __syncwarp();
+    // a list the next tile could overflow is sorted down to k
+    unsigned over = __ballot_sync(
+        FULL, lane < 8 && cnt[warp * 8 + (lane & 7)] > cap - I8_BM);
+    if (over == 0u) continue;
+    while (over) {
+      const int l = warp * 8 + __ffs(over) - 1;
+      over &= over - 1u;
+      int n = cnt[l];
+      u64 thr = thresh[l];
+      warp_compact(lists + (size_t)l * cap, n, thr, cap, k, lane);
+      __syncwarp();
+      if (lane == 0) {
+        cnt[l] = n;
+        thresh[l] = thr;
+      }
+      __syncwarp();
+    }
+    if (ok0) T[0] = int_bound(thresh[l0]);
+    if (ok1) T[1] = int_bound(thresh[l1]);
+  }
+  cp_async_wait<0>();
+
+  // zero-fill each list past its count; the block's compaction truncates
+  // every list to its best k and writes them
+#pragma unroll 1
+  for (int j = 0; j < (warp < WN ? 8 : 0); ++j) {
+    const int l = warp * 8 + j;
+    __syncwarp();
+    const int n = cnt[l];
+    for (int e = n + lane; e < cap; e += 32) lists[(size_t)l * cap + e] = 0ull;
+  }
+  __syncthreads();
+  if (tid < BQ) {
+    cnt[tid] = cap;
+    thresh[tid] = 0ull;
+  }
+  flush_partial(lists, thresh, cnt, need, BQ, cap, k, part, q_base, Q,
+                blockIdx.y, n_splits);
+}
+
+// opt in to the block's shared memory, with the SM's whole carveout as
+// shared memory, so that as many blocks stay resident as the layout counts
+template <typename F>
+cudaError_t i8_attributes(F fn, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// resident blocks an SM of one int8 pass-1 launch, by the occupancy API
+template <bool L2, int WN, bool GBUF>
+int i8_occupancy(int cap, int d) {
+  const size_t smem = i8_smem_bytes(8 * WN, cap, GBUF, d);
+  auto fn = i8_topk_kernel<L2, WN, GBUF>;
+  int per_sm = 0;
+  if (i8_attributes(fn, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * (WN + 1),
+                                                    smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+template <bool L2, int WN, bool GBUF>
+cudaError_t launch_i8(const int8_t* q, const int8_t* x, const int8_t* mask,
+                      u64* part, u64* gbuf, int Q, long long N, int d, int k,
+                      int cap, int n_splits, int x_mode, int q_mode,
+                      cudaStream_t stream) {
+  const size_t smem = i8_smem_bytes(8 * WN, cap, GBUF, d);
+  auto fn = i8_topk_kernel<L2, WN, GBUF>;
+  cudaError_t err = i8_attributes(fn, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Q + 8 * WN - 1) / (8 * WN), n_splits);
+  fn<<<grid, 32 * (WN + 1), smem, stream>>>(q, x, mask, part, gbuf, Q, N, d,
+                                            k, cap, n_splits, x_mode, q_mode);
+  return cudaGetLastError();
+}
+
+// copies of int8 rows of `width` bytes from p: 2 16-byte, 1 4-byte, 0 bytes
+int i8_copy_mode(const void* p, int width) {
+  if (((uintptr_t)p & 15) == 0 && width % 16 == 0) return 2;
+  if (((uintptr_t)p & 3) == 0 && width % 4 == 0) return 1;
+  return 0;
+}
+
+// the query tiles of kernels/fused_topk.py i8_query_tile: 32, 16 or 8
+// queries (4, 2 or 1 warps); lists in shared memory unless `gbuf` is given
+template <bool L2>
+cudaError_t launch_i8_bq(int bq, const int8_t* q, const int8_t* x,
+                         const int8_t* mask, u64* part, u64* gbuf, int Q,
+                         long long N, int d, int k, int cap, int n_splits,
+                         cudaStream_t st) {
+  const int xm = i8_copy_mode(x, d), qm = i8_copy_mode(q, d);
+#define I8_LAUNCH(WN)                                                       \
+  (gbuf ? launch_i8<L2, WN, true>(q, x, mask, part, gbuf, Q, N, d, k, cap, \
+                                  n_splits, xm, qm, st)                     \
+        : launch_i8<L2, WN, false>(q, x, mask, part, gbuf, Q, N, d, k, cap, \
+                                   n_splits, xm, qm, st))
+  switch (bq) {
+    case 32: return I8_LAUNCH(4);
+    case 16: return I8_LAUNCH(2);
+    case 8: return I8_LAUNCH(1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef I8_LAUNCH
+}
+
 }  // namespace
 
-// kind: 0 f32 (f32_topk_kernel), 1 int8 or 2 packed int4
-// (split_topk_kernel; q0/q1 = even/odd query halves, width = bytes per
-// packed row).  The caller chooses the pass-1 layout: bq queries per
+// Resident int8 pass-1 blocks an SM at bq queries a block, lists of `cap`
+// keys (in global memory when gbuf is nonzero) and rows of `width` bytes,
+// as the occupancy API reports it; -1 on an error.  kernels/fused_topk.py
+// i8_blocks_per_sm must agree (tests/test_torch_gpu.py checks it).
+extern "C" int rt_i8_blocks_per_sm(int l2, int bq, int cap, int gbuf,
+                                   int width) {
+#define I8_OCC(L2_, WN)                                       \
+  (gbuf ? i8_occupancy<L2_, WN, true>(cap, width)             \
+        : i8_occupancy<L2_, WN, false>(cap, width))
+  const int wn = bq / 8;
+  if (bq != 8 * wn || (wn != 1 && wn != 2 && wn != 4)) return -1;
+  if (l2) return wn == 4 ? I8_OCC(true, 4) : wn == 2 ? I8_OCC(true, 2) : I8_OCC(true, 1);
+  return wn == 4 ? I8_OCC(false, 4) : wn == 2 ? I8_OCC(false, 2) : I8_OCC(false, 1);
+#undef I8_OCC
+}
+
+// kind: 0 f32 (f32_topk_kernel), 1 int8 (i8_topk_kernel) or 2 packed
+// int4 (split_topk_kernel; q0/q1 = even/odd query halves, width = bytes
+// per packed row).  The caller chooses the pass-1 layout: bq queries per
 // block, a candidate buffer of `cap` keys (a power of two holding k kept
-// keys plus one insert round: 32 rows for a warp's f32 list, ROW_LANES for
-// an int query's buffer), n_splits corpus ranges, and where the buffers
-// live: `gbuf` null keeps them in shared memory, else gbuf holds
-// [ceil(Q / bq) * n_splits, lists, cap] keys (lists = bq, or 8 at f32
-// bq 1).  `part` holds Q * n_splits * k keys; `mbuf` null merges in
+// keys plus one insert round: 32 rows for a warp's f32 or int8 list,
+// ROW_LANES for an int4 query's buffer), n_splits corpus ranges, and where
+// the buffers live: `gbuf` null keeps them in shared memory, else gbuf
+// holds [ceil(Q / bq) * n_splits, lists, cap] keys (lists = bq, or 8 at
+// f32 bq 1).  `part` holds Q * n_splits * k keys; `mbuf` null merges in
 // shared memory, else it holds [Q, next_pow2(k + NT)] keys.  Launches
 // pass 1 and pass 2 on `stream` and returns the first cudaError_t (0 on
 // success).
@@ -768,10 +1267,10 @@ extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
                              long long N, int width, int k, int n_splits,
                              void* stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
-  // room for k kept keys and one insert round: 32 rows a warp (f32),
-  // ROW_LANES a query (int kinds)
-  if (cap != next_pow2(cap) || cap < k + (kind == KIND_F32 ? 32 : ROW_LANES) ||
-      n_splits <= 0)
+  // room for k kept keys and one insert round: 32 rows a warp (f32), a
+  // 32-row tile (int8), ROW_LANES a query (int4)
+  const int round = kind == KIND_F32 ? 32 : kind == KIND_I8 ? I8_BM : ROW_LANES;
+  if (cap != next_pow2(cap) || cap < k + round || n_splits <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* m = (const int8_t*)mask;
@@ -786,20 +1285,21 @@ extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
     const float* xf = (const float*)x;
     err = l2 ? launch_f32_bq<true>(bq, qf, xf, m, p, g, Q, N, width, k, cap, n_splits, xv, qv, st)
              : launch_f32_bq<false>(bq, qf, xf, m, p, g, Q, N, width, k, cap, n_splits, xv, qv, st);
-  } else {
+  } else if (kind == KIND_I8) {
+    const int8_t* qi = (const int8_t*)q0;
+    const int8_t* xi = (const int8_t*)x;
+    err = l2 ? launch_i8_bq<true>(bq, qi, xi, m, p, g, Q, N, width, k, cap, n_splits, st)
+             : launch_i8_bq<false>(bq, qi, xi, m, p, g, Q, N, width, k, cap, n_splits, st);
+  } else if (kind == KIND_I4) {
     const bool x_aligned = width % 4 == 0 && ((uintptr_t)x & 3) == 0;
     const bool q_aligned = width % 4 == 0 && ((uintptr_t)q0 & 3) == 0 &&
                            (q1 == nullptr || ((uintptr_t)q1 & 3) == 0);
     // 16-byte corpus loads: 16-byte aligned rows (bytes per row % 16 == 0)
     const bool x_vec = ((uintptr_t)x & 15) == 0 && width % 16 == 0;
-    if (kind == KIND_I8)
-      err = l2 ? launch_split_bq<KIND_I8, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-               : launch_split_bq<KIND_I8, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
-    else if (kind == KIND_I4)
-      err = l2 ? launch_split_bq<KIND_I4, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-               : launch_split_bq<KIND_I4, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
-    else
-      err = cudaErrorInvalidValue;
+    err = l2 ? launch_split_bq<KIND_I4, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
+             : launch_split_bq<KIND_I4, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
+  } else {
+    err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(p, (u64*)mbuf, out_s, out_i, Q, n_splits, k, st);

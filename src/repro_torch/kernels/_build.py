@@ -43,6 +43,8 @@ SIGNATURES = {
         # out_i, Q, N, width, k, n_splits, stream
         "rt_fused_topk": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _L, _I, _I, _I, _P], _I),
+        # l2, bq, cap, gbuf, width
+        "rt_i8_blocks_per_sm": ([_I, _I, _I, _I, _I], _I),
     },
     "adc": {
         # kbits, bq, lutg, cap, lut0, lut1, codes, mask, part, gbuf, mbuf,

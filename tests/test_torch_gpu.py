@@ -170,6 +170,77 @@ def test_fused_topk_fp32_edges(dev, metric, Q, N, d, offset):
     hold_fp32(q, x, metric, None, got, want)
 
 
+@pytest.mark.parametrize("q,k,d", [(1, 100, 256), (8, 10, 128),
+                                   (16, 100, 256), (256, 100, 256),
+                                   (256, 400, 256), (256, 100, 257),
+                                   (37, 3000, 64)])
+def test_int8_layout_blocks_per_sm_match_the_card(dev, q, k, d):
+    """The int8 layout's resident blocks an SM (plain Python, which sizes
+    the split count) are what the occupancy API reports for the kernel
+    where shared memory limits them, and never more where the launch
+    bounds' eight warps do (registers may allow more)."""
+    from repro_torch.kernels import _build
+
+    lay = F.layout(F.KIND_I8, q, 4_000_000, k, d)
+    gbuf = lay.gbuf_keys > 0
+    per_sm = F.i8_blocks_per_sm(lay.bq, lay.cap, gbuf, d)
+    for l2 in (0, 1):
+        got = _build.lib("fused_topk").rt_i8_blocks_per_sm(
+            l2, lay.bq, lay.cap, int(gbuf), d)
+        cap = 2 if lay.bq == 32 else 4
+        assert got == per_sm if per_sm < cap else got >= per_sm
+
+
+#: B2 int8 edge cases (Q, N, d, byte offset of the corpus view, codes): Q
+#: at 1 and at each query tile (8, 16, 32) and one past it; N at 1, at a
+#: 32-row tile and the int4 scan's 256-row tile and one either side, and
+#: just past a split (2048 rows); d not a multiple of 32, and past one
+#: 256-byte chunk; unaligned views x[1:] (byte loads) and 4 bytes in
+#: (4-byte copies); extreme codes (-128 against 127, and against -128),
+#: duplicated rows (tie order by id) and an all-zero mask
+INT8_EDGES = (
+    [(q, 5000, 64, 0, "random") for q in (1, 8, 9, 16, 17, 32, 33, 64, 65)]
+    + [(9, n, 32, 0, "random")
+       for n in (1, 31, 32, 33, 255, 256, 257, 2048, 2049, 4097)]
+    + [(7, 3001, d, 0, "random") for d in (1, 3, 31, 33, 100, 255, 257, 600)]
+    + [(7, 3001, d, off, "random") for d, off in ((64, 1), (100, 1), (64, 4))]
+    + [(33, 3001, 255, 0, c)
+       for c in ("min_max", "min_min", "duplicated", "zero_mask")])
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("Q,N,d,offset,codes", INT8_EDGES)
+def test_fused_topk_int8_edges(dev, metric, Q, N, d, offset, codes):
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randint(-128, 128, shape, generator=g,
+                             device=dev).to(torch.int8)
+
+    q, flat, mask = rand(Q, d), rand(N * d + offset), None
+    if codes == "min_max":
+        q.fill_(-128)
+        flat.fill_(127)
+    elif codes == "min_min":
+        q.fill_(-128)
+        flat.fill_(-128)
+    elif codes == "duplicated":
+        flat[offset:] = rand(50, d).repeat(-(-N // 50), 1)[:N].reshape(-1)
+    elif codes == "zero_mask":
+        mask = torch.zeros(N, dtype=torch.int8, device=dev)
+    # offset > 0: the rows of an [N, d] view that many bytes into a buffer
+    x = flat[offset:].view(N, d)
+    if offset:
+        assert x.data_ptr() % 16 != 0
+    k = min(100, N)
+    got = K.fused_topk(q, x, k, metric, mask=mask)
+    want = F.fused_topk_plain(q, x, k=k, metric=metric, mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if codes == "zero_mask":
+        assert bool(torch.all(got[1] == -1))
+
+
 @pytest.mark.parametrize("bits,m", [(8, 32), (8, 7), (4, 64), (4, 7)])
 @pytest.mark.parametrize("k", [1, 100, 400])
 def test_fused_adc_matches_plain(dev, bits, m, k):

@@ -160,8 +160,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_launch_geometry():
-    # candidate buffers of next_pow2(2k + 64) keys bound the query block;
-    # each holds k kept keys plus one round of ROW_LANES inserts
+    # B3: candidate buffers of next_pow2(2k + 64) keys bound the query
+    # block; each holds k kept keys plus one round of ROW_LANES inserts
     assert F.split_cap(1) == 128 and F.split_cap(100) == 512
     assert F.split_cap(400) == 1024 and F.split_cap(1024) == 4096
     assert all(F.split_cap(k) >= k + F.ROW_LANES for k in range(1, 5001))
@@ -175,27 +175,80 @@ def test_launch_geometry():
     assert F.n_splits(256, 4_000_000, 100) == 33
     assert F.n_splits(256, 4_000_000, 400) == 17
     assert F.n_splits(1000, 300, 100) == 1
+    # B2 int8: lists of next_pow2(k + 96) keys (k kept, a 32-row tile and
+    # at least 64 more); the query tile follows the batch, never k; the
+    # queries stay in shared memory, whole KC-byte chunks of d
+    assert F.i8_cap(1) == 128 and F.i8_cap(100) == F.i8_cap(160) == 256
+    assert F.i8_cap(161) == F.i8_cap(416) == 512 and F.i8_cap(417) == 1024
+    assert all(F.i8_cap(k) >= k + 96 for k in range(1, 5001))
+    assert [F.i8_query_tile(q) for q in (1, 8, 9, 16, 17, 32, 256)] == [
+        8, 8, 16, 16, 32, 32, 32]
+    assert [F.i8_qrow(d) for d in (1, 128, 256, 257, 512)] == [
+        272, 272, 272, 528, 528]
+    # at k=100, d=256: four blocks an SM of 8 queries, three of 16, two of
+    # 32, each within an SM's share
+    for bq, per_sm in ((8, 4), (16, 3), (32, 2)):
+        smem = F.i8_smem_bytes(bq, 256, False, 256)
+        assert F.i8_blocks_per_sm(bq, 256, False, 256) == per_sm
+        assert per_sm * (smem + 1024) <= F.SM_SMEM
+    # one wave of resident blocks over the splits and query blocks
+    assert F.layout(F.KIND_I8, 1, 4_000_000, 100, 256).splits == 528
+    assert F.layout(F.KIND_I8, 256, 4_000_000, 100, 256).splits == 33
+    # lists of 512 keys leave a 32-query block alone on its SM: 8 queries
+    # a block, three an SM
+    assert F.layout(F.KIND_I8, 256, 4_000_000, 400, 256)[:3] == (8, 512, 12)
+    assert F.layout(F.KIND_I8, 1000, 300, 100, 256).splits == 1
+    # a d too wide for 32 resident queries takes 8; wider still raises
+    assert F.i8_query_layout(256, 100, 20000) == (8, False)
+    with pytest.raises(ValueError, match="too wide"):
+        F.i8_query_layout(256, 100, 30000)
 
 
 @pytest.mark.parametrize("k", [1, 100, 1024, 1025, 5000])
 @pytest.mark.parametrize("q", [1, 37, 256])
 def test_fused_layout_at_any_k(k, q):
-    """The whole launch layout (``layout``), as plain Python: the int scans
-    keep their shared-memory buffers (and layout) up to k = 2016 and move
-    them to a global scratch beyond; the fp32 scan's query tile follows the
-    batch, never k, and its buffers are always global; every buffer holds
-    k keys plus one round of inserts; the merge stays in shared memory."""
+    """The whole launch layout (``layout``), as plain Python: the int4 scan
+    keeps its shared-memory buffers (and layout) up to k = 2016 and moves
+    them to a global scratch beyond; the int8 scan's query tile follows the
+    batch, its lists stay in shared memory up to k = 416 at least and move
+    to a global scratch where shared memory cannot hold them; the fp32
+    scan's
+    query tile follows the batch, never k, and its lists move to global
+    memory past k = 1952; every buffer holds k keys plus one round of
+    inserts; the merge stays in shared memory."""
     n = 4_000_000
-    for kind in (F.KIND_I8, F.KIND_I4):
-        lay = F.layout(kind, q, n, k)
-        assert (lay.bq, lay.cap) == (F.query_tile(k, q), F.split_cap(k))
-        assert lay.splits == F.n_splits(q, n, k)
-        shared = F.split_smem_bytes(lay.bq, lay.cap, False) <= F.SMEM_MAX
-        assert shared == (k <= 2016) == (lay.gbuf_keys == 0)
-        assert F.split_smem_bytes(lay.bq, lay.cap, not shared) <= F.SMEM_MAX
-        if not shared:
-            assert lay.bq == 4 and lay.gbuf_keys == (
-                -(-q // 4) * lay.splits * 4 * lay.cap)
+    lay = F.layout(F.KIND_I4, q, n, k)
+    assert (lay.bq, lay.cap) == (F.query_tile(k, q), F.split_cap(k))
+    assert lay.splits == F.n_splits(q, n, k)
+    shared = F.split_smem_bytes(lay.bq, lay.cap, False) <= F.SMEM_MAX
+    assert shared == (k <= 2016) == (lay.gbuf_keys == 0)
+    assert F.split_smem_bytes(lay.bq, lay.cap, not shared) <= F.SMEM_MAX
+    if not shared:
+        assert lay.bq == 4 and lay.gbuf_keys == (
+            -(-q // 4) * lay.splits * 4 * lay.cap)
+    assert lay.mbuf_keys == 0
+    for d in (100, 256, 257):
+        lay = F.layout(F.KIND_I8, q, n, k, d)
+        bq, gbuf = F.i8_query_layout(q, k, d)
+        assert (lay.bq, lay.cap) == (bq, F.i8_cap(k)) and lay.cap >= k + 96
+        # 32 queries a block, or 8 where a 32-query block would be alone
+        # on its SM with its lists in shared memory
+        alone = (F.i8_smem_bytes(32, lay.cap, False, d) <= F.SMEM_MAX
+                 and F.i8_blocks_per_sm(32, lay.cap, False, d) == 1)
+        assert lay.bq == (8 if q == 1 or alone else 32)
+        assert gbuf == (F.i8_smem_bytes(bq, lay.cap, False, d) > F.SMEM_MAX)
+        assert gbuf == (lay.gbuf_keys > 0) and gbuf == (k > 1000 and (
+            q > 1 or k > 2000))
+        assert F.i8_smem_bytes(bq, lay.cap, gbuf, d) <= F.SMEM_MAX
+        qblocks = -(-q // bq)
+        if gbuf:
+            assert lay.gbuf_keys == qblocks * lay.splits * bq * lay.cap
+        per_sm = F.i8_blocks_per_sm(bq, lay.cap, gbuf, d)
+        assert 1 <= per_sm <= (2 if bq == 32 else 4)
+        assert per_sm * (F.i8_smem_bytes(bq, lay.cap, gbuf, d) + 1024) <= (
+            F.SM_SMEM) or per_sm == 1
+        assert lay.splits == max(1, min(per_sm * F._SMS // qblocks,
+                                        -(-n // max(2048, 2 * k))))
         assert lay.mbuf_keys == 0
     lay = F.layout(F.KIND_F32, q, n, k)
     bq, gbuf = F.f32_query_tile(k, q)
@@ -216,7 +269,7 @@ def test_fused_layout_at_any_k(k, q):
     assert qblocks * lay.splits <= per_sm * F._SMS or lay.splits == 1
     assert F.merge_in_shared(k) and F.merge_in_shared(16128)
     assert not F.merge_in_shared(16129)
-    assert F.layout(F.KIND_I8, 4, 40_000, 20_000).mbuf_keys == 4 * 32768
+    assert F.layout(F.KIND_I8, 4, 40_000, 20_000, 64).mbuf_keys == 4 * 32768
     assert [F.f32_batch_tile(v) for v in (1, 4, 5, 16, 17, 32, 33, 512)] == [
         1, 1, 8, 8, 32, 32, 32, 32]
     # k narrows the fp32 tile only where its lists leave shared memory;
