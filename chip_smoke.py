@@ -22,7 +22,9 @@ Phases (each prints its lines; any failure exits non-zero):
               the bound, with its result there held against the plain
               version's and the yardstick's scores (B2 int8 also at 1 and 32
               queries, k = 10 and 400, and l2 at the SIFT-like 1,000,000 x
-              128, held bit-equal there); the score-matrix
+              128, held bit-equal there; B3 at 1 and 32 queries, at k=400
+              and l2 at 1,000,000 x 128, and B5 at k=400, each held
+              bit-equal there); the score-matrix
               kernels B6-B8 bit-equal to their plain versions at ragged Q, N
               and d and on extreme codes, and timed at the retrieval shapes
               (1,000,000 x 128, Q=512; B6/B7 also Q=1)
@@ -620,6 +622,25 @@ def time_kernels(err: dict) -> dict:
         f"{(ns * ds) / PEAK_BYTES * 1e3:.4f} ms (bytes); bit-equal to the "
         f"plain version | {smi()}")
     del xs, qs
+    # B3 at request shapes (1 and 32 queries), at depth 400 and l2 at the
+    # SIFT-like shape (1,000,000 x 128: 64 packed bytes a row), each held
+    # bit-equal to the plain version there
+    x4s = PK.pack_int4(_codes(g, (ns, ds), False, dev, torch.int8).clamp(-8, 7))
+    q4s = _codes(g, (Q, ds), False, dev, torch.int8).clamp(-8, 7)
+    for qn, kk, metric, qq, xx in ((1, k, "ip", q4, c4), (32, k, "ip", q4, c4),
+                                   (Q, 400, "ip", q4, c4),
+                                   (Q, k, "l2", q4s, x4s)):
+        qe_, qo_ = K.split_nibble_queries(qq[:qn].contiguous())
+        ms4 = time_ms(lambda: F.fused_topk4_cuda(qe_, qo_, xx, k=kk,
+                                                 metric=metric), REPS)
+        shape = f"Q={qn} N={xx.shape[0]} d={2 * xx.shape[1]} k={kk} {metric}"
+        hold("fused_topk4", F.fused_topk4_cuda(qe_, qo_, xx, k=kk, metric=metric),
+             F.fused_topk4_plain(qe_, qo_, xx, k=kk, metric=metric), qq[:qn],
+             xx, kk, metric, None, f"int4 {shape}", err)
+        log(f"[timing] fused_topk4 {shape}: kernel {ms4:.4f} ms, bound "
+            f"{xx.numel() / PEAK_BYTES * 1e3:.4f} ms (code bytes); bit-equal "
+            f"to the plain version | {smi()}")
+    del x4s, q4s
     # the fp32 scan at a single request (bytes-bound) and at depth 400
     ms1 = time_ms(lambda: F.fused_topk_cuda(qf[:1], x, k=k, metric="ip"), REPS)
     log(f"[timing] fused_topk_fp32 Q=1 N={N} d={d} k={k}: kernel {ms1:.4f} ms, "
@@ -632,15 +653,19 @@ def time_kernels(err: dict) -> dict:
     log(f"[timing] fused_topk_fp32 Q={Q} k={k} device time per call (profiler, "
         f"3 calls): pass 1 {dev_ms['f32_topk_kernel']:.4f} ms, merge "
         f"{dev_ms['merge_topk_kernel']:.4f} ms")
-    # device time of pass 1 and pass 2 (merge)
-    dev_ms = device_ms(lambda: F.fused_topk_cuda(qc, codes, k=k, metric="ip"),
-                       ("i8_topk_kernel", "merge_topk_kernel"))
-    total = sum(dev_ms.values()) or 1.0
-    log(f"[timing] fused_topk_int8 Q={Q} k={k} device time per call (profiler, "
-        f"3 calls): pass 1 {dev_ms['i8_topk_kernel']:.4f} ms "
-        f"({dev_ms['i8_topk_kernel'] / total:.1%}), merge "
-        f"{dev_ms['merge_topk_kernel']:.4f} ms "
-        f"({dev_ms['merge_topk_kernel'] / total:.1%})")
+    # device time of pass 1 and pass 2 (merge) of the int8 and int4 scans
+    for name, fn in (
+            ("fused_topk_int8",
+             lambda: F.fused_topk_cuda(qc, codes, k=k, metric="ip")),
+            ("fused_topk4",
+             lambda: F.fused_topk4_cuda(qe, qo, c4, k=k, metric="ip"))):
+        dev_ms = device_ms(fn, ("i8_topk_kernel", "merge_topk_kernel"))
+        total = sum(dev_ms.values()) or 1.0
+        log(f"[timing] {name} Q={Q} k={k} device time per call (profiler, "
+            f"3 calls): pass 1 {dev_ms['i8_topk_kernel']:.4f} ms "
+            f"({dev_ms['i8_topk_kernel'] / total:.1%}), merge "
+            f"{dev_ms['merge_topk_kernel']:.4f} ms "
+            f"({dev_ms['merge_topk_kernel'] / total:.1%})")
     return out
 
 
@@ -728,13 +753,16 @@ def time_adc() -> dict:
                              f" + {Q * k * 8} out) B / 3.35e12 B/s = "
                              f"{t_bytes:.4f} ms, {Q}*{N}*{m} int32 adds / "
                              f"67e12 /s = {t_ops:.4f} ms)"))
-        split = device_ms(kern, ("adc_split_kernel", "merge_topk_kernel"))
+        # pass 1 of B4 is the gather kernel, of B5 (from 5 queries on) the
+        # one-hot MMA kernel
+        pass1 = "adc4_mma_kernel" if packed else "adc_split_kernel"
+        split = device_ms(kern, (pass1, "merge_topk_kernel"))
         log(f"[timing] {name} {shape}: kernel {ms:.4f} ms (median of {REPS}), "
             f"plain {pm:.4f} ms, library {lm:.4f} ms, bound "
             f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}: "
             f"{out[name]['bound_formula']}), roofline "
             f"{out[name]['bound_ms'] / ms:.4f}; device time per call "
-            f"(profiler): split {split['adc_split_kernel']:.4f} ms, merge "
+            f"(profiler): pass 1 ({pass1}) {split[pass1]:.4f} ms, merge "
             f"{split['merge_topk_kernel']:.4f} ms | {smi()}")
         for qn in (1, 32):
             lq = lut[:qn].contiguous()
@@ -744,6 +772,15 @@ def time_adc() -> dict:
             o1 = qn * N * m / PEAK_INT32 * 1e3
             log(f"[timing] {name} Q={qn} N={N} M={m} k={k}: kernel {ms1:.4f} "
                 f"ms, bound {max(b1, o1):.4f} ms | {smi()}")
+        if packed:
+            # B5 at the ,r32 arm's scan depth, held bit-equal there
+            ms4 = time_ms(lambda: K.fused_adc_topk(lut, payload, 400,
+                                                   packed=True), REPS)
+            hold_adc(K.fused_adc_topk(lut, payload, 400, packed=True),
+                     adc_plain(lut, payload, 400, True),
+                     f"{name} Q={Q} N={N} M={m} K={kc} k=400")
+            log(f"[timing] {name} Q={Q} N={N} M={m} k=400: kernel {ms4:.4f} "
+                f"ms; bit-equal to the plain version | {smi()}")
         del lut, codes, payload
     return out
 

@@ -7,9 +7,10 @@ Corpus 4,000,000 x 256 (N(0, 1) fp32 for B2 fp32; random int8 / int4
 codes for B2 int8 and B3), 256 queries, ip: B2 fp32 at k=100, k=400 and
 one query; B2 int8 at k=100 and k=400, at 1 and 32 queries (k=100), and
 l2 at k=100, also at the SIFT-like shape (1,000,000 x 128); B3 at k=100
-and k=400, and l2 at k=400.  B4 on pq32 codes (32 bytes a row) and B5 on pq64x4 codes (32
-packed bytes a row) of 4,000,000 rows, random int8 LUTs, 256 queries,
-k=100.  Each time is the median of 10 warm calls by CUDA events around
+and k=400, at one query (k=100), and l2 at k=400.  B4 on pq32 codes (32
+bytes a row) at k=100 and B5 on pq64x4 codes (32 packed bytes a row) at
+k=100, k=400 and one query (k=100), 4,000,000 rows, random int8 LUTs, 256
+queries.  Each time is the median of 10 warm calls by CUDA events around
 the public wrapper.  To compare two checkouts, unpack both and run them
 in turns on one card: parent, change, change, parent.
 """
@@ -78,6 +79,9 @@ def main():
     for k in (100, 400):
         r[f"B3 k={k}"] = median_ms(
             lambda: F.fused_topk4_cuda(qe, qo, c4, k=k, metric="ip"))
+    qe1, qo1 = qe[:1].contiguous(), qo[:1].contiguous()
+    r["B3 Q=1 k=100"] = median_ms(
+        lambda: F.fused_topk4_cuda(qe1, qo1, c4, k=100, metric="ip"))
     r["B3 l2 k=400"] = median_ms(
         lambda: F.fused_topk4_cuda(qe, qo, c4, k=400, metric="l2"))
     del x, c4
@@ -90,6 +94,12 @@ def main():
         payload = PK.pack_uint4(codes) if bits == 4 else codes
         r[f"{name} k=100"] = median_ms(
             lambda: K.fused_adc_topk(lut, payload, 100, packed=bits == 4))
+        if bits == 4:
+            r[f"{name} k=400"] = median_ms(
+                lambda: K.fused_adc_topk(lut, payload, 400, packed=True))
+            lut1 = lut[:1].contiguous()
+            r[f"{name} Q=1 k=100"] = median_ms(
+                lambda: K.fused_adc_topk(lut1, payload, 100, packed=True))
         del lut, codes, payload
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,11 +1,14 @@
-"""Time probe variants of the fused-scan source (B2 fp32, or B2 int8 with
-``--int8``) on one GPU: the kernels of a ``fused_topk.cu`` rebuilt with a
-few lines changed, launched directly through ``rt_fused_topk`` (no Python
+"""Time probe variants of the fused-scan sources (B2 fp32, B2 int8 with
+``--int8``, B3 with ``--int4``, B5 with ``--adc4``) on one GPU: the kernels
+of a ``fused_topk.cu`` (``adc.cu``) rebuilt with a few lines changed,
+launched directly through ``rt_fused_topk`` (``rt_fused_adc``; no Python
 wrapper inside the clock), beside the library yardstick split into its
-two halves.
+parts.
 
     python scripts/scan_probe.py <fused_topk.cu> <variant> [<variant> ...]
     python scripts/scan_probe.py --int8 <fused_topk.cu> <variant> [...]
+    python scripts/scan_probe.py --int4 <fused_topk.cu> <variant> [...]
+    python scripts/scan_probe.py --adc4 <adc.cu> <variant> [...]
 
 The source's directory must hold its ``topk_common.cuh``.  Variants of
 the fp32 scan as ``split_topk_kernel`` ran it (before the register-tiled
@@ -58,6 +61,37 @@ keys), and Q=32 / 256 at blocks of 8, 16 and 32 queries.  Then a
 yardstick's halves: ``torch._int_mm`` (int8 tensor cores, exact int32
 sums) into the [256, N] matrix alone, ``torch.topk`` of that matrix
 alone, and both.
+
+With ``--int4``: variants of B3 (packed int4), as ``split_topk_kernel``
+ran it (the first design) or as the int8 scan's int4 instances run it
+where the source no longer has ``split_topk_kernel``; the same variant
+names and markers as ``--int8`` (``sort_twice`` the new form only).
+Corpus 4,000,000 x 256 random int4 codes packed two a byte (128 bytes a
+row), queries in [-8, 8): Q=256 at k = 100 and 400, Q=1 at k=100, ip;
+``as_is`` is checked bit for bit against the library's scores.  Then
+the yardstick's parts: the unpack of the whole corpus to int8, ``_int_mm``
+on the unpacked corpus alone, ``torch.topk`` alone, and the chunked
+yardstick ``chip_smoke.library_topk`` runs (unpack, ``_int_mm`` and
+``topk`` per 1M-row chunk).
+
+With ``--adc4``: variants of B5 (4-bit ADC over packed codes) in an
+``adc.cu``, as ``adc_split_kernel`` runs it (the gather design) or as the
+one-hot MMA kernel does where the source has ``adc4_mma_kernel``:
+  as_is        the source unchanged
+  dots_only    the sums kept, the top-k upkeep predicated off on the data
+  upkeep_only  the sums removed; each int score a hash of (query, row)
+  pipe_only    the sums and the upkeep removed: the loads and barriers
+  sort_twice   each list sorted once more after its compaction (the MMA
+               kernel only)
+  no_shl       a step without the one-hot build's clamped shift (the MMA
+               kernel only)
+  gbuf         the source unchanged, the lists in global memory (more
+               blocks an SM; the MMA kernel only)
+pq64x4 codes of 4,000,000 rows (32 packed bytes a row), random int8 LUTs
+of 64 subspaces x 16 codewords, Q=256 at k = 100 and 400, Q=1 at k=100;
+``as_is`` is checked bit for bit against the library's scores.  Then the
+yardstick's parts: ``_int_mm`` of the [Q, 1024] LUT against the rows'
+[N, 1024] int8 one-hot alone, ``torch.topk`` alone, and both.
 """
 
 import ctypes
@@ -157,8 +191,10 @@ I8_OLD = {
 I8_VOTE = "if (!__any_sync(FULL, any)) continue;"
 I8_NO_VOTE = ("if (!__any_sync(FULL, any && acc[0][0][0] == 1234567)) "
               "continue;")
-I8_NO_DOTS = ("for (int kk = 0; kk < I8_KC / 32; ++kk) {",
+I8_NO_DOTS = ("for (int kk = 0; kk < KC / 32; ++kk) {",
               "for (int kk = 0; kk < 0; ++kk) {")
+#: marker text as an older source has it
+ALT = {I8_NO_DOTS[0]: "for (int kk = 0; kk < I8_KC / 32; ++kk) {"}
 I8_NEW = {
     "as_is": [],
     "dots_only": [(I8_VOTE, I8_NO_VOTE)],
@@ -175,10 +211,69 @@ I8_NEW = {
 }
 
 
-def build(path: Path, names: list[str], int8: bool = False):
+#: B5 as adc_split_kernel runs it (``--adc4`` on the gather design; the
+#: markers are B4's too, which the probe does not time)
+ADC_DOTS_ONLY = [
+    ("        if (ok_row && q_base + qi < Q)\n          offer(",
+     "        if (ok_row && q_base + qi < Q && acc[i][j] == 1234567)\n"
+     "          offer("),
+    ("      compact(buf, thresh, cnt, need, BQ, cap, k, cap - RL);\n"
+     "    }\n  }\n\n  flush_partial",
+     "    }\n  }\n\n  flush_partial")]
+ADC_OLD = {
+    "as_is": [],
+    "dots_only": ADC_DOTS_ONLY,
+    "upkeep_only": [
+        ("for (int c0 = 0; c0 < W; c0 += DKC) {",
+         "for (int c0 = 0; c0 < 0; c0 += DKC) {"),
+        ("      for (int j = 0; j < TR; ++j) acc[i][j] = 0;",
+         "      for (int j = 0; j < TR; ++j) acc[i][j] = " +
+         HASH_I.format(row="t0 + lane + j * RL", q="q_base + qg * TQ + i")
+         + ";")],
+    "pipe_only": ADC_DOTS_ONLY + [("for (int w = 0; w < nw; ++w) {",
+                                   "for (int w = 0; w < 0; ++w) {")],
+}
+
+#: B5 as adc4_mma_kernel runs it (the one-hot MMA design; the markers:
+#: the code-byte loop of the sums, the accumulator reset, the vote)
+ADC_NO_DOTS = ("for (int kb = 0; kb < nk; kb += 16) {",
+               "for (int kb = 0; kb < 0; kb += 16) {")
+ADC_NO_VOTE = (I8_VOTE, "if (!__any_sync(FULL, any && acc[0][0] == 1234567)) "
+                        "continue;")
+ADC_NEW = {
+    "as_is": [],
+    "dots_only": [ADC_NO_VOTE],
+    "upkeep_only": [
+        ADC_NO_DOTS,
+        ("        for (int e = 0; e < 4; ++e) acc[mi][e] = 0;",
+         "        for (int e = 0; e < 4; ++e) acc[mi][e] = " + HASH_I.format(
+             row="t0 + mi * 16 + g + (e >> 1) * 8",
+             q="q_base + warp * 8 + 2 * t4 + (e & 1)") + ";")],
+    "pipe_only": [ADC_NO_DOTS, ADC_NO_VOTE],
+    "sort_twice": [("      warp_compact(lists + (size_t)l * cap, n, thr, cap, k, lane);\n",
+                    "      warp_compact(lists + (size_t)l * cap, n, thr, cap, k, lane);\n"
+                    "      warp_sort_desc(lists + (size_t)l * cap, cap, lane);\n")],
+    # a step without the one-hot's clamped shift
+    "no_shl": [('  asm("shl.b32 %0, %1, %2;\\n" : "=r"(r) : "r"(1u), "r"(sh));',
+                "  r = sh;")],
+    # the source unchanged, the lists in global memory (more blocks an SM)
+    "gbuf": [],
+}
+
+#: (entry point, table of the newer design, of the older, marker of the newer)
+MODES = {
+    "fp32": ("rt_fused_topk", NEW, OLD, "f32_topk_kernel"),
+    "int8": ("rt_fused_topk", I8_NEW, I8_OLD, "i8_topk_kernel"),
+    "int4": ("rt_fused_topk", I8_NEW, I8_OLD, "bool I4 = false>"),
+    "adc4": ("rt_fused_adc", ADC_NEW, ADC_OLD, "adc4_mma_kernel"),
+}
+
+
+def build(path: Path, names: list[str], mode: str = "fp32"):
     source = path.read_text()
-    new = ("i8_topk_kernel" if int8 else "f32_topk_kernel") in source
-    table = (I8_NEW if new else I8_OLD) if int8 else (NEW if new else OLD)
+    entry, new_table, old_table, marker = MODES[mode]
+    new = marker in source
+    table = new_table if new else old_table
     OUT.mkdir(parents=True, exist_ok=True)
     shutil.copy(path.parent / "topk_common.cuh", OUT / "topk_common.cuh")
     procs = {}
@@ -186,9 +281,11 @@ def build(path: Path, names: list[str], int8: bool = False):
         text = source
         for old, rep in table[name]:
             if old not in text:
+                old = ALT.get(old, old)
+            if old not in text:
                 raise SystemExit(f"{name}: {old!r} is not in the source")
             text = text.replace(old, rep)
-        tag = ("i8_" if int8 else "") + ("new" if new else "old")
+        tag = f"{mode}_" + ("new" if new else "old")
         cu = OUT / f"{tag}_{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
@@ -203,8 +300,8 @@ def build(path: Path, names: list[str], int8: bool = False):
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
         lib = ctypes.CDLL(str(OUT / f"{tag}_{name}.so"))
-        fn = lib.rt_fused_topk
-        n_args = len(re.search(r"rt_fused_topk\(([^)]*)\)", source)
+        fn = getattr(lib, entry)
+        n_args = len(re.search(entry + r"\(([^)]*)\)", source)
                      .group(1).split(","))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if n_args == 17:       # kind, l2, bq, cap, q0, q1, x, mask, part, ...
@@ -215,7 +312,8 @@ def build(path: Path, names: list[str], int8: bool = False):
         fn.restype = I
         if hasattr(lib, "rt_i8_blocks_per_sm"):
             fn.occupancy = lib.rt_i8_blocks_per_sm
-            fn.occupancy.argtypes = [I, I, I, I, I]
+            fn.occupancy.argtypes = [I, I, I, I, I] + (
+                [I] if "int i4)" in source else [])
             fn.occupancy.restype = I
         libs[name] = (fn, n_args == 17, new)
     return libs
@@ -299,10 +397,23 @@ def launcher(fn, old: bool, q, x, k):
     return call, out_s
 
 
+def first_layout(Q: int, N: int, k: int):
+    """(queries a block, buffer keys, splits) of the first int design
+    (``split_topk_kernel``): 16 queries a block while the buffer of
+    next_pow2(2k + 64) keys is at most 512, 8 to 1024, 4 for batches of at
+    most 4; 528 blocks; shared-memory buffers (k <= 480 here)."""
+    cap = _pow2(2 * k + 64)
+    assert cap <= 1024, "the first design's layout here: k <= 480"
+    bq = 4 if Q <= 4 else 16 if cap <= 512 else 8
+    splits = max(1, min(-(-528 // -(-Q // bq)), -(-N // max(2048, 2 * k)),
+                        65535))
+    return bq, cap, splits
+
+
 def i8_launcher(fn, new: bool, q, x, k, splits=None):
     """A closure launching B2 int8 ip with the layout its source expects:
-    ``layout`` for ``i8_topk_kernel``, else the parent's int layout (the
-    one B3 keeps: ``query_tile``, ``split_cap``, ``n_splits``)."""
+    ``layout`` for ``i8_topk_kernel``, else the first design's
+    (``first_layout``)."""
     from repro_torch.kernels import fused_topk as F
 
     Q, N = q.shape[0], x.shape[0]
@@ -314,14 +425,14 @@ def i8_launcher(fn, new: bool, q, x, k, splits=None):
         lay = F.layout(F.KIND_I8, Q, N, k, x.shape[1])
         bq, cap, gkeys = lay.bq, lay.cap, lay.gbuf_keys
         splits = splits or lay.splits
-        occ = fn.occupancy(0, bq, cap, int(gkeys > 0), x.shape[1])
+        occ = fn.occupancy(0, bq, cap, int(gkeys > 0), x.shape[1],
+                           *([0] if len(fn.occupancy.argtypes) == 6 else []))
         print(f"  Q={Q} k={k}: {bq} queries a block, {splits} splits, "
               f"{occ} blocks an SM by the occupancy API (layout: "
               f"{F.i8_blocks_per_sm(bq, cap, gkeys > 0, x.shape[1])})",
               flush=True)
     else:
-        bq, cap, splits = F.query_tile(k, Q), F.split_cap(k), F.n_splits(Q, N, k)
-        gkeys = 0 if F.buffers_in_shared(k) else -(-Q // bq) * splits * bq * cap
+        (bq, cap, splits), gkeys = first_layout(Q, N, k), 0
     part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
     gbuf = torch.empty(gkeys, dtype=torch.int64, device=dev) if gkeys else None
 
@@ -336,7 +447,7 @@ def i8_launcher(fn, new: bool, q, x, k, splits=None):
 
 
 def main_int8(path: str, names: list[str]):
-    libs = build(Path(path), names, int8=True)
+    libs = build(Path(path), names, "int8")
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
     N, d = 4_000_000, 256
@@ -403,10 +514,208 @@ def main_int8(path: str, names: list[str]):
               f" | {card}", flush=True)
 
 
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def _pow2(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def i4_launcher(fn, new: bool, qe, qo, x, k):
+    """A closure launching B3 ip: ``layout(KIND_I4, ...)`` for the int8
+    scan's int4 instances, else the first design's (``first_layout``)."""
+    from repro_torch.kernels import fused_topk as F
+
+    Q, N, w = qe.shape[0], x.shape[0], x.shape[1]
+    dev = x.device
+    st = torch.cuda.current_stream().cuda_stream
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if new:
+        lay = F.layout(F.KIND_I4, Q, N, k, w)
+        bq, cap, splits, gkeys = lay.bq, lay.cap, lay.splits, lay.gbuf_keys
+    else:
+        (bq, cap, splits), gkeys = first_layout(Q, N, k), 0
+    print(f"  Q={Q} k={k}: {bq} queries a block, {splits} splits, cap {cap}"
+          f"{', global lists' if gkeys else ''}", flush=True)
+    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    gbuf = torch.empty(gkeys, dtype=torch.int64, device=dev) if gkeys else None
+
+    def call():
+        rc = fn(2, 0, bq, cap, qe.data_ptr(), qo.data_ptr(), x.data_ptr(),
+                None, part.data_ptr(),
+                None if gbuf is None else gbuf.data_ptr(), None,
+                out_s.data_ptr(), out_i.data_ptr(), Q, N, w, k, splits, st)
+        if rc:
+            raise SystemExit(f"CUDA error {rc}")
+    return call, out_s
+
+
+def main_int4(path: str, names: list[str]):
+    from repro_torch.core import pack as PK
+
+    libs = build(Path(path), names, "int4")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    N, d = 4_000_000, 256
+    x8 = torch.randint(-8, 8, (N, d), generator=g, device="cuda",
+                       dtype=torch.int8)
+    q = torch.randint(-8, 8, (256, d), generator=g, device="cuda",
+                      dtype=torch.int8)
+    x = PK.pack_int4(x8)
+    qe, qo = q[:, 0::2].contiguous(), q[:, 1::2].contiguous()
+    card = card_name()
+    shapes = ((256, 100), (256, 400), (1, 100))
+    want = {}
+    for Q, k in shapes:
+        qq = q[:Q] if Q >= 17 else q[:Q].repeat(17, 1)[:17]   # _int_mm: M > 16
+        want[Q, k] = torch.topk(torch._int_mm(qq, x8.T)[:Q], k,
+                                dim=1).values.float()
+    for name, (fn, _, new) in libs.items():
+        row = []
+        for Q, k in shapes:
+            call, out_s = i4_launcher(fn, new, qe[:Q].contiguous(),
+                                      qo[:Q].contiguous(), x, k)
+            ms = median_ms(call)
+            tag = ""
+            if name == "as_is":
+                tag = (" =library" if torch.equal(out_s, want[Q, k])
+                       else " DIFFERS")
+            row.append(f"Q={Q} k={k}: {ms:.4f} ms{tag}")
+        print(f"{path} int4 {name} | " + "; ".join(row) + f" | {card}",
+              flush=True)
+    if "as_is" in libs:
+        call, _ = i4_launcher(libs["as_is"][0], libs["as_is"][2], qe, qo, x,
+                              100)
+        print(f"as_is Q=256 k=100 under load: {clocks(call)}", flush=True)
+    rd = median_ms(lambda: torch.amax(x.view(torch.int32)))
+    print(f"read-only reference: torch.amax over the {x.numel()} packed bytes "
+          f"{rd:.4f} ms (bound {x.numel() / 3.35e9:.4f} ms) | {card}",
+          flush=True)
+    up = median_ms(lambda: PK.unpack_int4(x))
+    s = torch._int_mm(q, x8.T)
+    mm = median_ms(lambda: torch._int_mm(q, x8.T))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import library_topk
+
+    for k in (100, 400):
+        tk = median_ms(lambda: torch.topk(s, k, dim=1))
+        lib = median_ms(lambda: library_topk(q, x, k, packed=True), n=5)
+        print(f"yardstick int4 Q=256 N={N} d={d} k={k}: unpack alone "
+              f"{up:.4f} ms, _int_mm (unpacked) alone {mm:.4f} ms, torch.topk "
+              f"alone {tk:.4f} ms, library_topk (chunked: unpack, _int_mm, "
+              f"topk) {lib:.4f} ms | {card}", flush=True)
+
+
+def adc4_launcher(fn, new: bool, le, lo, codes, k, force_gbuf=False):
+    """A closure launching B5: ``adc_layout`` for the one-hot MMA kernel,
+    else the gather design's layout for these shapes (16 queries a block,
+    4 for batches of at most 4; buffers of next_pow2(2k + 64) keys in
+    shared memory; 528 blocks)."""
+    from repro_torch.kernels import adc as A
+
+    Q, N, mb = le.shape[0], codes.shape[0], codes.shape[1]
+    dev = codes.device
+    st = torch.cuda.current_stream().cuda_stream
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if new:
+        lay = A.adc_layout(k, mb, 4, Q, N)
+        bq, lutg, cap, splits, gkeys = (lay.bq, lay.mode, lay.cap,
+                                        lay.splits, lay.gbuf_keys)
+        if force_gbuf and not lay.gather:
+            per_sm = A.a4_blocks_per_sm(bq, cap, True, mb)
+            splits = max(1, min(per_sm * 132 // -(-Q // bq),
+                                -(-N // max(2048, 2 * k))))
+            gkeys = -(-Q // bq) * splits * bq * cap
+    else:
+        bq = 4 if Q <= 4 else 16
+        cap, lutg, gkeys = _pow2(2 * k + 64), 0, 0
+        splits = max(1, min(-(-528 // -(-Q // bq)),
+                            -(-N // max(2048, 2 * k)), 65535))
+        # (pq64x4: LUTs of 1 KB, so 16 queries a block at any k here)
+    print(f"  Q={Q} k={k}: {bq} queries a block, {splits} splits, cap {cap}"
+          f"{', global lists' if gkeys else ''}", flush=True)
+    part = torch.empty(Q * splits * k, dtype=torch.int64, device=dev)
+    gbuf = torch.empty(gkeys, dtype=torch.int64, device=dev) if gkeys else None
+
+    def call():
+        rc = fn(4, bq, lutg, cap, le.data_ptr(), lo.data_ptr(),
+                codes.data_ptr(), None, part.data_ptr(),
+                None if gbuf is None else gbuf.data_ptr(), None,
+                out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, splits, st)
+        if rc:
+            raise SystemExit(f"CUDA error {rc}")
+    return call, out_s
+
+
+def main_adc4(path: str, names: list[str]):
+    from repro_torch.core import pack as PK
+
+    libs = build(Path(path), names, "adc4")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    N, M, Qm = 4_000_000, 64, 256
+    lut = torch.randint(-128, 128, (Qm, M, 16), generator=g,
+                        device="cuda").to(torch.int8)
+    codes = torch.randint(0, 16, (N, M), generator=g,
+                          device="cuda").to(torch.uint8)
+    packed = PK.pack_uint4(codes)
+    le = lut[:, 0::2].reshape(Qm, -1).contiguous()
+    lo = lut[:, 1::2].reshape(Qm, -1).contiguous()
+    onehot = torch.zeros((N, M * 16), dtype=torch.int8, device="cuda")
+    for s0 in range(0, N, 1 << 20):
+        oh = onehot[s0:s0 + (1 << 20)].view(-1, M, 16)
+        oh.scatter_(2, codes[s0:s0 + (1 << 20)].long().unsqueeze(-1), 1)
+    del codes
+    lut2d = lut.reshape(Qm, -1).contiguous()
+    card = card_name()
+    shapes = ((256, 100), (256, 400), (1, 100))
+    want = {}
+    for Q, k in shapes:
+        qq = lut2d[:Q] if Q >= 17 else lut2d[:Q].repeat(17, 1)[:17]
+        want[Q, k] = torch.topk(torch._int_mm(qq, onehot.T)[:Q], k,
+                                dim=1).values.float()
+    for name, (fn, _, new) in libs.items():
+        row = []
+        for Q, k in shapes:
+            call, out_s = adc4_launcher(fn, new, le[:Q].contiguous(),
+                                        lo[:Q].contiguous(), packed, k,
+                                        force_gbuf=name == "gbuf")
+            ms = median_ms(call)
+            tag = ""
+            if name == "as_is":
+                tag = (" =library" if torch.equal(out_s, want[Q, k])
+                       else " DIFFERS")
+            row.append(f"Q={Q} k={k}: {ms:.4f} ms{tag}")
+        print(f"{path} adc4 {name} | " + "; ".join(row) + f" | {card}",
+              flush=True)
+    if "as_is" in libs:
+        call, _ = adc4_launcher(libs["as_is"][0], libs["as_is"][2], le, lo,
+                                packed, 100)
+        print(f"as_is Q=256 k=100 under load: {clocks(call)}", flush=True)
+    s = torch._int_mm(lut2d, onehot.T)
+    mm = median_ms(lambda: torch._int_mm(lut2d, onehot.T))
+    for k in (100, 400):
+        tk = median_ms(lambda: torch.topk(s, k, dim=1))
+        both = median_ms(lambda: torch.topk(torch._int_mm(lut2d, onehot.T), k,
+                                            dim=1), n=5)
+        print(f"yardstick adc4 Q=256 N={N} M={M} k={k}: _int_mm (one-hot) "
+              f"alone {mm:.4f} ms, torch.topk alone {tk:.4f} ms, both "
+              f"{both:.4f} ms | {card}", flush=True)
+
+
 def main():
     if sys.argv[1] == "--int8":
         return main_int8(sys.argv[2], sys.argv[3:])
-    libs = build(Path(sys.argv[1]), sys.argv[2:])
+    if sys.argv[1] == "--int4":
+        return main_int4(sys.argv[2], sys.argv[3:])
+    if sys.argv[1] == "--adc4":
+        return main_adc4(sys.argv[2], sys.argv[3:])
+    libs = build(Path(sys.argv[1]), sys.argv[2:], "fp32")
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
     N, d, k = 4_000_000, 256, 100

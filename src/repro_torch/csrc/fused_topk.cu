@@ -11,9 +11,10 @@
 // [bq, k] best set in VMEM; that gives 8 blocks at Q=1000 and cannot fill
 // 132 SMs, so every kernel here splits the corpus: pass 1 is grid
 // (ceil(Q / BQ), S), block (qb, s) scoring BQ queries against the s-th
-// contiguous range of corpus rows (block x is the query block, so the
-// blocks that read one range are resident together and share it through
-// L2; B2 int8 strides its 32-row tiles over the splits instead) and
+// contiguous range of corpus rows (B2 fp32; block x is the query block, so
+// the blocks that read one range are resident together and share it
+// through L2; the int scans, B2 int8 and B3, stride their 32-row tiles
+// over the splits instead) and
 // writing each query's best k of it to a [Q, S, k] scratch; pass 2
 // (topk_common.cuh `merge_topk_kernel`) merges the S lists of each query
 // and writes ([Q, k] f32, [Q, k] i32).  The Python wrapper
@@ -50,9 +51,9 @@
 // B2 int8 (`i8_topk_kernel`).  Bound on the H100 by the N*d code bytes
 // (0.306 ms over 4M x 256 at any batch: 2*Q*N*d operations need 0.27 ms at
 // Q=256 on the int8 tensor cores).  The first design (split_topk_kernel,
-// still B3's) spent its time on dp4a dots, synchronous staging and a
-// block-wide sort of every query's buffer after each 64-row insert round
-// (PERF.md).  The design against that:
+// B3's too until its own redesign) spent its time on dp4a dots,
+// synchronous staging and a block-wide sort of every query's buffer after
+// each 64-row insert round (PERF.md).  The design against that:
 //   - dots on the int8 tensor cores: mma.sync m16n8k32 s8 -> s32 (exact),
 //     corpus rows in M and queries in N, fragments by ldmatrix; each
 //     consumer warp owns 8 queries (one n8 tile) and scores every row of a
@@ -78,17 +79,21 @@
 //   - l2: |x|^2 from the A fragments already in registers (dp4a, summed over
 //     the quad holding a row), never per query; |q|^2 once a block.
 //
-// B3 (`split_topk_kernel`, KIND_I4 only) keeps the first design, which
-// waits for its own redesign: a TQ x 4 (query x row) tile a thread, TQ =
-// BQ / 4, tiles of BN=256 rows and d-chunks of DK 32-bit words staged in
-// shared memory, a candidate buffer of `cap` keys a query in shared memory
-// (global memory past k = 2016) compacted block-wide whenever one more
-// round of ROW_LANES inserts could overflow it.  It unpacks nibbles in
-// registers, (b & 0xF) - 8 and (b >> 4) - 8 via __vsub4 (Hopper has no int4
-// MMA), scores the pre-split even/odd query halves against the two nibble
-// planes, as repro/kernels/ops.py:155 splits them, with __dp4a (int32,
-// exact).  Its bound is the int8 tensor cores' (2*Q*N*d at 1,979 TOP/s) or
-// the N*d/2 bytes.
+// B3 (`i8_topk_kernel<..., I4 = true>`): the int8 scan's design over
+// packed-int4 rows.  Bound on the H100 by the N*d/2 code bytes (0.153 ms
+// over 4M x 256) or the int8 tensor cores' 2*Q*N*d operations (0.265 ms at
+// Q=256): Hopper has no int4 MMA, so the nibbles go through the s8 / u8
+// MMA.  The first design (split_topk_kernel: dp4a dots after a __vsub4
+// unpack, 256-row tiles staged under block barriers, a block-wide bitonic
+// compaction after every 64-insert round) took 20.1 ms at Q=256, k=100
+// (PERF.md).  What changes from B2 int8 is the operand only: a stage holds
+// 32 rows of 128 packed bytes (256 dims), the queries stay resident as the
+// even and odd planes (the pre-split halves, as repro/kernels/ops.py:155
+// splits them), and each packed word splits into its two nibble words in
+// two instructions, two MMAs per packed K-step (the kernel's notes below).
+// At Q=256, k=100 it takes 5.3 ms, the copies and mbarrier waits alone 1.5
+// and the dots 1.5 more, the upkeep the rest (PERF.md, NVIDIA H100 80GB
+// HBM3 at 700 W).
 //
 // Order: (f32 score desc under the IEEE total order, row id asc), the
 // reference's (`_merge_tile` takes the first position on ties; `lax.top_k`
@@ -106,307 +111,11 @@
 
 namespace {
 
-// NT (256 threads) and ROW_LANES (64 threads sharing one query group) come
-// from topk_common.cuh
-constexpr int TR = 4;                   // corpus rows per thread per tile
-constexpr int BN = ROW_LANES * TR;      // 256 corpus rows per tile
-constexpr int DK = 32;                  // 32-bit words per d-chunk
-constexpr int XS_STRIDE = DK + 1;       // odd stride: conflict-free rows
-
 enum Kind { KIND_F32 = 0, KIND_I8 = 1, KIND_I4 = 2 };
-
-// word w (4 int8 values, little-endian) of an int8 row of `width` bytes,
-// zero past the end of the row
-__device__ __forceinline__ uint32_t load_i8_word(const int8_t* row, int width,
-                                                 int w, bool aligned) {
-  if (aligned) return reinterpret_cast<const uint32_t*>(row)[w];
-  uint32_t v = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    int idx = 4 * w + b;
-    if (idx < width) v |= (uint32_t)(uint8_t)row[idx] << (8 * b);
-  }
-  return v;
-}
-
-// word w of a packed-int4 row of h bytes seen as two planes of wh words:
-// [0, wh) the low (even-dim) nibbles, [wh, 2 wh) the high (odd-dim) ones,
-// each unpacked to signed bytes (nibble - 8); bytes past h are 0
-__device__ __forceinline__ uint32_t load_i4_word(const uint8_t* row, int h,
-                                                 int wh, int w, bool aligned) {
-  const int plane = w >= wh;
-  const int pw = plane ? w - wh : w;
-  const int nvalid = min(4, h - 4 * pw);
-  uint32_t raw;
-  if (aligned) {
-    raw = reinterpret_cast<const uint32_t*>(row)[pw];
-  } else {
-    raw = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (b < nvalid) raw |= (uint32_t)row[4 * pw + b] << (8 * b);
-  }
-  const uint32_t nib = plane ? ((raw >> 4) & 0x0F0F0F0Fu) : (raw & 0x0F0F0F0Fu);
-  uint32_t v = __vsub4(nib, 0x08080808u);
-  if (nvalid < 4) v &= (1u << (8 * nvalid)) - 1u;
-  return v;
-}
-
-// B3's operands (KIND_I4, the only kind split_topk_kernel still runs)
-template <int KIND>
-struct Rows {
-  // corpus word w of row r
-  __device__ __forceinline__ static uint32_t x_word(const void* x, long long r,
-                                                    int width, int wh, int w,
-                                                    bool aligned) {
-    return load_i4_word(static_cast<const uint8_t*>(x) + r * width, width, wh,
-                        w, aligned);
-  }
-  // query word w of query q (q0 = even half, q1 = odd half)
-  __device__ __forceinline__ static uint32_t q_word(const void* q0,
-                                                    const void* q1, int q,
-                                                    int width, int wh, int w,
-                                                    bool aligned) {
-    const int plane = w >= wh;
-    const int8_t* src = static_cast<const int8_t*>(plane ? q1 : q0);
-    return load_i8_word(src + (long long)q * width, width, plane ? w - wh : w,
-                        aligned);
-  }
-};
-
-// words w..w+3 of corpus row r as one 16-byte load (the `x_vec` layout:
-// rows 16-byte aligned, so no 4-word group straddles a row end or a nibble
-// plane), the 16 raw bytes unpacked into 4 plane words
-template <int KIND>
-__device__ __forceinline__ uint4 x_vec4(const void* x, long long r, int W,
-                                        int wh, int w) {
-  const int plane = w >= wh;
-  uint4 v = *reinterpret_cast<const uint4*>(
-      static_cast<const uint32_t*>(x) + r * wh + (plane ? w - wh : w));
-  const int shift = plane ? 4 : 0;
-  v.x = __vsub4((v.x >> shift) & 0x0F0F0F0Fu, 0x08080808u);
-  v.y = __vsub4((v.y >> shift) & 0x0F0F0F0Fu, 0x08080808u);
-  v.z = __vsub4((v.z >> shift) & 0x0F0F0F0Fu, 0x08080808u);
-  v.w = __vsub4((v.w >> shift) & 0x0F0F0F0Fu, 0x08080808u);
-  return v;
-}
-
-__device__ __forceinline__ int dot_word(uint32_t a, uint32_t b, int acc) {
-  return __dp4a((int)a, (int)b, acc);
-}
 
 __device__ __forceinline__ float finish(float dot, float qn, float xn, bool l2) {
   if (!l2) return dot;
   return -__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.0f, dot));
-}
-__device__ __forceinline__ float finish(int dot, int qn, int xn, bool l2) {
-  if (!l2) return __int2float_rn(dot);
-  return __int2float_rn(-(qn + xn - 2 * dot));
-}
-
-size_t split_smem_bytes(int bq, int cap, bool gbuf) {
-  return (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 8 +
-         (size_t)BN * XS_STRIDE * 4 +
-         (size_t)bq * DK * 4 + (size_t)BN * 4 + (size_t)bq * 4 * 3;
-}
-
-// At most 128 registers a thread, so that two blocks fit on an SM: the
-// layout's shared memory (about 100 KB a block up to k = 400) allows two.
-// Left free, nvcc gave the packed-int4 ip variant at BQ = 8 (k = 400) 169
-// registers, one block per SM, and 1.4x the time.
-// GBUF: the [BQ, cap] candidate buffers live in `gbuf` (global memory,
-// one slice a block) for k whose buffers do not fit in shared memory.
-template <int KIND, bool L2, int BQ, bool GBUF>
-__global__ void __launch_bounds__(NT, 2)
-split_topk_kernel(const void* __restrict__ q0, const void* __restrict__ q1,
-                  const void* __restrict__ x, const int8_t* __restrict__ mask,
-                  u64* __restrict__ part, u64* __restrict__ gbuf, int Q,
-                  long long N, int width, int k, int cap, int n_splits,
-                  long long rows_per_split, bool x_aligned, bool q_aligned,
-                  bool x_vec) {
-  static_assert(KIND == KIND_I4, "B2 int8 runs i8_topk_kernel");
-  using Acc = int;
-  constexpr int TQ = BQ / 4;            // queries per thread (4 query groups)
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* sbase = reinterpret_cast<u64*>(smem);
-  u64* buf = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
-                               BQ * cap
-                  : sbase;                                  // [BQ, cap]
-  u64* thresh = GBUF ? sbase : sbase + (size_t)BQ * cap;    // [BQ]
-  uint32_t* xs = reinterpret_cast<uint32_t*>(thresh + BQ);  // [BN, XS_STRIDE]
-  uint32_t* qs = xs + BN * XS_STRIDE;                       // [BQ, DK]
-  Acc* xn = reinterpret_cast<Acc*>(qs + BQ * DK);           // [BN]
-  Acc* qn = xn + BN;                                        // [BQ]
-  int* cnt = reinterpret_cast<int*>(qn + BQ);               // [BQ]
-  int* need = cnt + BQ;                                     // [BQ]
-
-  const int tid = threadIdx.x;
-  const int q_base = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const long long r_begin = (long long)split * rows_per_split;
-  const long long r_end = min(N, r_begin + rows_per_split);
-  const int wh = (width + 3) / 4;
-  const int W = 2 * wh;
-
-  if (tid < BQ) {
-    cnt[tid] = 0;
-    thresh[tid] = 0ull;
-    Acc s = 0;
-    const int q = q_base + tid;
-    if (L2 && q < Q) {
-      for (int w = 0; w < W; ++w) {
-        const uint32_t v = Rows<KIND>::q_word(q0, q1, q, width, wh, w, q_aligned);
-        s = dot_word(v, v, s);
-      }
-    }
-    qn[tid] = s;
-  }
-
-  const int qg = tid / ROW_LANES;
-  const int lane = tid % ROW_LANES;
-
-  for (long long t0 = r_begin; t0 < r_end; t0 += BN) {
-    Acc acc[TQ][TR];
-#pragma unroll
-    for (int i = 0; i < TQ; ++i)
-#pragma unroll
-      for (int j = 0; j < TR; ++j) acc[i][j] = 0;
-    Acc xsq = 0;                        // |x|^2 of tile row `tid`
-
-    for (int c0 = 0; c0 < W; c0 += DK) {
-      __syncthreads();
-      if (x_vec) {
-        // every 16-byte load of the chunk in flight before the first
-        // shared store: the load latency is paid once per chunk
-        constexpr int VPR = DK / 4;            // uint4 per row per chunk
-        constexpr int VPT = BN * VPR / NT;     // uint4 per thread
-        uint4 v[VPT];
-#pragma unroll
-        for (int it = 0; it < VPT; ++it) {
-          const int e = tid + it * NT, r = e / VPR, w = c0 + 4 * (e % VPR);
-          v[it] = make_uint4(0u, 0u, 0u, 0u);
-          if (t0 + r < r_end && w < W) v[it] = x_vec4<KIND>(x, t0 + r, W, wh, w);
-        }
-#pragma unroll
-        for (int it = 0; it < VPT; ++it) {
-          const int e = tid + it * NT;
-          uint32_t* dst = xs + (e / VPR) * XS_STRIDE + 4 * (e % VPR);
-          dst[0] = v[it].x;
-          dst[1] = v[it].y;
-          dst[2] = v[it].z;
-          dst[3] = v[it].w;
-        }
-      } else {
-        for (int e = tid; e < BN * DK; e += NT) {
-          const int r = e / DK, w = e % DK;
-          const long long row = t0 + r;
-          uint32_t v = 0;
-          if (row < r_end && c0 + w < W)
-            v = Rows<KIND>::x_word(x, row, width, wh, c0 + w, x_aligned);
-          xs[r * XS_STRIDE + w] = v;
-        }
-      }
-      for (int e = tid; e < BQ * DK; e += NT) {
-        const int qi = e / DK, w = e % DK;
-        const int q = q_base + qi;
-        uint32_t v = 0;
-        if (q < Q && c0 + w < W)
-          v = Rows<KIND>::q_word(q0, q1, q, width, wh, c0 + w, q_aligned);
-        qs[qi * DK + w] = v;
-      }
-      __syncthreads();
-      if (L2) {
-#pragma unroll 8
-        for (int w = 0; w < DK; ++w) {
-          const uint32_t v = xs[tid * XS_STRIDE + w];
-          xsq = dot_word(v, v, xsq);
-        }
-      }
-#pragma unroll 4
-      for (int w = 0; w < DK; ++w) {
-        uint32_t qv[TQ], xv[TR];
-#pragma unroll
-        for (int i = 0; i < TQ; ++i) qv[i] = qs[(qg * TQ + i) * DK + w];
-#pragma unroll
-        for (int j = 0; j < TR; ++j) xv[j] = xs[(lane + j * ROW_LANES) * XS_STRIDE + w];
-#pragma unroll
-        for (int i = 0; i < TQ; ++i)
-#pragma unroll
-          for (int j = 0; j < TR; ++j) acc[i][j] = dot_word(qv[i], xv[j], acc[i][j]);
-      }
-    }
-    xn[tid] = xsq;
-    __syncthreads();
-
-    // insert in TR rounds: at most ROW_LANES candidates per query per
-    // round, and cap >= k + ROW_LANES, so a buffer compacted to k between
-    // rounds never overflows
-#pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const int r = lane + j * ROW_LANES;
-      const long long row = t0 + r;
-      const bool ok_row = row < r_end && (mask == nullptr || mask[row] != 0);
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        const int qi = qg * TQ + i;
-        if (ok_row && q_base + qi < Q)
-          offer(buf, thresh, cnt, qi, cap,
-                make_key(finish(acc[i][j], qn[qi], xn[r], L2), row));
-      }
-      compact(buf, thresh, cnt, need, BQ, cap, k, cap - ROW_LANES);
-    }
-  }
-
-  flush_partial(buf, thresh, cnt, need, BQ, cap, k, part, q_base, Q, split,
-                n_splits);
-}
-
-template <int KIND, bool L2, int BQ, bool GBUF>
-cudaError_t launch_split(const void* q0, const void* q1, const void* x,
-                         const int8_t* mask, u64* part, u64* gbuf, int Q,
-                         long long N, int width, int k, int cap, int n_splits,
-                         bool x_aligned, bool q_aligned, bool x_vec,
-                         cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(BQ, cap, GBUF);
-  auto fn = split_topk_kernel<KIND, L2, BQ, GBUF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long rows_per_split = (N + n_splits - 1) / n_splits;
-  dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  fn<<<grid, NT, smem, stream>>>(q0, q1, x, mask, part, gbuf, Q, N, width, k,
-                                 cap, n_splits, rows_per_split, x_aligned,
-                                 q_aligned, x_vec);
-  return cudaGetLastError();
-}
-
-// shared-memory buffers at BQ 16, 8 or 4; global ones at BQ 4 (the
-// wrapper takes them only where k is too wide for shared memory, and
-// there the query tile is 4)
-template <int KIND, bool L2>
-cudaError_t launch_split_bq(int bq, const void* q0, const void* q1,
-                            const void* x, const int8_t* mask, u64* part,
-                            u64* gbuf, int Q, long long N, int width, int k,
-                            int cap, int n_splits, bool xa, bool qa, bool xv,
-                            cudaStream_t st) {
-  if (gbuf != nullptr)
-    return bq == 4 ? launch_split<KIND, L2, 4, true>(
-                         q0, q1, x, mask, part, gbuf, Q, N, width, k, cap,
-                         n_splits, xa, qa, xv, st)
-                   : cudaErrorInvalidValue;
-  if (bq == 16)
-    return launch_split<KIND, L2, 16, false>(q0, q1, x, mask, part, nullptr, Q,
-                                             N, width, k, cap, n_splits, xa,
-                                             qa, xv, st);
-  if (bq == 8)
-    return launch_split<KIND, L2, 8, false>(q0, q1, x, mask, part, nullptr, Q,
-                                            N, width, k, cap, n_splits, xa,
-                                            qa, xv, st);
-  if (bq == 4)
-    return launch_split<KIND, L2, 4, false>(q0, q1, x, mask, part, nullptr, Q,
-                                            N, width, k, cap, n_splits, xa,
-                                            qa, xv, st);
-  return cudaErrorInvalidValue;
 }
 
 // ---- B2 fp32: the register-tiled FFMA scan ---------------------------------
@@ -444,81 +153,6 @@ size_t f32_smem_bytes(int cap, bool gbuf) {
   return (size_t)C::STAGES * C::STAGE * 4 + (size_t)lists * 8 +
          (gbuf ? 0 : (size_t)lists * cap * 8) + (size_t)C::BN * 4 +
          (size_t)bq * 4 + (size_t)lists * 4 + (size_t)bq * 4;
-}
-
-// Sort a warp's list of `cap` keys (a power of two) descending: the
-// bitonic network of topk_common.cuh's `compact`, one warp, no block
-// barrier.  The whole warp calls it.
-__device__ void warp_sort_desc(u64* b, int cap, int lane) {
-  for (int size = 2; size <= cap; size <<= 1)
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-#pragma unroll 4
-      for (int i = lane; i < cap / 2; i += 32) {
-        // 2 * stride * (i / stride) + i % stride, stride a power of two
-        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool desc = (lo & size) == 0;
-        const u64 a = b[lo], c = b[hi];
-        if (desc ? (a < c) : (a > c)) {
-          b[lo] = c;
-          b[hi] = a;
-        }
-      }
-      __syncwarp();
-    }
-}
-
-// Truncate a warp's list holding c keys to its best k: zero-fill past c,
-// sort, and raise the threshold to the k-th key once there are k.
-__device__ void warp_compact(u64* b, int& c, u64& thr, int cap, int k,
-                             int lane) {
-  __syncwarp();
-  for (int e = c + lane; e < cap; e += 32) b[e] = 0ull;
-  __syncwarp();
-  warp_sort_desc(b, cap, lane);
-  c = min(c, k);
-  if (c >= k) thr = b[k - 1];
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-// n of the 16 (4) bytes are copied, the rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// mbarriers in shared memory (the int8 scan's ring)
-__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
-               "r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(u64* bar) {
-  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-// arrives once every cp.async this thread issued before it has landed
-__device__ __forceinline__ void mbar_arrive_copies(u64* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-               "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // Stage floats [c0, c0 + DKF) of rows [row0, row0 + R) of an [n_rows, d]
@@ -799,108 +433,46 @@ cudaError_t launch_f32_bq(int bq, const float* q, const float* x,
 // KC + 16 bytes apart so ldmatrix's eight 16-byte rows hit distinct banks.
 constexpr int I8_BM = 32;                 // rows a tile
 constexpr int I8_MT = I8_BM / 16;         // m16 tiles a tile
-constexpr int I8_KC = 256;                // bytes of a row a stage
-constexpr int I8_SROW = I8_KC + 16;       // staged row stride
 constexpr int I8_STAGES = 4;
-constexpr int I8_STAGE = I8_BM * I8_SROW;
 
-// bytes of one resident query row: every KC-byte chunk of d, and the pad
-__host__ __device__ __forceinline__ int i8_qrow(int d) {
-  return (d + I8_KC - 1) / I8_KC * I8_KC + 16;
+// bytes of a row a stage (KC), the staged row stride and a stage: 256
+// bytes of an int8 row, 128 of a packed-int4 row (256 dims either way)
+template <bool I4>
+struct I8Ring {
+  static constexpr int KC = I4 ? 128 : 256;
+  static constexpr int SROW = KC + 16;
+  static constexpr int STAGE = I8_BM * SROW;
+};
+constexpr int I8_KC = I8Ring<false>::KC;
+
+// bytes of one resident query row (of one plane for int4): every KC-byte
+// chunk of the row's `width` bytes, and the pad
+template <bool I4>
+__host__ __device__ __forceinline__ int i8_qrow(int width) {
+  constexpr int KC = I8Ring<I4>::KC;
+  return (width + KC - 1) / KC * KC + 16;
 }
 
-// shared memory of one block: the ring, the queries, the ring's full and
-// empty mbarriers, the lists' thresholds, the lists unless they live in
-// global memory, |q|^2, the lists' counts and the flush's flags
-// (kernels/fused_topk.py i8_smem_bytes computes the same)
-size_t i8_smem_bytes(int bq, int cap, bool gbuf, int d) {
-  return (size_t)I8_STAGES * (I8_STAGE + 16) + (size_t)bq * i8_qrow(d) +
-         (size_t)bq * 8 +
-         (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 4 * 3;
+// shared memory of one block: the ring, the queries (two planes for
+// int4), the ring's full and empty mbarriers, the lists' thresholds, the
+// lists unless they live in global memory, |q|^2, the lists' counts, the
+// flush's flags and (int4) the queries' sums (kernels/fused_topk.py
+// i8_smem_bytes computes the same)
+template <bool I4>
+size_t i8_smem_bytes(int bq, int cap, bool gbuf, int width) {
+  return (size_t)I8_STAGES * (I8Ring<I4>::STAGE + 16) +
+         (size_t)(I4 ? 2 : 1) * bq * i8_qrow<I4>(width) + (size_t)bq * 8 +
+         (gbuf ? 0 : (size_t)bq * cap * 8) + (size_t)bq * 4 * (I4 ? 4 : 3);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)));
-}
-// c += a (16 x 32, row) . b (32 x 8, col), s8 inputs, s32 accumulators
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// the same with a u8 (unsigned) and b s8
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage bytes [k0, k0 + KC) of rows [row0, row0 + R) of an [n_rows, width]
-// int8 matrix into dst (rows `stride` bytes apart) with NTH threads, zero
-// past n_rows and width: mode 2 16-byte cp.async (rows and base 16-byte
-// aligned), mode 1 4-byte cp.async (4-byte aligned), mode 0 byte loads and
-// one shared store a word.
-template <int R, int NTH>
-__device__ __forceinline__ void i8_stage(uint8_t* dst, int stride,
-                                         const int8_t* __restrict__ src,
-                                         long long row0, long long n_rows,
-                                         int width, int k0, int mode, int tid) {
-  const uint8_t* s = reinterpret_cast<const uint8_t*>(src);
-  if (mode == 2) {
-    constexpr int SEGS = I8_KC / 16, ALL = R * SEGS;
-#pragma unroll
-    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
-      const int i = tid + j * NTH;
-      if (ALL % NTH == 0 || i < ALL) {
-        const int r = i / SEGS, b = k0 + (i % SEGS) * 16;
-        const bool ok = row0 + r < n_rows && b < width;
-        cp_async16(dst + r * stride + (i % SEGS) * 16,
-                   ok ? s + (row0 + r) * width + b : s, ok ? 16 : 0);
-      }
-    }
-  } else {
-    constexpr int WORDS = I8_KC / 4, ALL = R * WORDS;
-#pragma unroll 4
-    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
-      const int i = tid + j * NTH;
-      if (ALL % NTH == 0 || i < ALL) {
-        const int r = i / WORDS, b = k0 + (i % WORDS) * 4;
-        uint8_t* to = dst + r * stride + (i % WORDS) * 4;
-        const bool ok = row0 + r < n_rows && b < width;
-        if (mode == 1) {
-          cp_async4(to, ok ? s + (row0 + r) * width + b : s, ok ? 4 : 0);
-        } else {
-          uint32_t v = 0;
-          if (ok) {
-            const uint8_t* p = s + (row0 + r) * width + b;
-#pragma unroll
-            for (int t = 0; t < 4; ++t)
-              if (b + t < width) v |= (uint32_t)__ldg(p + t) << (8 * t);
-          }
-          *reinterpret_cast<uint32_t*>(to) = v;
-        }
-      }
-    }
-  }
-}
-
-// The smallest int32 score whose f32 cast (round to nearest even) orders
-// above the key `thr` (INT_MIN while a list holds fewer than k keys): a row
-// scanned after every row in the list beats `thr` exactly when its int
-// score reaches this bound, since its larger id loses a tie in f32 score.
-// Past INT_MAX the bound is INT_MAX, which lets a superset through.
-__device__ int int_bound(u64 thr) {
-  if (thr == 0ull) return (int)0x80000000u;
-  const float t = key_score(thr);
-  const double m =
-      0.5 * ((double)t + (double)nextafterf(t, __int_as_float(0x7f800000)));
-  double v = ceil(m);
-  if (__ll2float_rn((long long)v) <= t) v += 1.0;
-  return v > 2147483647.0 ? 0x7fffffff : (int)v;
 }
 
 // Pass 1 of B2 int8: grid (ceil(Q / BQ), S); block (qb, s) scores BQ
@@ -919,19 +491,36 @@ __device__ int int_bound(u64 thr) {
 // it.  Lists live in shared memory (GBUF false) or, for k too wide, in
 // `gbuf`.  The launch bounds hold registers for two blocks of 32 queries
 // an SM, or four of fewer; shared memory may allow fewer.
-template <bool L2, int WN, bool GBUF>
+//
+// I4 (B3): x holds packed-int4 rows of d bytes (2 d dims), qm / q1 the even
+// / odd query halves (d bytes each), resident as two planes.  A stage is
+// 32 rows of 128 packed bytes; ldmatrix loads packed words where the int8
+// form loads codes, and each word splits in registers into its low
+// nibbles (w & 0x0F0F0F0F, the even dims) and its high nibbles in place
+// (w & 0xF0F0F0F0: 16 times the odd dims' nibbles), two u8 x s8 MMAs per
+// packed K-step against the even and the odd query plane, into the even /
+// odd accumulator sets.  Nibble n stands for n - 8, so
+//   q . x = acc_lo + (acc_hi >> 4) - 8 sum(q)
+// exactly (acc_hi is 16 times an int32 sum); sum(q) is taken once a block.
+// Zero bytes past d unpack to nibble 0 and meet zero query bytes.  l2:
+// |x|^2 = sum n (n - 16) + 64 (2 d), the sum by dp4a of each nibble word
+// against itself minus 16 (n | 0xF0 as a signed byte).
+template <bool L2, int WN, bool GBUF, bool I4 = false>
 __global__ void __launch_bounds__(32 * (WN + 1), WN == 4 ? 2 : 4)
-i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
+i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ q1,
+               const int8_t* __restrict__ x,
                const int8_t* __restrict__ mask, u64* __restrict__ part,
                u64* __restrict__ gbuf, int Q, long long N, int d, int k,
                int cap, int n_splits, int x_mode, int q_mode) {
   constexpr int NTH = 32 * (WN + 1), BQ = 8 * WN, MT = I8_MT;
   constexpr unsigned FULL = 0xffffffffu;
+  constexpr int KC = I8Ring<I4>::KC, SROW = I8Ring<I4>::SROW;
+  constexpr int STAGE = I8Ring<I4>::STAGE, PLANES = I4 ? 2 : 1;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int qrow = i8_qrow(d);
+  const int qrow = i8_qrow<I4>(d);
   constexpr int STAGES = I8_STAGES;
-  uint8_t* qs = smem + STAGES * I8_STAGE;                     // [BQ, qrow]
-  u64* full = reinterpret_cast<u64*>(qs + BQ * qrow);         // [STAGES]
+  uint8_t* qs = smem + STAGES * STAGE;                        // [PLANES, BQ, qrow]
+  u64* full = reinterpret_cast<u64*>(qs + PLANES * BQ * qrow);  // [STAGES]
   u64* empty = full + STAGES;                                 // [STAGES]
   u64* thresh = empty + STAGES;                               // [BQ]
   u64* lists = GBUF ? gbuf + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
@@ -941,6 +530,7 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
       GBUF ? thresh + BQ : thresh + BQ + (size_t)BQ * cap);   // [BQ]
   int* cnt = qn + BQ;                                         // [BQ]
   int* need = cnt + BQ;                                       // [BQ]
+  int* qsum = need + BQ;                                      // [BQ] (I4)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -949,14 +539,20 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
   if (tid < BQ) {
     cnt[tid] = 0;
     thresh[tid] = 0ull;
-    int s = 0;
+    int s = 0, sum = 0;
     const int q = q_base + tid;
-    if (L2 && q < Q)
+    if ((L2 || I4) && q < Q)
       for (int c = 0; c < d; ++c) {
         const int v = qm[(long long)q * d + c];
         s += v * v;
+        if constexpr (I4) {
+          const int o = q1[(long long)q * d + c];
+          s += o * o;
+          sum += v + o;
+        }
       }
     qn[tid] = s;
+    if constexpr (I4) qsum[tid] = sum;
   }
   // this lane's two queries (the C fragment's columns 2 t4, 2 t4 + 1),
   // each its block query index and so its list
@@ -966,7 +562,7 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
               ok1 ? (int)0x80000000u : 0x7fffffff};
 
   // split s scans the tiles s, s + S, s + 2 S, ...
-  const int n_chunks = (d + I8_KC - 1) / I8_KC;
+  const int n_chunks = (d + KC - 1) / KC;
   const long long n_tiles = (N + I8_BM - 1) / I8_BM;
   const long long my_tiles =
       n_tiles > blockIdx.y ? (n_tiles - 1 - blockIdx.y) / n_splits + 1 : 0;
@@ -977,9 +573,13 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
   // the queries, every chunk, once; the ring's barriers: a stage is full
   // once the producer warp's 32 lanes have landed their copies, empty once
   // each of the WN consumer warps has read it
-  for (int c = 0; c < n_chunks; ++c)
-    i8_stage<BQ, NTH>(qs + c * I8_KC, qrow, qm, q_base, Q, d, c * I8_KC,
-                      q_mode, tid);
+  for (int c = 0; c < n_chunks; ++c) {
+    i8_stage<BQ, NTH, KC>(qs + c * KC, qrow, qm, q_base, Q, d, c * KC, q_mode,
+                          tid);
+    if constexpr (I4)
+      i8_stage<BQ, NTH, KC>(qs + BQ * qrow + c * KC, qrow, q1, q_base, Q, d,
+                            c * KC, q_mode, tid);
+  }
   cp_async_commit();
   if (tid == 0)
     for (int i = 0; i < STAGES; ++i) {
@@ -995,8 +595,8 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
     for (int s = 0; s < n_steps; ++s) {
       const int slot = s % STAGES;
       if (s >= STAGES) mbar_wait(&empty[slot], (s / STAGES - 1) & 1);
-      i8_stage<I8_BM, 32>(smem + slot * I8_STAGE, I8_SROW, x, row_of(s), N,
-                          d, (s % n_chunks) * I8_KC, x_mode, lane);
+      i8_stage<I8_BM, 32, KC>(smem + slot * STAGE, SROW, x, row_of(s), N,
+                              d, (s % n_chunks) * KC, x_mode, lane);
       if (x_mode == 0)
         mbar_arrive(&full[slot]);
       else
@@ -1006,7 +606,7 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
 
   // ldmatrix row addresses of this lane: A (x4: rows 0-15, bytes +0 /
   // +16), B (x2: this warp's queries 0-7, bytes +0 / +16)
-  const int a_off = (lane & 15) * I8_SROW + (lane >> 4) * 16;
+  const int a_off = (lane & 15) * SROW + (lane >> 4) * 16;
   const int b_off = (warp * 8 + (lane & 7)) * qrow + ((lane >> 3) & 1) * 16;
   int acc[2][MT][4];                    // even / odd k-steps: 4 MMA chains
   int xsq[MT][2];                       // |x|^2 parts of rows g, g + 8
@@ -1024,18 +624,44 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
         xsq[mi][0] = xsq[mi][1] = 0;
       }
     }
-    const uint8_t* As = smem + slot * I8_STAGE + a_off;
-    const uint8_t* Bs = qs + b_off + c * I8_KC;
-    const int nk = d - c * I8_KC;       // bytes of d in this chunk
+    const uint8_t* As = smem + slot * STAGE + a_off;
+    const uint8_t* Bs = qs + b_off + c * KC;
+    const int nk = d - c * KC;          // bytes of d in this chunk
 #pragma unroll
-    for (int kk = 0; kk < I8_KC / 32; ++kk) {
+    for (int kk = 0; kk < KC / 32; ++kk) {
       if (kk * 32 >= nk) break;
       uint32_t b0, b1;
       ldsm_x2(b0, b1, Bs + kk * 32);
+      if constexpr (I4) {
+        uint32_t o0, o1;                // the odd query plane
+        ldsm_x2(o0, o1, Bs + BQ * qrow + kk * 32);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          uint32_t a[4], lo[4], hi[4];
+          ldsm_x4(a, As + mi * 16 * SROW + kk * 32);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo[e] = a[e] & 0x0F0F0F0Fu;
+            hi[e] = a[e] & 0xF0F0F0F0u;
+          }
+          mma_u8s8(acc[0][mi], lo, b0, b1);
+          mma_u8s8(acc[1][mi], hi, o0, o1);
+          if (L2) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t h = hi[e] >> 4;
+              int& xs = xsq[mi][e & 1];
+              xs = __dp4a((int)lo[e], (int)(lo[e] | 0xF0F0F0F0u), xs);
+              xs = __dp4a((int)h, (int)(h | 0xF0F0F0F0u), xs);
+            }
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi) {
         uint32_t a[4];
-        ldsm_x4(a, As + mi * 16 * I8_SROW + kk * 32);
+        ldsm_x4(a, As + mi * 16 * SROW + kk * 32);
         mma_s8(acc[kk & 1][mi], a, b0, b1);
         if (L2) {
           xsq[mi][0] = __dp4a((int)a[0], (int)a[0], xsq[mi][0]);
@@ -1050,7 +676,20 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
     if (c != n_chunks - 1) continue;
 
     // ---- epilogue of the tile at t0: warp-private, no block barrier ----
-    int qn0 = 0, qn1 = 0;
+    int qn0 = 0, qn1 = 0, qs0 = 0, qs1 = 0;
+    if constexpr (I4) {
+      qs0 = 8 * qsum[l0];
+      qs1 = 8 * qsum[l1];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[1][mi][e] >>= 4;        // 16 x the odd dims' sum, exactly
+      if (L2)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          xsq[mi][0] += 32 * d, xsq[mi][1] += 32 * d;  // a quad: 128 d
+    }
     if (L2) {
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -1068,7 +707,8 @@ i8_topk_kernel(const int8_t* __restrict__ qm, const int8_t* __restrict__ x,
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int dot = acc[0][mi][e] + acc[1][mi][e];
+        const int dot = acc[0][mi][e] + acc[1][mi][e] -
+                        (I4 ? (e & 1 ? qs1 : qs0) : 0);
         // l2: -(|q|^2 + |x|^2 - 2 q.x), wrapping as the reference's int32
         sc[mi][e] = L2 ? (int)(2u * (unsigned)dot - (unsigned)xsq[mi][e >> 1] -
                                (unsigned)(e & 1 ? qn1 : qn0))
@@ -1173,11 +813,12 @@ cudaError_t i8_attributes(F fn, size_t smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// resident blocks an SM of one int8 pass-1 launch, by the occupancy API
-template <bool L2, int WN, bool GBUF>
+// resident blocks an SM of one int8 (int4) pass-1 launch, by the
+// occupancy API
+template <bool L2, int WN, bool GBUF, bool I4>
 int i8_occupancy(int cap, int d) {
-  const size_t smem = i8_smem_bytes(8 * WN, cap, GBUF, d);
-  auto fn = i8_topk_kernel<L2, WN, GBUF>;
+  const size_t smem = i8_smem_bytes<I4>(8 * WN, cap, GBUF, d);
+  auto fn = i8_topk_kernel<L2, WN, GBUF, I4>;
   int per_sm = 0;
   if (i8_attributes(fn, smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32 * (WN + 1),
@@ -1186,41 +827,38 @@ int i8_occupancy(int cap, int d) {
   return per_sm;
 }
 
-template <bool L2, int WN, bool GBUF>
-cudaError_t launch_i8(const int8_t* q, const int8_t* x, const int8_t* mask,
-                      u64* part, u64* gbuf, int Q, long long N, int d, int k,
-                      int cap, int n_splits, int x_mode, int q_mode,
-                      cudaStream_t stream) {
-  const size_t smem = i8_smem_bytes(8 * WN, cap, GBUF, d);
-  auto fn = i8_topk_kernel<L2, WN, GBUF>;
+template <bool L2, int WN, bool GBUF, bool I4>
+cudaError_t launch_i8(const int8_t* q, const int8_t* q1, const int8_t* x,
+                      const int8_t* mask, u64* part, u64* gbuf, int Q,
+                      long long N, int d, int k, int cap, int n_splits,
+                      int x_mode, int q_mode, cudaStream_t stream) {
+  const size_t smem = i8_smem_bytes<I4>(8 * WN, cap, GBUF, d);
+  auto fn = i8_topk_kernel<L2, WN, GBUF, I4>;
   cudaError_t err = i8_attributes(fn, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + 8 * WN - 1) / (8 * WN), n_splits);
-  fn<<<grid, 32 * (WN + 1), smem, stream>>>(q, x, mask, part, gbuf, Q, N, d,
-                                            k, cap, n_splits, x_mode, q_mode);
+  fn<<<grid, 32 * (WN + 1), smem, stream>>>(q, q1, x, mask, part, gbuf, Q, N,
+                                            d, k, cap, n_splits, x_mode,
+                                            q_mode);
   return cudaGetLastError();
 }
 
-// copies of int8 rows of `width` bytes from p: 2 16-byte, 1 4-byte, 0 bytes
-int i8_copy_mode(const void* p, int width) {
-  if (((uintptr_t)p & 15) == 0 && width % 16 == 0) return 2;
-  if (((uintptr_t)p & 3) == 0 && width % 4 == 0) return 1;
-  return 0;
-}
-
 // the query tiles of kernels/fused_topk.py i8_query_tile: 32, 16 or 8
-// queries (4, 2 or 1 warps); lists in shared memory unless `gbuf` is given
-template <bool L2>
-cudaError_t launch_i8_bq(int bq, const int8_t* q, const int8_t* x,
-                         const int8_t* mask, u64* part, u64* gbuf, int Q,
-                         long long N, int d, int k, int cap, int n_splits,
-                         cudaStream_t st) {
-  const int xm = i8_copy_mode(x, d), qm = i8_copy_mode(q, d);
-#define I8_LAUNCH(WN)                                                       \
-  (gbuf ? launch_i8<L2, WN, true>(q, x, mask, part, gbuf, Q, N, d, k, cap, \
-                                  n_splits, xm, qm, st)                     \
-        : launch_i8<L2, WN, false>(q, x, mask, part, gbuf, Q, N, d, k, cap, \
-                                   n_splits, xm, qm, st))
+// queries (4, 2 or 1 warps); lists in shared memory unless `gbuf` is given.
+// I4: q / q1 the even / odd query halves and x packed rows, d bytes each.
+template <bool L2, bool I4>
+cudaError_t launch_i8_bq(int bq, const int8_t* q, const int8_t* q1,
+                         const int8_t* x, const int8_t* mask, u64* part,
+                         u64* gbuf, int Q, long long N, int d, int k, int cap,
+                         int n_splits, cudaStream_t st) {
+  const int xm = i8_copy_mode(x, d);
+  int qm = i8_copy_mode(q, d);
+  if (I4 && i8_copy_mode(q1, d) < qm) qm = i8_copy_mode(q1, d);
+#define I8_LAUNCH(WN)                                                        \
+  (gbuf ? launch_i8<L2, WN, true, I4>(q, q1, x, mask, part, gbuf, Q, N, d, \
+                                      k, cap, n_splits, xm, qm, st)         \
+        : launch_i8<L2, WN, false, I4>(q, q1, x, mask, part, gbuf, Q, N, d, \
+                                       k, cap, n_splits, xm, qm, st))
   switch (bq) {
     case 32: return I8_LAUNCH(4);
     case 16: return I8_LAUNCH(2);
@@ -1230,17 +868,16 @@ cudaError_t launch_i8_bq(int bq, const int8_t* q, const int8_t* x,
 #undef I8_LAUNCH
 }
 
-}  // namespace
-
-// Resident int8 pass-1 blocks an SM at bq queries a block, lists of `cap`
-// keys (in global memory when gbuf is nonzero) and rows of `width` bytes,
-// as the occupancy API reports it; -1 on an error.  kernels/fused_topk.py
-// i8_blocks_per_sm must agree (tests/test_torch_gpu.py checks it).
-extern "C" int rt_i8_blocks_per_sm(int l2, int bq, int cap, int gbuf,
-                                   int width) {
+// Resident int8 (i4: packed int4) pass-1 blocks an SM at bq queries a
+// block, lists of `cap` keys (in global memory when gbuf is nonzero) and
+// rows of `width` bytes, as the occupancy API reports it; -1 on an error.
+// kernels/fused_topk.py i8_blocks_per_sm must agree (tests/test_torch_gpu.py
+// checks it).
+template <bool I4>
+int i8_blocks(int l2, int bq, int cap, int gbuf, int width) {
 #define I8_OCC(L2_, WN)                                       \
-  (gbuf ? i8_occupancy<L2_, WN, true>(cap, width)             \
-        : i8_occupancy<L2_, WN, false>(cap, width))
+  (gbuf ? i8_occupancy<L2_, WN, true, I4>(cap, width)         \
+        : i8_occupancy<L2_, WN, false, I4>(cap, width))
   const int wn = bq / 8;
   if (bq != 8 * wn || (wn != 1 && wn != 2 && wn != 4)) return -1;
   if (l2) return wn == 4 ? I8_OCC(true, 4) : wn == 2 ? I8_OCC(true, 2) : I8_OCC(true, 1);
@@ -1248,12 +885,20 @@ extern "C" int rt_i8_blocks_per_sm(int l2, int bq, int cap, int gbuf,
 #undef I8_OCC
 }
 
+}  // namespace
+
+extern "C" int rt_i8_blocks_per_sm(int l2, int bq, int cap, int gbuf,
+                                   int width, int i4) {
+  return i4 ? i8_blocks<true>(l2, bq, cap, gbuf, width)
+            : i8_blocks<false>(l2, bq, cap, gbuf, width);
+}
+
 // kind: 0 f32 (f32_topk_kernel), 1 int8 (i8_topk_kernel) or 2 packed
-// int4 (split_topk_kernel; q0/q1 = even/odd query halves, width = bytes
-// per packed row).  The caller chooses the pass-1 layout: bq queries per
-// block, a candidate buffer of `cap` keys (a power of two holding k kept
-// keys plus one insert round: 32 rows for a warp's f32 or int8 list,
-// ROW_LANES for an int4 query's buffer), n_splits corpus ranges, and where
+// int4 (i8_topk_kernel's I4 form; q0/q1 = even/odd query halves, width =
+// bytes per packed row).  The caller chooses the pass-1 layout: bq queries
+// per block, a candidate buffer of `cap` keys (a power of two holding k
+// kept keys plus one insert round: 32 rows for a warp's f32 list or an
+// int8 / int4 tile), n_splits corpus ranges, and where
 // the buffers live: `gbuf` null keeps them in shared memory, else gbuf
 // holds [ceil(Q / bq) * n_splits, lists, cap] keys (lists = bq, or 8 at
 // f32 bq 1).  `part` holds Q * n_splits * k keys; `mbuf` null merges in
@@ -1268,8 +913,8 @@ extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
                              void* stream) {
   if (Q <= 0 || N <= 0 || k <= 0) return 0;
   // room for k kept keys and one insert round: 32 rows a warp (f32), a
-  // 32-row tile (int8), ROW_LANES a query (int4)
-  const int round = kind == KIND_F32 ? 32 : kind == KIND_I8 ? I8_BM : ROW_LANES;
+  // 32-row tile (int8, int4)
+  const int round = kind == KIND_F32 ? 32 : I8_BM;
   if (cap != next_pow2(cap) || cap < k + round || n_splits <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -1288,16 +933,15 @@ extern "C" int rt_fused_topk(int kind, int l2, int bq, int cap,
   } else if (kind == KIND_I8) {
     const int8_t* qi = (const int8_t*)q0;
     const int8_t* xi = (const int8_t*)x;
-    err = l2 ? launch_i8_bq<true>(bq, qi, xi, m, p, g, Q, N, width, k, cap, n_splits, st)
-             : launch_i8_bq<false>(bq, qi, xi, m, p, g, Q, N, width, k, cap, n_splits, st);
+    err = l2 ? launch_i8_bq<true, false>(bq, qi, nullptr, xi, m, p, g, Q, N, width, k, cap, n_splits, st)
+             : launch_i8_bq<false, false>(bq, qi, nullptr, xi, m, p, g, Q, N, width, k, cap, n_splits, st);
   } else if (kind == KIND_I4) {
-    const bool x_aligned = width % 4 == 0 && ((uintptr_t)x & 3) == 0;
-    const bool q_aligned = width % 4 == 0 && ((uintptr_t)q0 & 3) == 0 &&
-                           (q1 == nullptr || ((uintptr_t)q1 & 3) == 0);
-    // 16-byte corpus loads: 16-byte aligned rows (bytes per row % 16 == 0)
-    const bool x_vec = ((uintptr_t)x & 15) == 0 && width % 16 == 0;
-    err = l2 ? launch_split_bq<KIND_I4, true>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st)
-             : launch_split_bq<KIND_I4, false>(bq, q0, q1, x, m, p, g, Q, N, width, k, cap, n_splits, x_aligned, q_aligned, x_vec, st);
+    if (q1 == nullptr) return (int)cudaErrorInvalidValue;
+    const int8_t* qe = (const int8_t*)q0;
+    const int8_t* qo = (const int8_t*)q1;
+    const int8_t* xi = (const int8_t*)x;
+    err = l2 ? launch_i8_bq<true, true>(bq, qe, qo, xi, m, p, g, Q, N, width, k, cap, n_splits, st)
+             : launch_i8_bq<false, true>(bq, qe, qo, xi, m, p, g, Q, N, width, k, cap, n_splits, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
 // The running top-k shared by the fused scans: B2/B3 (fused_topk.cu) and
-// B4/B5 (adc.cu).
+// B4/B5 (adc.cu), and (last section) the ring, tensor-core and per-warp
+// list helpers of the int scans.
 //
 // Pass 1 of every fused scan keeps, per query of its block, a candidate
 // buffer of `cap` 64-bit keys plus a threshold (the current k-th best
@@ -30,7 +31,6 @@
 namespace {
 
 constexpr int NT = 256;                 // threads per block
-constexpr int ROW_LANES = 64;           // most inserts per query per round
 constexpr float NEG = -3.40282346638528859812e+38f;  // float32 min
 
 typedef unsigned long long u64;
@@ -177,6 +177,174 @@ cudaError_t launch_merge(const u64* part, u64* gbuf, void* out_s, void* out_i,
   fn<<<Q, NT, smem, st>>>(part, gbuf, (float*)out_s, (int*)out_i, n_splits,
                           k, merge_cap);
   return cudaGetLastError();
+}
+
+// ---- the int scans' ring, tensor-core and per-warp upkeep helpers (B2
+// int8 and B3 in fused_topk.cu, B5 in adc.cu) -------------------------------
+
+// Sort a warp's list of `cap` keys (a power of two) descending: the
+// bitonic network of `compact` above, one warp, no block barrier.  The
+// whole warp calls it.
+__device__ void warp_sort_desc(u64* b, int cap, int lane) {
+  for (int size = 2; size <= cap; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll 4
+      for (int i = lane; i < cap / 2; i += 32) {
+        // 2 * stride * (i / stride) + i % stride, stride a power of two
+        const int lo = ((i & ~(stride - 1)) << 1) | (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const u64 a = b[lo], c = b[hi];
+        if (desc ? (a < c) : (a > c)) {
+          b[lo] = c;
+          b[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// Truncate a warp's list holding c keys to its best k: zero-fill past c,
+// sort, and raise the threshold to the k-th key once there are k.
+__device__ void warp_compact(u64* b, int& c, u64& thr, int cap, int k,
+                             int lane) {
+  __syncwarp();
+  for (int e = c + lane; e < cap; e += 32) b[e] = 0ull;
+  __syncwarp();
+  warp_sort_desc(b, cap, lane);
+  c = min(c, k);
+  if (c >= k) thr = b[k - 1];
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// n of the 16 (4) bytes are copied, the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// mbarriers in shared memory (the int8 scan's ring)
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
+               "r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+// arrives once every cp.async this thread issued before it has landed
+__device__ __forceinline__ void mbar_arrive_copies(u64* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+               "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)));
+}
+// c += a (16 x 32, row) . b (32 x 8, col), s8 inputs, s32 accumulators
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Stage bytes [k0, k0 + KC) of rows [row0, row0 + R) of an [n_rows, width]
+// int8 matrix into dst (rows `stride` bytes apart) with NTH threads, zero
+// past n_rows and width: mode 2 16-byte cp.async (rows and base 16-byte
+// aligned), mode 1 4-byte cp.async (4-byte aligned), mode 0 byte loads and
+// one shared store a word.
+template <int R, int NTH, int KC>
+__device__ __forceinline__ void i8_stage(uint8_t* dst, int stride,
+                                         const int8_t* __restrict__ src,
+                                         long long row0, long long n_rows,
+                                         int width, int k0, int mode, int tid) {
+  const uint8_t* s = reinterpret_cast<const uint8_t*>(src);
+  if (mode == 2) {
+    constexpr int SEGS = KC / 16, ALL = R * SEGS;
+#pragma unroll
+    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
+      const int i = tid + j * NTH;
+      if (ALL % NTH == 0 || i < ALL) {
+        const int r = i / SEGS, b = k0 + (i % SEGS) * 16;
+        const bool ok = row0 + r < n_rows && b < width;
+        cp_async16(dst + r * stride + (i % SEGS) * 16,
+                   ok ? s + (row0 + r) * width + b : s, ok ? 16 : 0);
+      }
+    }
+  } else {
+    constexpr int WORDS = KC / 4, ALL = R * WORDS;
+#pragma unroll 4
+    for (int j = 0; j < (ALL + NTH - 1) / NTH; ++j) {
+      const int i = tid + j * NTH;
+      if (ALL % NTH == 0 || i < ALL) {
+        const int r = i / WORDS, b = k0 + (i % WORDS) * 4;
+        uint8_t* to = dst + r * stride + (i % WORDS) * 4;
+        const bool ok = row0 + r < n_rows && b < width;
+        if (mode == 1) {
+          cp_async4(to, ok ? s + (row0 + r) * width + b : s, ok ? 4 : 0);
+        } else {
+          uint32_t v = 0;
+          if (ok) {
+            const uint8_t* p = s + (row0 + r) * width + b;
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              if (b + t < width) v |= (uint32_t)__ldg(p + t) << (8 * t);
+          }
+          *reinterpret_cast<uint32_t*>(to) = v;
+        }
+      }
+    }
+  }
+}
+
+// The smallest int32 score whose f32 cast (round to nearest even) orders
+// above the key `thr` (INT_MIN while a list holds fewer than k keys): a row
+// scanned after every row in the list beats `thr` exactly when its int
+// score reaches this bound, since its larger id loses a tie in f32 score.
+// Past INT_MAX the bound is INT_MAX, which lets a superset through.
+__device__ int int_bound(u64 thr) {
+  if (thr == 0ull) return (int)0x80000000u;
+  const float t = key_score(thr);
+  const double m =
+      0.5 * ((double)t + (double)nextafterf(t, __int_as_float(0x7f800000)));
+  double v = ceil(m);
+  if (__ll2float_rn((long long)v) <= t) v += 1.0;
+  return v > 2147483647.0 ? 0x7fffffff : (int)v;
+}
+
+// copies of int8 rows of `width` bytes from p: 2 16-byte, 1 4-byte, 0 bytes
+int i8_copy_mode(const void* p, int width) {
+  if (((uintptr_t)p & 15) == 0 && width % 16 == 0) return 2;
+  if (((uintptr_t)p & 3) == 0 && width % 4 == 0) return 1;
+  return 0;
 }
 
 }  // namespace

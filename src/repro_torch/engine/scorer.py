@@ -170,7 +170,8 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
     if store.device.type == "cuda" and metric in ("ip", "l2"):
         s, i = K.fused_topk(q, store.data, k_eff, metric,
                             packed=store.packed, mask=mask)
-        chunks = -(-store.n // _fused.BN)
+        chunks = -(-store.n // (_fused.BN if q.dtype == torch.float32
+                                else _fused.I8_BM))
         # pass 1 re-streams the corpus once per query block
         bq = K.fused_query_tile(k_eff, q.shape[0],
                                 fp32=q.dtype == torch.float32)
@@ -293,7 +294,7 @@ def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
         s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG)
         i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
     if _pq_fused(store, metric):
-        n_chunks = -(-store.n // _adc.BN)
+        n_chunks = -(-store.n // (_adc.A4_BM if store.bits == 4 else _adc.BN))
         # the fused grid re-streams the code matrix once per query block
         # (the LUTs are what stay resident, not the codes)
         bq = K.fused_adc_query_tile(min(k, store.n), store.row_bytes,

@@ -43,14 +43,16 @@ SIGNATURES = {
         # out_i, Q, N, width, k, n_splits, stream
         "rt_fused_topk": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _L, _I, _I, _I, _P], _I),
-        # l2, bq, cap, gbuf, width
-        "rt_i8_blocks_per_sm": ([_I, _I, _I, _I, _I], _I),
+        # l2, bq, cap, gbuf, width, i4
+        "rt_i8_blocks_per_sm": ([_I, _I, _I, _I, _I, _I], _I),
     },
     "adc": {
         # kbits, bq, lutg, cap, lut0, lut1, codes, mask, part, gbuf, mbuf,
         # out_s, out_i, Q, N, mb, k, n_splits, stream
         "rt_fused_adc": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _I, _L, _I, _I, _I, _P], _I),
+        # bq, cap, gbuf, mb
+        "rt_adc4_blocks_per_sm": ([_I, _I, _I, _I], _I),
     },
     "qscore": {
         # i4, l2, tile, q0, q1, x, out, Q, N, width, stream

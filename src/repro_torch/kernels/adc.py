@@ -26,15 +26,25 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_topk as _fused
 
-#: query rows per block when the LUTs and buffers fit: 16, else 8, 4, 2, 1
-BQ = _fused.BQ
-#: code rows per pass-1 tile at 4 or more queries a block (``tile_rows`` in
-#: the CUDA source: 512 at 2, 1024 at 1)
+#: B4's query rows per block when the LUTs and buffers fit: 16, else 8, 4,
+#: 2, 1
+BQ = 16
+#: code rows per B4 pass-1 tile at 4 or more queries a block (``tile_rows``
+#: in the CUDA source: 512 at 2, 1024 at 1)
 BN = 256
 #: 32-bit code words staged per chunk (``DKC`` in the CUDA source)
 _DKC = 8
-#: dynamic shared memory one block may use on the H100 (227 KB)
+#: dynamic shared memory one block may use on the H100 (227 KB), and an
+#: SM's whole shared memory
 SMEM_MAX = _fused.SMEM_MAX
+SM_SMEM = _fused.SM_SMEM
+
+#: B5 (``adc4_mma_kernel``): code rows a tile, ring stages, code bytes of a
+#: row a stage and the staged row stride
+A4_BM = 32
+A4_STAGES = 4
+A4_KCB = 64
+A4_SROW = A4_KCB + 16
 
 #: kernel launches on CUDA tensors, per variant (plain versions do not count)
 LAUNCHES = {"fused_adc": 0, "fused_adc4": 0}
@@ -42,15 +52,23 @@ LAUNCHES = {"fused_adc": 0, "fused_adc4": 0}
 
 class AdcLayout(NamedTuple):
     """One launch of ``rt_fused_adc``: queries a block, LUTs read from
-    global memory or not, candidate keys a query, corpus splits, and the
+    global memory or not, candidate keys a query, corpus splits, the
     global-memory scratch in keys (0: none) for the pass-1 buffers and the
-    pass-2 merge."""
+    pass-2 merge, and (B5) whether the gather kernel runs it in place of
+    the one-hot MMA kernel."""
     bq: int
     lutg: bool
     cap: int
     splits: int
     gbuf_keys: int
     mbuf_keys: int
+    gather: bool = False
+
+    @property
+    def mode(self) -> int:
+        """``rt_fused_adc``'s mode: bit 0 the LUTs in global memory, bit 1
+        B5 on the gather kernel."""
+        return int(self.lutg) | 2 * int(self.gather)
 
 
 def tile_rows(bq: int) -> int:
@@ -61,7 +79,7 @@ def tile_rows(bq: int) -> int:
 
 def adc_cap(k: int, bq: int) -> int:
     """Candidate keys a query: k kept keys, one insert round (one row per
-    row lane) and about k more; ``split_cap(k)`` at 4 or more queries."""
+    row lane) and about k more."""
     return _fused._pow2(2 * k + _fused.NT // min(bq, 4))
 
 
@@ -90,19 +108,99 @@ def _modes(q: int):
     yield 4, True, True
 
 
+def _modes4(q: int):
+    """B5's gather-kernel layouts in order of preference (its C entry
+    instantiates these only): at most 4 queries, one a block per query
+    tile of 1, 2 or 4 with the LUTs in shared memory, then the buffers in
+    global memory; then (and for rows too wide for the MMA kernel) 4
+    queries a block with the LUTs in global memory."""
+    if q <= 4:
+        for gbuf in (False, True):
+            for bq in (b for b in (1, 2, 4) if b >= q):
+                yield bq, gbuf, False
+    yield 4, False, True
+    yield 4, True, True
+
+
+def a4_qrow(mb: int) -> int:
+    """Bytes of one query's resident B5 LUT row: 32 a code byte (the 16
+    even then the 16 odd codewords' entries), zero past mb to a multiple of
+    16 code bytes, and a 16-byte pad."""
+    return 32 * -(-mb // 16) * 16 + 16
+
+
+def a4_smem_bytes(bq: int, cap: int, gbuf: bool, mb: int) -> int:
+    """Shared memory of one B5 pass-1 block (``a4_smem_bytes`` in the CUDA
+    source): the ring of 32-row tiles and its mbarriers, the block's LUTs,
+    thresholds, the lists unless in global memory, counts, flags."""
+    return (A4_STAGES * (A4_BM * A4_SROW + 16) + bq * a4_qrow(mb) + bq * 8
+            + (0 if gbuf else bq * cap * 8) + bq * 8)
+
+
+def a4_query_tile(q: int) -> int:
+    """Queries per B5 block that the batch asks for (``WN`` warps of one n8
+    tile in the CUDA source): 32 (4 warps), 16 for batches of at most 16,
+    8 for at most 8 (one warp)."""
+    return 8 if q <= 8 else 16 if q <= 16 else 32
+
+
+def a4_blocks_per_sm(bq: int, cap: int, gbuf: bool, mb: int) -> int:
+    """Resident B5 blocks an SM: as many as shared memory allows (each
+    block also takes 1 KB), up to the launch bounds' count (two blocks of
+    32 queries, four of fewer)."""
+    fit = SM_SMEM // (a4_smem_bytes(bq, cap, gbuf, mb) + 1024)
+    return max(1, min(fit, 2 if bq == 32 else 4))
+
+
+def a4_query_layout(q: int, k: int, mb: int):
+    """(queries per B5 block, lists in global memory), or None where even 8
+    queries' LUTs do not fit in shared memory (past mb = 864 code bytes):
+    those rows take the gather kernel with LUTs read from global memory.
+    The batch's tile with its lists in shared memory where they fit, else
+    in global memory; where a 32-query block would sit alone on its SM
+    (lists of 512 keys), blocks of 8 queries, four an SM, as B2 int8."""
+    cap = _fused.i8_cap(k)
+    tile = a4_query_tile(q)
+    if (tile == 32 and a4_smem_bytes(32, cap, False, mb) <= SMEM_MAX
+            and a4_blocks_per_sm(32, cap, False, mb) < 2):
+        tile = 8
+    for bq in dict.fromkeys((tile, 8)):
+        for gbuf in (False, True):
+            if a4_smem_bytes(bq, cap, gbuf, mb) <= SMEM_MAX:
+                return bq, gbuf
+    return None
+
+
 def adc_layout(k: int, code_bytes: int, kbits: int, q: int,
                n: int) -> AdcLayout:
     """The whole launch layout of one fused ADC scan; the wrapper's one
-    place that decides it (the CUDA source takes it as arguments)."""
-    for bq, gbuf, lutg in _modes(q):
+    place that decides it (the CUDA source takes it as arguments).  B5
+    runs the one-hot MMA kernel at every width where 8 queries' LUTs fit
+    in shared memory, except for batches of at most 4 queries: an MMA
+    tile of 8 queries would waste most of its work there, and the gather
+    kernel at 1, 2 or 4 queries a block wastes none.  Past that width B5
+    runs the gather kernel with its LUTs read from global memory (4
+    queries a block)."""
+    mbuf = 0 if _fused.merge_in_shared(k) else q * _fused._pow2(k + _fused.NT)
+    a4 = a4_query_layout(q, k, code_bytes) if kbits == 4 and q > 4 else None
+    if a4 is not None:
+        (bq, gbuf), cap = a4, _fused.i8_cap(k)
+        qblocks = -(-q // bq)
+        # one wave: as many blocks as are resident at once
+        splits = max(1, min(a4_blocks_per_sm(bq, cap, gbuf, code_bytes)
+                            * _fused._SMS // qblocks,
+                            -(-n // max(_fused._MIN_SPLIT_ROWS, 2 * k)), 65535))
+        return AdcLayout(bq, False, cap, splits,
+                         qblocks * splits * bq * cap if gbuf else 0, mbuf)
+    modes = _modes(q) if kbits == 8 else _modes4(q)
+    for bq, gbuf, lutg in modes:
         cap = adc_cap(k, bq)
         if smem_bytes(bq, cap, code_bytes, kbits, gbuf, lutg) <= SMEM_MAX:
             break
     splits = n_splits(q, n, bq, k)
     return AdcLayout(bq, lutg, cap, splits,
-                     -(-q // bq) * splits * bq * cap if gbuf else 0,
-                     0 if _fused.merge_in_shared(k) else
-                     q * _fused._pow2(k + _fused.NT))
+                     -(-q // bq) * splits * bq * cap if gbuf else 0, mbuf,
+                     gather=kbits == 4)
 
 
 def query_tile(k: int, code_bytes: int, kbits: int, q: int = BQ) -> int:
@@ -111,7 +209,8 @@ def query_tile(k: int, code_bytes: int, kbits: int, q: int = BQ) -> int:
 
 
 def n_splits(q: int, n: int, bq: int, k: int = 1) -> int:
-    """Corpus ranges pass 1 splits the scan into (blocks along y), as B2."""
+    """Corpus ranges the gather kernel's pass 1 splits the scan into
+    (blocks along y): 528 blocks, at least 2048 and 2k rows a split."""
     return _fused._split_count(-(-q // bq), n, k, _fused._TARGET_BLOCKS)
 
 
@@ -183,7 +282,7 @@ def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
     mbuf = (torch.empty(lay.mbuf_keys, dtype=torch.int64, device=dev)
             if lay.mbuf_keys else None)
     rc = _build.lib("adc").rt_fused_adc(
-        kbits, lay.bq, int(lay.lutg), lay.cap, lut0.data_ptr(),
+        kbits, lay.bq, lay.mode, lay.cap, lut0.data_ptr(),
         None if lut1 is None else lut1.data_ptr(), codes.data_ptr(),
         None if mask is None else mask.data_ptr(), part.data_ptr(),
         None if gbuf is None else gbuf.data_ptr(),

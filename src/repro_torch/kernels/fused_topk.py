@@ -24,10 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.packed import merge_nibble_queries
 
-#: query rows per block of the int4 scan (B3): 16 for k <= 224, fewer for
-#: wider k and tiny batches
-BQ = 16
-#: corpus rows per pass-1 tile of the int4 scan (``BN`` in the CUDA source)
+#: corpus rows per pass-1 tile of the fp32 scan (``F32Cfg::BN``)
 BN = 256
 #: dynamic shared memory one block may use on the H100 (227 KB), and an
 #: SM's whole shared memory, of which each resident block also takes 1 KB
@@ -36,27 +33,25 @@ SM_SMEM = 233472
 
 NEG = _ref.NEG
 
-#: threads of an int4 pass-1 block that insert one query's candidates in
-#: one round (``ROW_LANES`` in the CUDA source)
-ROW_LANES = 64
-#: threads a block (``NT``)
+#: threads a block of pass 2 (``NT``)
 NT = 256
 
-#: blocks pass 1 aims for, four per SM on 132 SMs (the fp32 scan: as many
-#: as are resident at once, one or two an SM), and the fewest corpus rows
-#: worth one split
+#: blocks the ADC gather kernel's pass 1 aims for, four per SM on 132 SMs
+#: (the scans here: as many as are resident at once), and the fewest
+#: corpus rows worth one split
 _TARGET_BLOCKS = 528
 _SMS = 132
 _MIN_SPLIT_ROWS = 2048
 
 KIND_F32, KIND_I8, KIND_I4 = 0, 1, 2
 
-#: B2 int8 (``i8_topk_kernel``): corpus rows a tile, ring stages, bytes of
-#: a row a stage and, with its 16-byte pad, of a staged row
+#: B2 int8 and B3 (``i8_topk_kernel``): corpus rows a tile, ring stages,
+#: bytes of a row a stage (256 int8 bytes, 128 packed-int4 bytes: 256 dims
+#: either way) and, with its 16-byte pad, of a staged row
 I8_BM = 32
 I8_STAGES = 4
 I8_KC = 256
-I8_SROW = I8_KC + 16
+I4_KC = 128
 
 #: kernel launches on CUDA tensors, per variant (plain versions do not count)
 LAUNCHES = {"fused_topk_int8": 0, "fused_topk_fp32": 0, "fused_topk4": 0}
@@ -80,19 +75,12 @@ def _pow2(v: int) -> int:
     return p
 
 
-def split_cap(k: int) -> int:
-    """Candidate-buffer keys per query in the int4 scan's pass 1: room for k
-    kept keys, one round of ROW_LANES inserts and about k more, so a buffer
-    is compacted roughly once per k threshold-passing candidates.  The
-    launch layout is chosen here only; the CUDA source takes it as
-    arguments and rejects a buffer that could overflow."""
-    return _pow2(2 * k + ROW_LANES)
-
-
 def i8_cap(k: int) -> int:
-    """Keys of one candidate list of the int8 scan (a warp's, per query):
-    k kept keys, one 32-row tile of inserts and at least 64 more, so a list
-    is sorted down to k at most once per 64 survivors."""
+    """Keys of one candidate list of the int8 / int4 scan (a warp's, per
+    query): k kept keys, one 32-row tile of inserts and at least 64 more,
+    so a list is sorted down to k at most once per 64 survivors.  The
+    launch layout is chosen here only; the CUDA source takes it as
+    arguments and rejects a list that could overflow."""
     return _pow2(k + 96)
 
 
@@ -101,17 +89,6 @@ def f32_cap(k: int) -> int:
     and row group): k kept keys, one round of 32 inserts and at least 64
     more, so a list is sorted down to k at most once per 64 survivors."""
     return _pow2(k + 96)
-
-
-def query_tile(k: int, q: int = BQ) -> int:
-    """Query rows per block of the int4 scan.  A block keeps one
-    ``split_cap(k)`` buffer per query in shared memory, so wider k take
-    fewer queries per block; a batch of at most 4 queries takes 4 rather
-    than computing empty rows."""
-    cap = split_cap(k)
-    if q <= 4 or cap > 1024:
-        return 4
-    return 16 if cap <= 512 else 8
 
 
 def f32_batch_tile(q: int) -> int:
@@ -164,67 +141,62 @@ def f32_blocks_per_sm(bq: int, cap: int, gbuf: bool) -> int:
 
 
 def i8_query_tile(q: int) -> int:
-    """Query rows per int8 block (``WN`` warps of 8 queries in the CUDA
-    source): 32 (4 warps), 16 for batches of at most 16 and 8 for at most
-    8 (one warp)."""
+    """Query rows per int8 / int4 block (``WN`` warps of 8 queries in the
+    CUDA source): 32 (4 warps), 16 for batches of at most 16 and 8 for at
+    most 8 (one warp)."""
     return 8 if q <= 8 else 16 if q <= 16 else 32
 
 
-def i8_qrow(d: int) -> int:
-    """Bytes of one resident query row of the int8 block: d rounded up to
-    KC-byte chunks, and a 16-byte pad."""
-    return -(-d // I8_KC) * I8_KC + 16
+def i8_qrow(width: int, i4: bool = False) -> int:
+    """Bytes of one resident query row (of one plane for int4) of the
+    block: the row's ``width`` bytes rounded up to KC-byte chunks, and a
+    16-byte pad."""
+    kc = I4_KC if i4 else I8_KC
+    return -(-width // kc) * kc + 16
 
 
-def i8_smem_bytes(bq: int, cap: int, gbuf: bool, d: int) -> int:
-    """Shared memory of one int8 pass-1 block (``i8_smem_bytes`` in the
-    CUDA source): the ring of 32-row tiles, the block's queries, the
-    ring's mbarriers, thresholds, the lists unless in global memory, |q|^2,
-    counts, flags."""
-    return (I8_STAGES * (I8_BM * I8_SROW + 16) + bq * i8_qrow(d)
-            + bq * 8 + (0 if gbuf else bq * cap * 8) + bq * 12)
+def i8_smem_bytes(bq: int, cap: int, gbuf: bool, width: int,
+                  i4: bool = False) -> int:
+    """Shared memory of one int8 (int4) pass-1 block (``i8_smem_bytes`` in
+    the CUDA source): the ring of 32-row tiles, the block's queries (two
+    planes for int4), the ring's mbarriers, thresholds, the lists unless
+    in global memory, |q|^2, counts, flags (and the queries' sums)."""
+    kc = I4_KC if i4 else I8_KC
+    return (I8_STAGES * (I8_BM * (kc + 16) + 16)
+            + (2 if i4 else 1) * bq * i8_qrow(width, i4)
+            + bq * 8 + (0 if gbuf else bq * cap * 8) + bq * (16 if i4 else 12))
 
 
-def i8_blocks_per_sm(bq: int, cap: int, gbuf: bool, d: int) -> int:
-    """Resident int8 blocks an SM: as many as shared memory allows (each
-    block also takes 1 KB), up to the launch bounds' count (two blocks of
-    32 queries, four of fewer), for which registers are held: at k=100,
-    d=256 four blocks of 8 queries, three of 16, two of 32."""
-    fit = SM_SMEM // (i8_smem_bytes(bq, cap, gbuf, d) + 1024)
+def i8_blocks_per_sm(bq: int, cap: int, gbuf: bool, width: int,
+                     i4: bool = False) -> int:
+    """Resident int8 (int4) blocks an SM: as many as shared memory allows
+    (each block also takes 1 KB), up to the launch bounds' count (two
+    blocks of 32 queries, four of fewer), for which registers are held: at
+    k=100, d=256 four blocks of 8 queries, three of 16, two of 32 (int4:
+    four, four, two)."""
+    fit = SM_SMEM // (i8_smem_bytes(bq, cap, gbuf, width, i4) + 1024)
     return max(1, min(fit, 2 if bq == 32 else 4))
 
 
-def i8_query_layout(q: int, k: int, d: int) -> tuple[int, bool]:
-    """(query rows per int8 block, lists in global memory): the batch's
-    tile with its lists in shared memory where they fit, else in global
-    memory; a d too wide for 32 resident queries takes 8.  Where the lists
-    of a 32-query block leave room for one block an SM (160 < k <= 416 at
-    d = 256), blocks of 8 queries, three an SM, scan faster (PERF.md: 15.4
-    against 19.4 ms at k=400)."""
+def i8_query_layout(q: int, k: int, width: int,
+                    i4: bool = False) -> tuple[int, bool]:
+    """(query rows per int8 / int4 block, lists in global memory): the
+    batch's tile with its lists in shared memory where they fit, else in
+    global memory; a row too wide for 32 resident queries takes 8.  Where
+    the lists of a 32-query block leave room for one block an SM (160 < k
+    <= 416 at d = 256), blocks of 8 queries, three or four an SM, scan
+    faster (PERF.md: 15.4 against 19.4 ms at k=400, int8)."""
     cap = i8_cap(k)
     tile = i8_query_tile(q)
-    if (tile == 32 and i8_smem_bytes(32, cap, False, d) <= SMEM_MAX
-            and i8_blocks_per_sm(32, cap, False, d) < 2):
+    if (tile == 32 and i8_smem_bytes(32, cap, False, width, i4) <= SMEM_MAX
+            and i8_blocks_per_sm(32, cap, False, width, i4) < 2):
         tile = 8
     for bq in dict.fromkeys((tile, 8)):
         for gbuf in (False, True):
-            if i8_smem_bytes(bq, cap, gbuf, d) <= SMEM_MAX:
+            if i8_smem_bytes(bq, cap, gbuf, width, i4) <= SMEM_MAX:
                 return bq, gbuf
-    raise ValueError(f"fused_topk: d={d} is too wide for the int8 scan's "
-                     "resident queries")
-
-
-def split_smem_bytes(bq: int, cap: int, gbuf: bool) -> int:
-    """Shared memory of one int4 pass-1 block (``split_smem_bytes`` in the
-    CUDA source)."""
-    return ((0 if gbuf else bq * cap * 8) + bq * 8 + BN * 33 * 4
-            + bq * 32 * 4 + BN * 4 + bq * 4 * 3)
-
-
-def buffers_in_shared(k: int) -> bool:
-    """Whether the int4 scan's pass-1 buffers fit in shared memory at k
-    (true up to k = 2016; wider k keep them in global memory)."""
-    return split_smem_bytes(query_tile(k), split_cap(k), False) <= SMEM_MAX
+    raise ValueError(f"fused_topk: rows of {width} bytes are too wide for "
+                     "the int scan's resident queries")
 
 
 def merge_in_shared(k: int) -> bool:
@@ -239,36 +211,25 @@ def _split_count(qblocks: int, n: int, k: int, target: int) -> int:
     return max(1, min(s, -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
 
 
-def n_splits(q: int, n: int, k: int) -> int:
-    """Corpus ranges the int4 scan's pass 1 splits the scan into (blocks
-    along y)."""
-    return _split_count(-(-q // query_tile(k, q)), n, k, _TARGET_BLOCKS)
-
-
 def layout(kind: int, q: int, n: int, k: int, d: int = 0) -> Layout:
     """The whole launch layout of one fused scan; the wrapper's one place
     that decides it (the CUDA source takes it as arguments).  ``d`` (the
-    row width) matters to the int8 scan only, whose queries stay in shared
-    memory."""
-    if kind in (KIND_F32, KIND_I8):
-        if kind == KIND_F32:
-            (bq, gbuf), cap = f32_query_tile(k, q), f32_cap(k)
-            lists, per_sm = f32_lists(bq), f32_blocks_per_sm(bq, cap, gbuf)
-        else:
-            assert d > 0, "the int8 layout needs the row width d"
-            (bq, gbuf), cap = i8_query_layout(q, k, d), i8_cap(k)
-            lists, per_sm = bq, i8_blocks_per_sm(bq, cap, gbuf, d)
-        qblocks = -(-q // bq)
-        # one wave: as many blocks as are resident at once, never a partial
-        # second wave
-        splits = max(1, min(per_sm * _SMS // qblocks,
-                            -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
-        gbuf = qblocks * splits * lists * cap if gbuf else 0
+    row width in bytes: d int8 codes, d/2 packed-int4 bytes) matters to
+    the int scans only, whose queries stay in shared memory."""
+    if kind == KIND_F32:
+        (bq, gbuf), cap = f32_query_tile(k, q), f32_cap(k)
+        lists, per_sm = f32_lists(bq), f32_blocks_per_sm(bq, cap, gbuf)
     else:
-        bq, cap = query_tile(k, q), split_cap(k)
-        splits = n_splits(q, n, k)
-        gbuf = (0 if buffers_in_shared(k)
-                else -(-q // bq) * splits * bq * cap)
+        assert d > 0, "the int layout needs the row width d"
+        i4 = kind == KIND_I4
+        (bq, gbuf), cap = i8_query_layout(q, k, d, i4), i8_cap(k)
+        lists, per_sm = bq, i8_blocks_per_sm(bq, cap, gbuf, d, i4)
+    qblocks = -(-q // bq)
+    # one wave: as many blocks as are resident at once, never a partial
+    # second wave
+    splits = max(1, min(per_sm * _SMS // qblocks,
+                        -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
+    gbuf = qblocks * splits * lists * cap if gbuf else 0
     mbuf = 0 if merge_in_shared(k) else q * _pow2(k + NT)
     return Layout(bq, cap, splits, gbuf, mbuf)
 

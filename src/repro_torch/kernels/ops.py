@@ -54,12 +54,12 @@ def ql24(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return _packed.ql24_cuda(qe, qo, packed.contiguous())
 
 
-def fused_query_tile(k: int = 100, q: int = _fused.BQ,
-                     fp32: bool = False) -> int:
+def fused_query_tile(k: int = 100, q: int = 16, fp32: bool = False) -> int:
     """Query rows per fused-kernel block — the corpus re-stream granularity
-    the engine's ``bytes_read`` accounting derives from."""
+    the engine's ``bytes_read`` accounting derives from (the int scans:
+    the batch's tile, before a wide k or row narrows it)."""
     return (_fused.f32_query_tile(k, q)[0] if fp32
-            else _fused.query_tile(k, q))
+            else _fused.i8_query_tile(q))
 
 
 def fused_adc_query_tile(k: int, code_bytes: int, kbits: int = 8,

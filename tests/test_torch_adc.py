@@ -152,29 +152,41 @@ def test_many_exact_ties_break_by_id():
 
 
 def test_launch_layout_fits_shared_memory():
-    """The Python-side layout (the CUDA source takes it as given): the
+    """The Python-side layout (the CUDA source takes it as given): B4's
     query tile shrinks with M and k so the block's LUTs and candidate
     buffers stay within the H100's 227 KB, down to 1 query; then the
     buffers move to global memory, and a LUT too wide for one query is
-    read from global memory, so every M and k launches."""
+    read from global memory, so every M and k launches.  B5 (the one-hot
+    MMA kernel) takes the batch's tile of 8, 16 or 32 queries, 8 where
+    its LUTs or lists leave a 32-query block alone on its SM, the lists
+    in global memory where shared memory cannot hold them."""
     for kbits, widths in ((8, (1, 7, 16, 32, 64, 128, 256, 512, 1024)),
                           (4, (1, 4, 32, 64, 512))):
         for mb in widths:
             for k in (1, 100, 400, 1024, 1025, 5000):
                 lay = A.adc_layout(k, mb, kbits, 256, 4_000_000)
-                assert lay.bq in (16, 8, 4, 2, 1)
                 gbuf = lay.gbuf_keys > 0
+                if kbits == 4:
+                    assert not lay.lutg and not lay.gather
+                    assert lay.bq in (32, 8) and lay.mode == 0
+                    assert lay.cap == F.i8_cap(k) >= k + A.A4_BM
+                    assert A.a4_smem_bytes(lay.bq, lay.cap, gbuf,
+                                           mb) <= A.SMEM_MAX
+                    assert A.query_tile(k, mb, kbits, 3) == 4
+                    continue
+                assert lay.bq in (16, 8, 4, 2, 1)
                 assert A.smem_bytes(lay.bq, lay.cap, mb, kbits, gbuf,
                                     lay.lutg) <= A.SMEM_MAX
                 assert lay.cap == A.adc_cap(k, lay.bq) >= k + A.tile_rows(
                     lay.bq) // 4
-                assert lay.lutg == (kbits == 8 and mb >= 1024)
+                assert lay.lutg == (mb >= 1024)
                 if k <= 1024 and mb <= 64:      # unchanged below the old caps
                     assert not gbuf and lay.bq in (16, 8, 4)
-                    assert lay.cap == F.split_cap(k)
+                    assert lay.cap == F._pow2(2 * k + 64)
                 assert A.query_tile(k, mb, kbits, 3) in (4, 2, 1)
     assert A.query_tile(100, 32, 8, 256) == 16          # pq32: 8 KB LUTs
-    assert A.query_tile(100, 32, 4, 256) == 16          # pq64x4: 1 KB LUTs
+    assert A.query_tile(100, 32, 4, 256) == 32          # pq64x4: 1 KB LUTs
+    assert A.query_tile(400, 32, 4, 256) == 8           # pq64x4 at depth 400
     assert A.query_tile(400, 32, 8, 256) == 8           # pq32 at depth 400
     assert A.query_tile(100, 256, 8, 256) == 2          # 64 KB LUTs
     assert A.query_tile(100, 512, 8, 256) == 1          # 128 KB LUTs
@@ -183,6 +195,115 @@ def test_launch_layout_fits_shared_memory():
     assert (A.tile_rows(2), A.tile_rows(1)) == (512, 1024)
     assert A.n_splits(256, 4_000_000, 16) == 33
     assert A.n_splits(1, 1, 4) == 1
+
+
+@pytest.mark.parametrize("q", [9, 17, 256])
+def test_adc4_layout_fits_at_every_m_and_k(q):
+    """B5's layout at M = 1 ... 1024 subspaces (ceil(M/2) packed bytes) and
+    k = 1 ... 3000: the one-hot MMA kernel's block within the 227 KB, each
+    list of at least k keys plus one 32-row tile of inserts, the lists in
+    global memory exactly where shared memory cannot hold them, resident
+    blocks within the SM's shared memory, one wave of blocks; and the one
+    corner it does not take, rows so wide that 8 queries' LUTs do not fit
+    (mb > 864 bytes), goes to the gather kernel with its LUTs read from
+    global memory, chosen here and nowhere else."""
+    n = 4_000_000
+    for m in list(range(1, 65)) + [127, 128, 255, 256, 511, 512, 1023, 1024]:
+        mb = -(-m // 2)
+        for k in (1, 2, 31, 32, 33, 100, 160, 161, 400, 416, 417, 1000,
+                  1024, 1025, 2000, 2048, 3000):
+            lay = A.adc_layout(k, mb, 4, q, n)
+            assert not lay.lutg and not lay.gather
+            gbuf = lay.gbuf_keys > 0
+            assert lay.cap == F.i8_cap(k) >= k + A.A4_BM
+            smem = A.a4_smem_bytes(lay.bq, lay.cap, gbuf, mb)
+            assert smem <= A.SMEM_MAX
+            assert gbuf == (A.a4_smem_bytes(lay.bq, lay.cap, False, mb)
+                            > A.SMEM_MAX)
+            qblocks = -(-q // lay.bq)
+            if gbuf:
+                assert lay.gbuf_keys == qblocks * lay.splits * lay.bq * lay.cap
+            per_sm = A.a4_blocks_per_sm(lay.bq, lay.cap, gbuf, mb)
+            assert per_sm == 1 or per_sm * (smem + 1024) <= A.SM_SMEM
+            assert lay.bq in (8, 16, 32) and lay.bq <= max(8, 2 * q)
+            assert lay.splits == max(1, min(per_sm * 132 // qblocks,
+                                            -(-n // max(2048, 2 * k))))
+    assert A.a4_query_layout(256, 100, 864) == (8, True)
+    assert A.a4_query_layout(256, 100, 865) is None
+    for mb in (865, 2000):
+        lay = A.adc_layout(100, mb, 4, 256, n)
+        assert lay.lutg and lay.gather and lay.mode == 3
+        assert lay.bq == 4 and lay.cap == A.adc_cap(100, 4)
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+def test_adc4_small_batches_take_the_gather_kernel(q):
+    """A batch of at most 4 queries would fill 1/8 to 1/2 of an MMA tile of
+    8: ``adc_layout`` gives it the gather kernel (``mode`` bit 1) at 1, 2
+    or 4 queries a block, its LUTs in shared memory while they fit, its
+    buffers in global memory past that, at every M and k."""
+    for mb in (1, 4, 32, 64, 512, 2000):
+        for k in (1, 100, 400, 1025, 3000):
+            lay = A.adc_layout(k, mb, 4, q, 4_000_000)
+            assert lay.gather and lay.mode in (2, 3)
+            gbuf = lay.gbuf_keys > 0
+            assert A.smem_bytes(lay.bq, lay.cap, mb, 4, gbuf,
+                                lay.lutg) <= A.SMEM_MAX
+            assert lay.cap == A.adc_cap(k, lay.bq) >= k + A.tile_rows(
+                lay.bq) // 4
+            if not lay.lutg:
+                assert lay.bq == (1 if q == 1 else 2 if q == 2 else 4)
+
+
+def _adc4_kernel_model(lut_even, lut_odd, packed, k, mask=None):
+    """B5's K order, in plain torch (int64): each query's LUT interleaved
+    per code byte (the 16 even codewords' entries, then the 16 odd ones:
+    one k32 step), each row's one-hot built from its packed bytes the way
+    a lane builds its A registers (byte c & 3 of register t4 set where
+    8 c ^ 32 t4 < 32, the even code from the low nibble, the odd from the
+    high one), and the two multiplied."""
+    Q, mb = lut_even.shape[0], packed.shape[1]
+    lut = torch.stack([lut_even.reshape(Q, mb, 16),
+                       lut_odd.reshape(Q, mb, 16)], dim=2).reshape(Q, 32 * mb)
+    b = packed.to(torch.int64)
+    regs = []
+    for code in (b & 0x0F, b >> 4):                       # K 0-15, 16-31
+        for t4 in range(4):
+            sh = (code << 3) ^ (32 * t4)                  # 8 c ^ 32 t4
+            reg = torch.where(sh < 32, 1 << sh.clamp(max=31), 0)
+            regs.append(torch.stack([(reg >> (8 * e)) & 0xFF
+                                     for e in range(4)], dim=-1))
+    onehot = torch.cat(regs, dim=-1).reshape(packed.shape[0], 32 * mb)
+    assert bool(torch.all(onehot.reshape(-1, 32).sum(1) == 2))
+    s = (lut.to(torch.int64) @ onehot.T).to(torch.int32)
+    return F._masked_topk(s, k, mask)
+
+
+@pytest.mark.parametrize("m,kind", [(1, "random"), (7, "random"),
+                                    (32, "random"), (64, "random"),
+                                    (7, "equal_rows"), (16, "small")])
+def test_adc4_kernel_model_bit_equal_to_plain_and_reference(m, kind):
+    """The one-hot MMA kernel's K order (``_adc4_kernel_model``) bit-equal
+    to ``fused_adc4_plain`` and to the reference's ``fused_adc4_pallas`` in
+    interpret mode on seeded numpy inputs: odd M (the zero-code pad
+    column), LUT rows all equal (every row ties: order by id alone) and
+    LUTs of small values (many exact ties), with a mask."""
+    Q, N, k = 9, 700, 40
+    lut, _, payload = _inputs(Q, N, m, 4, seed=11 * m + len(kind))
+    if kind == "equal_rows":
+        lut[:] = lut[:, :, :1]
+    elif kind == "small":
+        lut = np.random.default_rng(m).integers(-2, 3, lut.shape).astype(np.int8)
+    mask = (np.random.default_rng(m).random(N) < 0.8).astype(np.int8)
+    full = np.pad(lut, ((0, 0), (0, 2 * payload.shape[1] - m), (0, 0)))
+    le = torch.from_numpy(full[:, 0::2].reshape(Q, -1).copy())
+    lo = torch.from_numpy(full[:, 1::2].reshape(Q, -1).copy())
+    packed, tm = torch.from_numpy(payload), torch.from_numpy(mask)
+    got = _adc4_kernel_model(le, lo, packed, k, tm)
+    want = A.fused_adc4_plain(le, lo, packed, k=k, mask=tm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _equal((got[0].numpy(), got[1].numpy()),
+           _ref(lut, payload, k, 4, mask, interpret=True))
 
 
 def test_cpu_calls_launch_nothing_and_other_devices_raise():

@@ -186,7 +186,28 @@ def test_int8_layout_blocks_per_sm_match_the_card(dev, q, k, d):
     per_sm = F.i8_blocks_per_sm(lay.bq, lay.cap, gbuf, d)
     for l2 in (0, 1):
         got = _build.lib("fused_topk").rt_i8_blocks_per_sm(
-            l2, lay.bq, lay.cap, int(gbuf), d)
+            l2, lay.bq, lay.cap, int(gbuf), d, 0)
+        cap = 2 if lay.bq == 32 else 4
+        assert got == per_sm if per_sm < cap else got >= per_sm
+
+
+@pytest.mark.parametrize("q,k,w", [(1, 100, 128), (8, 10, 64),
+                                   (16, 100, 128), (256, 100, 128),
+                                   (256, 400, 128), (256, 100, 129),
+                                   (37, 3000, 32)])
+def test_int4_layout_blocks_per_sm_match_the_card(dev, q, k, w):
+    """B3's layout (the int8 scan's int4 form, rows of w packed bytes):
+    its resident blocks an SM are what the occupancy API reports where
+    shared memory limits them, and never more where the launch bounds
+    do."""
+    from repro_torch.kernels import _build
+
+    lay = F.layout(F.KIND_I4, q, 4_000_000, k, w)
+    gbuf = lay.gbuf_keys > 0
+    per_sm = F.i8_blocks_per_sm(lay.bq, lay.cap, gbuf, w, i4=True)
+    for l2 in (0, 1):
+        got = _build.lib("fused_topk").rt_i8_blocks_per_sm(
+            l2, lay.bq, lay.cap, int(gbuf), w, 1)
         cap = 2 if lay.bq == 32 else 4
         assert got == per_sm if per_sm < cap else got >= per_sm
 
@@ -241,6 +262,65 @@ def test_fused_topk_int8_edges(dev, metric, Q, N, d, offset, codes):
         assert bool(torch.all(got[1] == -1))
 
 
+#: B3 edge cases (Q, N, packed row bytes w, byte offset of the corpus
+#: view, codes), as broad as B2 int8's: Q at 1 and at each query tile (8,
+#: 16, 32) and one past it, and 256; N at 1, at a 32-row tile and one either
+#: side, and just past a split (2048 rows); packed widths that are odd and
+#: not a multiple of the 32-byte K-step, and past one 128-byte chunk;
+#: unaligned views x[1:] (byte loads) and 4 bytes in (4-byte copies);
+#: extreme nibbles (-8 against 7, and against -8), duplicated rows (tie
+#: order by id), an all-zero mask, and a sparse mask with fewer allowed
+#: rows than k (ROADMAP C3's tail: (float32 min, -1))
+INT4_EDGES = (
+    [(q, 5000, 32, 0, "random") for q in (1, 8, 9, 16, 17, 32, 33, 256)]
+    + [(9, n, 16, 0, "random") for n in (1, 31, 32, 33, 2049, 4097)]
+    + [(7, 3001, w, 0, "random") for w in (1, 3, 13, 17, 33, 100, 129, 300)]
+    + [(7, 3001, w, off, "random") for w, off in ((32, 1), (50, 1), (32, 4))]
+    + [(33, 3001, 127, 0, c) for c in ("min_max", "min_min", "duplicated",
+                                       "zero_mask", "sparse_mask")])
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("Q,N,w,offset,codes", INT4_EDGES)
+def test_fused_topk_int4_edges(dev, metric, Q, N, w, offset, codes):
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(*shape):
+        return torch.randint(-8, 8, shape, generator=g,
+                             device=dev).to(torch.int8)
+
+    q, mask = rand(Q, 2 * w), None
+    flat = PK.pack_int4(rand(N + 1, 2 * w)).reshape(-1)
+    if codes == "min_max":
+        q.fill_(-8)
+        flat.fill_(0xFF)                       # nibbles 15: the value 7
+    elif codes == "min_min":
+        q.fill_(-8)
+        flat.fill_(0x00)                       # nibbles 0: the value -8
+    elif codes == "duplicated":
+        flat[:N * w] = flat[:50 * w].repeat(-(-N // 50))[:N * w]
+    elif codes == "zero_mask":
+        mask = torch.zeros(N, dtype=torch.int8, device=dev)
+    elif codes == "sparse_mask":
+        mask = torch.zeros(N, dtype=torch.int8, device=dev)
+        mask[[3, 40, 1500, N - 1]] = 1
+    # offset > 0: the rows of an [N, w] view that many bytes into a buffer
+    x = flat[offset:offset + N * w].view(N, w)
+    if offset:
+        assert x.data_ptr() % 16 != 0
+    k = min(100, N)
+    got = K.fused_topk(q, x, k, metric, packed=True, mask=mask)
+    want = F.fused_topk4_plain(*K.split_nibble_queries(q), x, k=k,
+                               metric=metric, mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if codes == "zero_mask":
+        assert bool(torch.all(got[1] == -1))
+    if codes == "sparse_mask":
+        assert bool(torch.all(got[1][:, 4:] == -1))
+        assert bool(torch.all(got[0][:, 4:] == R.NEG))
+
+
 @pytest.mark.parametrize("bits,m", [(8, 32), (8, 7), (4, 64), (4, 7)])
 @pytest.mark.parametrize("k", [1, 100, 400])
 def test_fused_adc_matches_plain(dev, bits, m, k):
@@ -290,6 +370,88 @@ def test_fused_adc_wide_lut_and_any_k(dev, bits, m, k):
                                       lut[:, 1::2].reshape(Q, -1).contiguous(),
                                       packed, k=k, mask=mk)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+#: B5 edge cases (Q, N, M, k, LUT / codes, code view offset): Q at 1 and at
+#: each query tile (8, 16, 32) and one past it, and 256; N at 1, at a
+#: 32-row tile and one either side, and past a split; M odd (a zero-code
+#: pad column), M at one and two code bytes, past one 64-byte stage chunk,
+#: and M = 512 / 1024 (LUTs of 8 and 16 KB a query); k = 1, 100, 400, past
+#: 1024 and 3000 (lists in global memory); LUT rows all equal (every row
+#: ties: order by id alone), small LUT values (many exact ties), the
+#: extremes (-128 and 127), an unaligned code view (byte copies), an
+#: all-zero and a sparse mask; and M = 1800, past the one-hot kernel's
+#: widest row (its LUTs read from global memory by the gather kernel)
+ADC4_EDGES = (
+    [(q, 3001, 64, 100, "random", 0) for q in (1, 8, 9, 16, 17, 32, 33, 256)]
+    + [(9, n, 16, 100, "random", 0) for n in (1, 31, 32, 33, 4097)]
+    + [(9, 3001, m, 100, "random", 0)
+       for m in (1, 2, 3, 4, 63, 129, 130, 512, 1024, 1800)]
+    + [(37, 20001, 64, k, "random", 0) for k in (1, 400, 1025, 3000)]
+    + [(37, 3001, 7, 100, c, 0) for c in ("equal_rows", "small", "extreme",
+                                          "zero_mask", "sparse_mask")]
+    + [(9, 3001, m, 100, "random", 1) for m in (32, 33)])
+
+
+@pytest.mark.parametrize("Q,N,m,k,kind,offset", ADC4_EDGES)
+def test_fused_adc4_edges(dev, Q, N, m, k, kind, offset):
+    g = torch.Generator(device=dev).manual_seed(10)
+    lut = torch.randint(-128, 128, (Q, m, 16), generator=g,
+                        device=dev).to(torch.int8)
+    codes = torch.randint(0, 16, (N, m), generator=g, device=dev).to(torch.uint8)
+    mask = None
+    if kind == "equal_rows":
+        lut[:] = lut[:, :, :1]
+    elif kind == "small":
+        lut = torch.randint(-2, 3, lut.shape, generator=g,
+                            device=dev).to(torch.int8)
+    elif kind == "extreme":
+        lut[0].fill_(-128)
+        lut[1:].fill_(127)
+    elif kind == "zero_mask":
+        mask = torch.zeros(N, dtype=torch.int8, device=dev)
+    elif kind == "sparse_mask":
+        mask = torch.zeros(N, dtype=torch.int8, device=dev)
+        mask[[3, 40, 1500, N - 1]] = 1
+    packed = PK.pack_uint4(codes)
+    if offset:
+        # the rows of an [N, w] view `offset` bytes into a buffer
+        flat = torch.empty(packed.numel() + offset, dtype=torch.uint8,
+                           device=dev)
+        flat[offset:] = packed.reshape(-1)
+        packed = flat[offset:].view(packed.shape)
+        assert packed.data_ptr() % 16 != 0
+    k = min(k, N)
+    got = K.fused_adc_topk(lut, packed, k, packed=True, mask=mask)
+    full = torch.nn.functional.pad(lut, (0, 0, 0, m % 2))
+    want = A.fused_adc4_plain(full[:, 0::2].reshape(Q, -1).contiguous(),
+                              full[:, 1::2].reshape(Q, -1).contiguous(),
+                              packed, k=k, mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    if kind == "zero_mask":
+        assert bool(torch.all(got[1] == -1))
+    if kind == "sparse_mask":
+        assert bool(torch.all(got[1][:, 4:] == -1))
+
+
+@pytest.mark.parametrize("q,k,mb", [(8, 100, 32), (9, 10, 16), (17, 100, 32),
+                                    (256, 100, 32), (256, 400, 32),
+                                    (256, 100, 33), (37, 3000, 64),
+                                    (9, 100, 512)])
+def test_adc4_layout_blocks_per_sm_match_the_card(dev, q, k, mb):
+    """B5's layout: its resident blocks an SM (plain Python, which sizes
+    the split count) are what the occupancy API reports where shared
+    memory limits them, and never more where the launch bounds do."""
+    from repro_torch.kernels import _build
+
+    lay = A.adc_layout(k, mb, 4, q, 4_000_000)
+    gbuf = lay.gbuf_keys > 0
+    per_sm = A.a4_blocks_per_sm(lay.bq, lay.cap, gbuf, mb)
+    got = _build.lib("adc").rt_adc4_blocks_per_sm(lay.bq, lay.cap, int(gbuf),
+                                                 mb)
+    cap = 2 if lay.bq == 32 else 4
+    assert got == per_sm if per_sm < cap else got >= per_sm
 
 
 def test_rerank_search_at_wide_depth_matches_cpu(dev):

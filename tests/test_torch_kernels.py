@@ -160,21 +160,24 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_launch_geometry():
-    # B3: candidate buffers of next_pow2(2k + 64) keys bound the query
-    # block; each holds k kept keys plus one round of ROW_LANES inserts
-    assert F.split_cap(1) == 128 and F.split_cap(100) == 512
-    assert F.split_cap(400) == 1024 and F.split_cap(1024) == 4096
-    assert all(F.split_cap(k) >= k + F.ROW_LANES for k in range(1, 5001))
-    assert F.query_tile(100) == F.query_tile(224) == F.BQ == 16
-    assert F.query_tile(225) == F.query_tile(480) == 8
-    assert F.query_tile(481) == F.query_tile(1024) == 4
-    assert F.query_tile(100, q=3) == 4                # tiny batches
-    # one request over a big corpus spreads over many blocks; a big batch
-    # needs fewer splits; a tiny corpus is never split below 2048 rows/split
-    assert F.n_splits(1, 4_000_000, 100) == 528
-    assert F.n_splits(256, 4_000_000, 100) == 33
-    assert F.n_splits(256, 4_000_000, 400) == 17
-    assert F.n_splits(1000, 300, 100) == 1
+    # B3, the int8 scan's int4 form: a stage holds 128 packed bytes a row
+    # (256 dims), the queries stay resident as two planes of whole 128-byte
+    # chunks; at k=100, 128-byte rows four blocks an SM of 8 or 16
+    # queries, two of 32; one request over a big corpus spreads over many
+    # blocks; a big batch needs fewer splits; a tiny corpus is never split
+    # below 2048 rows a split
+    assert [F.i8_qrow(w, i4=True) for w in (1, 128, 129, 256)] == [
+        144, 144, 272, 272]
+    for bq, per_sm in ((8, 4), (16, 4), (32, 2)):
+        smem = F.i8_smem_bytes(bq, 256, False, 128, i4=True)
+        assert F.i8_blocks_per_sm(bq, 256, False, 128, i4=True) == per_sm
+        assert per_sm * (smem + 1024) <= F.SM_SMEM
+    assert F.layout(F.KIND_I4, 1, 4_000_000, 100, 128)[:3] == (8, 256, 528)
+    assert F.layout(F.KIND_I4, 256, 4_000_000, 100, 128)[:3] == (32, 256, 33)
+    # lists of 512 keys leave a 32-query block alone on its SM: 8 queries
+    # a block, four an SM
+    assert F.layout(F.KIND_I4, 256, 4_000_000, 400, 128)[:3] == (8, 512, 16)
+    assert F.layout(F.KIND_I4, 1000, 300, 100, 128).splits == 1
     # B2 int8: lists of next_pow2(k + 96) keys (k kept, a 32-row tile and
     # at least 64 more); the query tile follows the batch, never k; the
     # queries stay in shared memory, whole KC-byte chunks of d
@@ -204,49 +207,111 @@ def test_launch_geometry():
         F.i8_query_layout(256, 100, 30000)
 
 
+@pytest.mark.parametrize("width", [1, 64, 128, 129, 300, 1000])
+def test_int4_layout_fits_at_every_k(width):
+    """B3's layout from k = 1 to 3000 at each batch tile: the block's
+    shared memory within the 227 KB, each list of at least k keys plus
+    one 32-row tile of inserts, the lists in a global scratch exactly
+    where shared memory cannot hold them, and the resident blocks an SM
+    within the SM's shared memory."""
+    n = 4_000_000
+    for q in (1, 9, 17, 256):
+        for k in range(1, 3001):
+            lay = F.layout(F.KIND_I4, q, n, k, width)
+            assert lay.cap >= k + F.I8_BM and lay.cap == F.i8_cap(k)
+            gbuf = lay.gbuf_keys > 0
+            smem = F.i8_smem_bytes(lay.bq, lay.cap, gbuf, width, i4=True)
+            assert smem <= F.SMEM_MAX
+            assert gbuf == (F.i8_smem_bytes(lay.bq, lay.cap, False, width,
+                                            i4=True) > F.SMEM_MAX)
+            if gbuf:
+                assert lay.gbuf_keys == (-(-q // lay.bq) * lay.splits
+                                         * lay.bq * lay.cap)
+            per_sm = F.i8_blocks_per_sm(lay.bq, lay.cap, gbuf, width, i4=True)
+            assert per_sm == 1 or per_sm * (smem + 1024) <= F.SM_SMEM
+            assert lay.bq in (8, 16, 32) and lay.bq <= max(8, q * 2)
+
+
+def _i4_kernel_model(qe, qo, packed, k, metric, mask):
+    """B3's arithmetic, in plain torch (int64): each packed byte split into
+    its low nibble (the even dim) and its high nibble left in place (16
+    times the odd dim's), the two sums against the even and odd query
+    halves, the odd one shifted down by 4, and the nibbles' offset of 8
+    taken off once per query; l2's |x|^2 as sum n (n - 16) plus 64 per
+    nibble.  int32 wraps as the kernel's arithmetic does."""
+    x = torch.from_numpy(packed).to(torch.int64)
+    qe = torch.from_numpy(qe).to(torch.int64)
+    qo = torch.from_numpy(qo).to(torch.int64)
+    lo, hi16 = x & 0x0F, x & 0xF0
+    acc_lo, acc_hi = qe @ lo.T, qo @ hi16.T
+    assert bool(torch.all(acc_hi % 16 == 0))
+    dot = acc_lo + (acc_hi >> 4) - 8 * (qe.sum(1) + qo.sum(1))[:, None]
+    if metric == "ip":
+        s = dot
+    else:
+        hi = hi16 >> 4
+        xsq = (lo * (lo - 16)).sum(1) + (hi * (hi - 16)).sum(1) + 128 * x.shape[1]
+        qn = (qe * qe).sum(1) + (qo * qo).sum(1)
+        s = 2 * dot - xsq[None, :] - qn[:, None]
+    s = ((s + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+    m = None if mask is None else torch.from_numpy(mask)
+    s, i = F._masked_topk(s, k, m)
+    return s.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("d", [26, 64, 80])
+def test_int4_kernel_model_matches_reference_kernel(metric, d):
+    """The packed-word order of B3's kernel (``_i4_kernel_model``) against
+    the reference's ``fused_topk4_pallas`` in interpret mode: bit-equal ids
+    and scores, with a mask, at packed widths not a multiple of the
+    kernel's 32-byte K-step, and on extreme nibbles (-8 against 7)."""
+    Q, N, k = 37, 600, 10
+    q, x = _inputs("int4", Q, N, d, seed=d + (metric == "l2"))
+    q[0] = -8
+    x[0] = 0xFF                                   # nibbles 15: the value 7
+    mask = (np.random.default_rng(d).random(N) < 0.7).astype(np.int8)
+    got = _i4_kernel_model(q[:, 0::2].copy(), q[:, 1::2].copy(), x, k,
+                           metric, mask)
+    want = _ref(q, x, k, metric, "int4", mask, interpret=True)
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("k", [1, 100, 1024, 1025, 5000])
 @pytest.mark.parametrize("q", [1, 37, 256])
 def test_fused_layout_at_any_k(k, q):
-    """The whole launch layout (``layout``), as plain Python: the int4 scan
-    keeps its shared-memory buffers (and layout) up to k = 2016 and moves
-    them to a global scratch beyond; the int8 scan's query tile follows the
-    batch, its lists stay in shared memory up to k = 416 at least and move
-    to a global scratch where shared memory cannot hold them; the fp32
-    scan's
-    query tile follows the batch, never k, and its lists move to global
-    memory past k = 1952; every buffer holds k keys plus one round of
-    inserts; the merge stays in shared memory."""
+    """The whole launch layout (``layout``), as plain Python: the int8 and
+    int4 scans' query tile follows the batch, their lists stay in shared
+    memory up to k = 416 at least and move to a global scratch where
+    shared memory cannot hold them (int4 rows are packed: half the bytes
+    of the same d); the fp32 scan's query tile follows the batch, never
+    k, and its lists move to global memory past k = 1952; every buffer
+    holds k keys plus one round of inserts; the merge stays in shared
+    memory."""
     n = 4_000_000
-    lay = F.layout(F.KIND_I4, q, n, k)
-    assert (lay.bq, lay.cap) == (F.query_tile(k, q), F.split_cap(k))
-    assert lay.splits == F.n_splits(q, n, k)
-    shared = F.split_smem_bytes(lay.bq, lay.cap, False) <= F.SMEM_MAX
-    assert shared == (k <= 2016) == (lay.gbuf_keys == 0)
-    assert F.split_smem_bytes(lay.bq, lay.cap, not shared) <= F.SMEM_MAX
-    if not shared:
-        assert lay.bq == 4 and lay.gbuf_keys == (
-            -(-q // 4) * lay.splits * 4 * lay.cap)
-    assert lay.mbuf_keys == 0
-    for d in (100, 256, 257):
-        lay = F.layout(F.KIND_I8, q, n, k, d)
-        bq, gbuf = F.i8_query_layout(q, k, d)
+    for kind, d in ((F.KIND_I8, 100), (F.KIND_I8, 256), (F.KIND_I8, 257),
+                    (F.KIND_I4, 50), (F.KIND_I4, 128), (F.KIND_I4, 129)):
+        i4 = kind == F.KIND_I4
+        lay = F.layout(kind, q, n, k, d)
+        bq, gbuf = F.i8_query_layout(q, k, d, i4)
         assert (lay.bq, lay.cap) == (bq, F.i8_cap(k)) and lay.cap >= k + 96
         # 32 queries a block, or 8 where a 32-query block would be alone
         # on its SM with its lists in shared memory
-        alone = (F.i8_smem_bytes(32, lay.cap, False, d) <= F.SMEM_MAX
-                 and F.i8_blocks_per_sm(32, lay.cap, False, d) == 1)
+        alone = (F.i8_smem_bytes(32, lay.cap, False, d, i4) <= F.SMEM_MAX
+                 and F.i8_blocks_per_sm(32, lay.cap, False, d, i4) == 1)
         assert lay.bq == (8 if q == 1 or alone else 32)
-        assert gbuf == (F.i8_smem_bytes(bq, lay.cap, False, d) > F.SMEM_MAX)
+        assert gbuf == (F.i8_smem_bytes(bq, lay.cap, False, d, i4)
+                        > F.SMEM_MAX)
         assert gbuf == (lay.gbuf_keys > 0) and gbuf == (k > 1000 and (
             q > 1 or k > 2000))
-        assert F.i8_smem_bytes(bq, lay.cap, gbuf, d) <= F.SMEM_MAX
+        assert F.i8_smem_bytes(bq, lay.cap, gbuf, d, i4) <= F.SMEM_MAX
         qblocks = -(-q // bq)
         if gbuf:
             assert lay.gbuf_keys == qblocks * lay.splits * bq * lay.cap
-        per_sm = F.i8_blocks_per_sm(bq, lay.cap, gbuf, d)
+        per_sm = F.i8_blocks_per_sm(bq, lay.cap, gbuf, d, i4)
         assert 1 <= per_sm <= (2 if bq == 32 else 4)
-        assert per_sm * (F.i8_smem_bytes(bq, lay.cap, gbuf, d) + 1024) <= (
-            F.SM_SMEM) or per_sm == 1
+        assert per_sm * (F.i8_smem_bytes(bq, lay.cap, gbuf, d, i4)
+                         + 1024) <= F.SM_SMEM or per_sm == 1
         assert lay.splits == max(1, min(per_sm * F._SMS // qblocks,
                                         -(-n // max(2048, 2 * k))))
         assert lay.mbuf_keys == 0
