@@ -23,7 +23,7 @@ Phases (each prints its lines; any failure exits non-zero):
               version's and the yardstick's scores (B2 int8 also at 1 and 32
               queries, k = 10 and 400, and l2 at the SIFT-like 1,000,000 x
               128, held bit-equal there; B3 at 1 and 32 queries, at k=400
-              and l2 at 1,000,000 x 128, and B5 at k=400, each held
+              and l2 at 1,000,000 x 128, and B4 and B5 at k=400, each held
               bit-equal there); the score-matrix
               kernels B6-B8 bit-equal to their plain versions at ragged Q, N
               and d and on extreme codes, and timed at the retrieval shapes
@@ -392,9 +392,11 @@ def check_adc() -> None:
 
 def check_any_k(err: dict) -> None:
     """ROADMAP C5 on the card: B2 (int8, fp32) and B3 at k = 1024, 1025 and
-    3000 (buffers in global memory past k = 2016), B4 / B5 at M = 256 / 512
-    (2 / 1 queries a block) and M = 1024 (B4's LUTs from global memory) at
-    k = 100 and 1025, each with and without a mask; the fp32 kernel's
+    3000 (buffers in global memory past k = 2016), B4 / B5 at M = 256, 512
+    and 1024 at Q = 1, 3 (the gather kernel) and 9 (B4's word kernel, B5's
+    MMA kernel) and k = 100 and 1025, and B4 batches of at most 4 queries
+    at the gather kernel's other instances (lists in global memory at 1, 2
+    and 4 queries a block), each with and without a mask; the fp32 kernel's
     edges (Q at each query tile and one past it, N past a tile and a
     split, d not a multiple of 4, an unaligned view); and a CUDA
     ``flat,lpq4+r32`` search at k=300 (scan depth 1200) against the same
@@ -437,20 +439,28 @@ def check_any_k(err: dict) -> None:
                 hold(KERNEL_OF[kind], got, want, q, x, k, metric, mask,
                      f"{kind} Q={Q} N={N} k={k} {metric} mask={masked}", err)
                 cases += 1
-    for bits, m in ((8, 256), (8, 512), (8, 1024), (4, 256), (4, 1024)):
+    # (bits, M, Q, k): as tests/test_torch_gpu.py ADC_WIDE, every B4
+    # gather-kernel instance among them
+    wide = ([(bits, m, qn, k)
+             for bits, m in ((8, 256), (8, 512), (8, 1024), (4, 256),
+                             (4, 1024))
+             for qn in (1, 3, 9) for k in (100, 1025)]
+            + [(8, 512, 1, 3000), (8, 256, 2, 3000), (8, 256, 3, 3000),
+               (8, 128, 3, 100), (8, 128, 3, 1025), (8, 128, 2, 100)])
+    for bits, m, qn, k in wide:
         kc = 2 ** bits
-        lut = torch.randint(-128, 128, (9, m, kc), generator=g,
+        lut = torch.randint(-128, 128, (qn, m, kc), generator=g,
                             device=dev).to(torch.int8)
         codes = torch.randint(0, kc, (20001, m), generator=g,
                               device=dev).to(torch.uint8)
         payload = PK.pack_uint4(codes) if bits == 4 else codes
         mask = (torch.rand(20001, generator=g, device=dev) < 0.5).to(torch.int8)
-        for k in (100, 1025):
-            for mk in (None, mask):
-                got = K.fused_adc_topk(lut, payload, k, packed=bits == 4, mask=mk)
-                want = adc_plain(lut, payload, k, bits == 4, mk)
-                hold_adc(got, want, f"M={m} K={kc} k={k} mask={mk is not None}")
-                cases += 1
+        for mk in (None, mask):
+            got = K.fused_adc_topk(lut, payload, k, packed=bits == 4, mask=mk)
+            want = adc_plain(lut, payload, k, bits == 4, mk)
+            hold_adc(got, want,
+                     f"M={m} K={kc} Q={qn} k={k} mask={mk is not None}")
+            cases += 1
     edges = ([(q, 5000, 64, 0) for q in (1, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65)]
              + [(9, n, 32, 0) for n in (255, 256, 257, 2048, 2049)]
              + [(7, 3001, dd, 0) for dd in (1, 3, 100, 255)]
@@ -703,6 +713,7 @@ def time_adc() -> dict:
     import torch
 
     from repro_torch.core import pack as PK
+    from repro_torch.kernels import adc as A
     from repro_torch.kernels import ops as K
 
     dev = torch.device("cuda")
@@ -753,9 +764,11 @@ def time_adc() -> dict:
                              f" + {Q * k * 8} out) B / 3.35e12 B/s = "
                              f"{t_bytes:.4f} ms, {Q}*{N}*{m} int32 adds / "
                              f"67e12 /s = {t_ops:.4f} ms)"))
-        # pass 1 of B4 is the gather kernel, of B5 (from 5 queries on) the
-        # one-hot MMA kernel
-        pass1 = "adc4_mma_kernel" if packed else "adc_split_kernel"
+        # pass 1 as the layout runs it: from 5 queries on B4's word kernel
+        # and B5's one-hot MMA kernel
+        lay = A.adc_layout(k, payload.shape[1], bits, Q, N)
+        pass1 = ("adc_split_kernel" if lay.gather else "adc_word_kernel"
+                 if lay.word else "adc4_mma_kernel")
         split = device_ms(kern, (pass1, "merge_topk_kernel"))
         log(f"[timing] {name} {shape}: kernel {ms:.4f} ms (median of {REPS}), "
             f"plain {pm:.4f} ms, library {lm:.4f} ms, bound "
@@ -772,15 +785,14 @@ def time_adc() -> dict:
             o1 = qn * N * m / PEAK_INT32 * 1e3
             log(f"[timing] {name} Q={qn} N={N} M={m} k={k}: kernel {ms1:.4f} "
                 f"ms, bound {max(b1, o1):.4f} ms | {smi()}")
-        if packed:
-            # B5 at the ,r32 arm's scan depth, held bit-equal there
-            ms4 = time_ms(lambda: K.fused_adc_topk(lut, payload, 400,
-                                                   packed=True), REPS)
-            hold_adc(K.fused_adc_topk(lut, payload, 400, packed=True),
-                     adc_plain(lut, payload, 400, True),
-                     f"{name} Q={Q} N={N} M={m} K={kc} k=400")
-            log(f"[timing] {name} Q={Q} N={N} M={m} k=400: kernel {ms4:.4f} "
-                f"ms; bit-equal to the plain version | {smi()}")
+        # at the ,r32 arms' scan depth, held bit-equal there
+        ms4 = time_ms(lambda: K.fused_adc_topk(lut, payload, 400,
+                                               packed=packed), REPS)
+        hold_adc(K.fused_adc_topk(lut, payload, 400, packed=packed),
+                 adc_plain(lut, payload, 400, packed),
+                 f"{name} Q={Q} N={N} M={m} K={kc} k=400")
+        log(f"[timing] {name} Q={Q} N={N} M={m} k=400: kernel {ms4:.4f} "
+            f"ms; bit-equal to the plain version | {smi()}")
         del lut, codes, payload
     return out
 

@@ -8,9 +8,11 @@ codes for B2 int8 and B3), 256 queries, ip: B2 fp32 at k=100, k=400 and
 one query; B2 int8 at k=100 and k=400, at 1 and 32 queries (k=100), and
 l2 at k=100, also at the SIFT-like shape (1,000,000 x 128); B3 at k=100
 and k=400, at one query (k=100), and l2 at k=400.  B4 on pq32 codes (32
-bytes a row) at k=100 and B5 on pq64x4 codes (32 packed bytes a row) at
-k=100, k=400 and one query (k=100), 4,000,000 rows, random int8 LUTs, 256
-queries.  Each time is the median of 10 warm calls by CUDA events around
+bytes a row) and B5 on pq64x4 codes (32 packed bytes a row), 4,000,000
+rows, random int8 LUTs, 256 queries, each at k=100, k=400, and one and 32
+queries (k=100); B4 also at the SIFT-like pq16 shape (1,000,000 rows of
+16 codes, 256 queries, k=100) with LUTs in [-128, 0] as the negated-L2
+tables are.  Each time is the median of 10 warm calls by CUDA events around
 the public wrapper.  To compare two checkouts, unpack both and run them
 in turns on one card: parent, change, change, parent.
 """
@@ -92,14 +94,20 @@ def main():
         codes = torch.randint(0, kc, (N, m), generator=g,
                               device="cuda").to(torch.uint8)
         payload = PK.pack_uint4(codes) if bits == 4 else codes
-        r[f"{name} k=100"] = median_ms(
-            lambda: K.fused_adc_topk(lut, payload, 100, packed=bits == 4))
-        if bits == 4:
-            r[f"{name} k=400"] = median_ms(
-                lambda: K.fused_adc_topk(lut, payload, 400, packed=True))
-            lut1 = lut[:1].contiguous()
-            r[f"{name} Q=1 k=100"] = median_ms(
-                lambda: K.fused_adc_topk(lut1, payload, 100, packed=True))
+        for k in (100, 400):
+            r[f"{name} k={k}"] = median_ms(
+                lambda: K.fused_adc_topk(lut, payload, k, packed=bits == 4))
+        for qn in (1, 32):
+            lq = lut[:qn].contiguous()
+            r[f"{name} Q={qn} k=100"] = median_ms(
+                lambda: K.fused_adc_topk(lq, payload, 100, packed=bits == 4))
+        if bits == 8:
+            lut16 = torch.randint(-128, 1, (Q, 16, kc), generator=g,
+                                  device="cuda").to(torch.int8)
+            c16 = codes[:1_000_000, :16].contiguous()
+            r["B4 pq16 l2-like 1M k=100"] = median_ms(
+                lambda: K.fused_adc_topk(lut16, c16, 100))
+            del lut16, c16
         del lut, codes, payload
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,6 @@
 """Time probe variants of the fused-scan sources (B2 fp32, B2 int8 with
-``--int8``, B3 with ``--int4``, B5 with ``--adc4``) on one GPU: the kernels
+``--int8``, B3 with ``--int4``, B4 with ``--adc``, B5 with ``--adc4``) on
+one GPU: the kernels
 of a ``fused_topk.cu`` (``adc.cu``) rebuilt with a few lines changed,
 launched directly through ``rt_fused_topk`` (``rt_fused_adc``; no Python
 wrapper inside the clock), beside the library yardstick split into its
@@ -8,6 +9,7 @@ parts.
     python scripts/scan_probe.py <fused_topk.cu> <variant> [<variant> ...]
     python scripts/scan_probe.py --int8 <fused_topk.cu> <variant> [...]
     python scripts/scan_probe.py --int4 <fused_topk.cu> <variant> [...]
+    python scripts/scan_probe.py --adc [--random-only] <adc.cu> <variant> [...]
     python scripts/scan_probe.py --adc4 <adc.cu> <variant> [...]
 
 The source's directory must hold its ``topk_common.cuh``.  Variants of
@@ -92,6 +94,44 @@ of 64 subspaces x 16 codewords, Q=256 at k = 100 and 400, Q=1 at k=100;
 ``as_is`` is checked bit for bit against the library's scores.  Then the
 yardstick's parts: ``_int_mm`` of the [Q, 1024] LUT against the rows'
 [N, 1024] int8 one-hot alone, ``torch.topk`` alone, and both.
+
+With ``--adc``: variants of B4 (256-codeword ADC) in an ``adc.cu``, as
+``adc_split_kernel`` runs it (the gather design, e.g. ``git show
+134a9c5:src/repro_torch/csrc/adc.cu``) or as ``adc_word_kernel`` does
+where the source has it:
+  as_is        the source unchanged
+  dots_only    the sums kept, the top-k upkeep predicated off on the data
+  upkeep_only  the sums removed; each int score a hash of (query, row)
+  pipe_only    the sums and the upkeep removed: the loads and barriers
+  dots_g16     (the word kernel) the sums of G16, a lane's 16 queries in
+               one 16-byte load and 8 split / add pairs a step (the
+               kernel keeps G4 only; ``ADC8_G16`` puts G16 back), at 16
+               queries and 8 warps a block, lists in global memory, the
+               upkeep predicated off: against ``dots_only`` (G4)
+  dots_alone, dots_alone_g16
+               (the word kernel) the sums alone, G4 at its layout or G16
+               at dots_g16's: the first 8 stages copied, then read again
+               with no wait, the upkeep predicated off
+  dots_alone_nolds
+               the same without the LUT loads (each word made from its
+               code): what the loads cost over the integer work
+  dots_alone_4x4g, dots_alone_8x2g
+               dots_alone at 4 queries and 4 warps a group or 8 and 2,
+               lists in global memory: more resident warps an SM
+  pipe_16x2    (the word kernel) the copies and waits alone at 16
+               queries and 2 warps a query group
+  pipe_nocopy  (the word kernel) the ring's waits and arrivals with no copy
+  rows128      (the word kernel) 128-row tiles, four rows a lane, 4 stages
+  tile16x2, tile4x4, tile8x4, tile8x4g, tile8x2g
+               (the word kernel) the source unchanged at <queries a
+               block>x<warps a query group>, "g": lists in global memory
+pq32 codes of 4,000,000 rows (32 bytes a row), random int8 LUTs of 32
+subspaces x 256 codewords, Q=256 at k = 100 and 400, Q=1 at k=100, ip;
+``as_is`` is checked bit for bit against the plain version.  Then the
+SIFT-like ``pq16+lpq`` request (1,000,000 x 128, l2, built by
+``make_index``): its p50 through the Searcher at 256-query requests, its
+LUT build, B4 through the public op, and each variant launched alone on
+that request's LUT and codes (not with ``--random-only``).
 """
 
 import ctypes
@@ -100,6 +140,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -260,12 +301,194 @@ ADC_NEW = {
     "gbuf": [],
 }
 
+#: B4 as adc_word_kernel runs it (markers: the loop of a chunk's sums, the
+#: score reset of a tile, the vote)
+ADC8_NO_DOTS = [("      load(0, xa);\n", ""),
+                ("for (int J = 0; J < 8; J += 2) {",
+                 "for (int J = 0; J < 0; J += 2) {")]
+ADC8_NO_VOTE = ("if (!__any_sync(FULL, any))  // no row of the tile passes",
+                "if (!__any_sync(FULL, any && sc[0][0] == 1234567))")
+#: the dots alone: the first W_STAGES steps copied, then read again
+ADC8_ALONE = [ADC8_NO_VOTE,
+              ("for (long long i = 0; i < my_tiles; ++i)",
+               "for (long long i = 0; i < (my_tiles < W_STAGES ? my_tiles "
+               ": W_STAGES); ++i)"),
+              ("      mbar_wait(&full[slot], (unsigned)((st / W_STAGES) & 1));",
+               "      if (st < W_STAGES) mbar_wait(&full[slot], 0u);")]
+#: G16, which the kernel dropped: a lane's 16 queries (four words, W_V = 4)
+#: in one 16-byte load a step and 8 split / add pairs; the word kernel's
+#: code as it was timed, with a query group of 16 queries
+ADC8_G16 = [
+    ("constexpr int W_CHUNK_WORDS = 256 * 32;",
+     "constexpr int W_V = 4;\nconstexpr int W_CHUNK_WORDS = 256 * 32 * W_V;"),
+    ("(size_t)warps * 4 * cap * 8);", "(size_t)warps * 4 * W_V * cap * 8);"),
+    ("template <bool GBUF, bool LUTG>\n__global__",
+     "template <int V, bool GBUF, bool LUTG>\n__global__"),
+    ("  constexpr int G = 4;\n", "  constexpr int G = 4 * V;\n"),
+    ("lw + (LUTG ? 0 : (size_t)ng * nch * W_CHUNK_WORDS));",
+     "lw + (LUTG ? 0 : (size_t)ng * nch * 256 * 32 * V));"),
+    ("""    for (int e = warp; e < ng * nch * 64; e += nwarps) {
+      const int c4 = e & 63, r = e >> 6;
+      const int ch = r % nch, g = r / nch;
+      const int sub = ch * W_CW + lane;
+      const int q0 = q_block + g * G;""",
+     """    for (int e = warp; e < ng * nch * V * 64; e += nwarps) {
+      const int c4 = e & 63;
+      int r = e >> 6;
+      const int v = r % V;
+      r /= V;
+      const int ch = r % nch, g = r / nch;
+      const int sub = ch * W_CW + lane;
+      const int q0 = q_block + g * G + 4 * v;"""),
+    ("""      uint32_t* dst =
+          lw + ((size_t)(g * nch + ch) * 256 + 4 * c4) * 32 + lane;
+      dst[0] = __byte_perm(t0, t1, 0x5410);
+      dst[32] = __byte_perm(t0, t1, 0x7632);
+      dst[64] = __byte_perm(t2, t3, 0x5410);
+      dst[96] = __byte_perm(t2, t3, 0x7632);""",
+     """      uint32_t* dst = lw + ((size_t)(g * nch + ch) * 256 + 4 * c4) * 32 * V +
+                      lane * V + v;
+      dst[0] = __byte_perm(t0, t1, 0x5410);
+      dst[32 * V] = __byte_perm(t0, t1, 0x7632);
+      dst[64 * V] = __byte_perm(t2, t3, 0x5410);
+      dst[96 * V] = __byte_perm(t2, t3, 0x7632);"""),
+    ("smem_addr(lw + (size_t)grp * nch * W_CHUNK_WORDS);",
+     "smem_addr(lw + (size_t)grp * nch * 256 * 32 * V);"),
+    ("xo[j] = lg + 4 * (lane ^ j);", "xo[j] = lg + 4 * V * (lane ^ j);"),
+    ("""    uint32_t E[WR], O[WR];
+#pragma unroll
+    for (int r = 0; r < WR; ++r) E[r] = O[r] = 0u;""",
+     """    uint32_t E[WR][V], O[WR][V];
+#pragma unroll
+    for (int r = 0; r < WR; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) E[r][v] = O[r][v] = 0u;"""),
+    ("auto load = [&](int J, uint32_t (&x)[4][WR]) {",
+     "auto load = [&](int J, uint32_t (&x)[4][WR][V]) {"),
+    ("              x[t][r] = lut_word_g(lut, qg0, Q, mb, ch * W_CW + s, c);",
+     """#pragma unroll
+              for (int v = 0; v < V; ++v)
+                x[t][r][v] =
+                    lut_word_g(lut, qg0 + 4 * v, Q, mb, ch * W_CW + s, c);"""),
+    ("""              const uint32_t a = cc * 128 + xo[4 * J + t];
+              asm("ld.shared.u32 %0, [%1];" : "=r"(x[t][r]) : "r"(a));""",
+     """              const uint32_t a = cc * (128 * V) + xo[4 * J + t];
+              if constexpr (V == 4) {
+                asm("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                    : "=r"(x[t][r][0]), "=r"(x[t][r][1]), "=r"(x[t][r][2]),
+                      "=r"(x[t][r][3]) : "r"(a));
+              } else {
+                asm("ld.shared.u32 %0, [%1];" : "=r"(x[t][r][0]) : "r"(a));
+              }"""),
+    ("""      auto add = [&](const uint32_t (&x)[4][WR]) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int r = 0; r < WR; ++r) {
+            const uint32_t e = x[t][r] & 0x00ff00ffu;
+            const uint32_t o = __byte_perm(x[t][r], 0u, 0x4341);
+            asm("mad.lo.u32 %0, %1, %2, %0;" : "+r"(E[r]) : "r"(e), "r"(one));
+            asm("mad.lo.u32 %0, %1, %2, %0;" : "+r"(O[r]) : "r"(o), "r"(one));
+          }
+      };
+      uint32_t xa[4][WR], xb[4][WR];""",
+     """      auto add = [&](const uint32_t (&x)[4][WR][V]) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int r = 0; r < WR; ++r)
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const uint32_t e = x[t][r][v] & 0x00ff00ffu;
+              const uint32_t o = __byte_perm(x[t][r][v], 0u, 0x4341);
+              asm("mad.lo.u32 %0, %1, %2, %0;"
+                  : "+r"(E[r][v]) : "r"(e), "r"(one));
+              asm("mad.lo.u32 %0, %1, %2, %0;"
+                  : "+r"(O[r][v]) : "r"(o), "r"(one));
+            }
+      };
+      uint32_t xa[4][WR][V], xb[4][WR][V];"""),
+    ("""        for (int r = 0; r < WR; ++r) {
+          sc[r][0] += (int)(E[r] & 0xffffu);
+          sc[r][1] += (int)(O[r] & 0xffffu);
+          sc[r][2] += (int)(E[r] >> 16);
+          sc[r][3] += (int)(O[r] >> 16);
+          E[r] = O[r] = 0u;
+        }""",
+     """        for (int r = 0; r < WR; ++r)
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            sc[r][4 * v] += (int)(E[r][v] & 0xffffu);
+            sc[r][4 * v + 1] += (int)(O[r][v] & 0xffffu);
+            sc[r][4 * v + 2] += (int)(E[r][v] >> 16);
+            sc[r][4 * v + 3] += (int)(O[r][v] >> 16);
+            E[r][v] = O[r][v] = 0u;
+          }"""),
+    ("auto fn = adc_word_kernel<GBUF, LUTG>;",
+     "auto fn = adc_word_kernel<W_V, GBUF, LUTG>;"),
+    ("  const int bq = ng * 4;\n", "  const int bq = ng * 4 * W_V;\n"),
+    ("""  if (bq <= 0 || bq % 4 != 0 || subsets <= 0) return -1;
+  return w_blocks(bq / 4, subsets, cap, gbuf != 0, lutg != 0, mb);""",
+     """  if (bq <= 0 || bq % (4 * W_V) != 0 || subsets <= 0) return -1;
+  return w_blocks(bq / (4 * W_V), subsets, cap, gbuf != 0, lutg != 0, mb);"""),
+    ("(word && (bq % 4 != 0 || subsets <= 0 || bq / 4 * subsets > W_MAXWARPS ||",
+     "(word && (bq % (4 * W_V) != 0 || subsets <= 0 ||\n"
+     "                bq / (4 * W_V) * subsets > W_MAXWARPS ||"),
+    ("err = launch_word_any(bq / 4, subsets,",
+     "err = launch_word_any(bq / (4 * W_V), subsets,"),
+]
+ADC8_NEW = {
+    "as_is": [],
+    "dots_only": [ADC8_NO_VOTE],
+    "upkeep_only": ADC8_NO_DOTS + [
+        ("      for (int q = 0; q < G; ++q) sc[r][q] = 0;",
+         "      for (int q = 0; q < G; ++q) sc[r][q] = " + HASH_I.format(
+             row="t0 + 32 * r + lane", q="qg0 + q") + ";")],
+    "pipe_only": ADC8_NO_DOTS + [ADC8_NO_VOTE],
+    # the dots of G16: a lane's 16 queries in one 16-byte load a step
+    "dots_g16": [ADC8_NO_VOTE] + ADC8_G16,
+    # the dots alone (no copies past the first stages, no upkeep), G4 / G16
+    "dots_alone": ADC8_ALONE,
+    "dots_alone_g16": ADC8_ALONE + ADC8_G16,
+    # the dots alone without their LUT loads (a word made from the code)
+    "dots_alone_nolds": ADC8_ALONE + [(
+        '              asm("ld.shared.u32 %0, [%1];" : "=r"(x[t][r]) : "r"(a));',
+        "              x[t][r] = cc * 0x01010101u;")],
+    # the dots alone at more warps an SM (lists in global memory)
+    "dots_alone_4x4g": ADC8_ALONE,
+    "dots_alone_8x2g": ADC8_ALONE,
+    # the copies and waits alone at 16 queries and 2 warps a query group
+    "pipe_16x2": ADC8_NO_DOTS + [ADC8_NO_VOTE],
+    # 128-row tiles (four rows a lane) in a ring of 4 stages
+    "rows128": [("constexpr int W_BM = 64;", "constexpr int W_BM = 128;"),
+                ("constexpr int W_STAGES = 8;", "constexpr int W_STAGES = 4;")],
+    # the copies and waits with no copy: the ring's protocol alone
+    "pipe_nocopy": ADC8_NO_DOTS + [ADC8_NO_VOTE, (
+        "        i8_stage<W_BM, 32, W_CW>(smem + slot * W_STAGE, W_CW, cb, row_of(i),\n"
+        "                                 N, mb, ch * W_CW, c_mode, lane);\n", "")],
+    # the source unchanged at other query tiles and list placements
+    "tile16x2": [],
+    "tile4x4": [],
+    "tile8x4": [],
+    "tile8x4g": [],
+    "tile8x2g": [],
+}
+#: (queries a block, warps a query group, lists in global memory) of the
+#: variants launched at a layout of their own
+ADC8_TILES = {"dots_g16": (16, 8, True), "dots_alone_g16": (16, 8, True),
+              "dots_alone_4x4g": (4, 4, True), "dots_alone_8x2g": (8, 2, True),
+              "tile16x2": (16, 2, False),
+              "tile4x4": (4, 4, False), "tile8x4": (8, 4, False),
+              "pipe_16x2": (16, 2, False),
+              "tile8x4g": (8, 4, True), "tile8x2g": (8, 2, True)}
+
 #: (entry point, table of the newer design, of the older, marker of the newer)
 MODES = {
     "fp32": ("rt_fused_topk", NEW, OLD, "f32_topk_kernel"),
     "int8": ("rt_fused_topk", I8_NEW, I8_OLD, "i8_topk_kernel"),
     "int4": ("rt_fused_topk", I8_NEW, I8_OLD, "bool I4 = false>"),
     "adc4": ("rt_fused_adc", ADC_NEW, ADC_OLD, "adc4_mma_kernel"),
+    "adc": ("rt_fused_adc", ADC8_NEW, ADC_OLD, "adc_word_kernel"),
 }
 
 
@@ -306,15 +529,23 @@ def build(path: Path, names: list[str], mode: str = "fp32"):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if n_args == 17:       # kind, l2, bq, cap, q0, q1, x, mask, part, ...
             fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I, L, I, I, I, P]
+        elif n_args == 20:     # kbits, bq, mode, subsets, cap, ...
+            fn.argtypes = [I, I, I, I, I, P, P, P, P, P, P, P, P, P,
+                           I, L, I, I, I, P]
         else:                  # ... part, gbuf, mbuf, out_s, out_i, ...
             fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, P, P,
                            I, L, I, I, I, P]
         fn.restype = I
+        if hasattr(lib, "rt_adc_word_blocks_per_sm"):
+            fn.occupancy = lib.rt_adc_word_blocks_per_sm
+            fn.occupancy.argtypes = [I] * 6
+            fn.occupancy.restype = I
         if hasattr(lib, "rt_i8_blocks_per_sm"):
             fn.occupancy = lib.rt_i8_blocks_per_sm
             fn.occupancy.argtypes = [I, I, I, I, I] + (
                 [I] if "int i4)" in source else [])
             fn.occupancy.restype = I
+        fn.n_args = n_args
         libs[name] = (fn, n_args == 17, new)
     return libs
 
@@ -643,13 +874,25 @@ def adc4_launcher(fn, new: bool, le, lo, codes, k, force_gbuf=False):
     gbuf = torch.empty(gkeys, dtype=torch.int64, device=dev) if gkeys else None
 
     def call():
-        rc = fn(4, bq, lutg, cap, le.data_ptr(), lo.data_ptr(),
-                codes.data_ptr(), None, part.data_ptr(),
-                None if gbuf is None else gbuf.data_ptr(), None,
-                out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, splits, st)
+        rc = adc_call(fn, 4, bq, lutg, 1, cap, le, lo, codes, part, gbuf,
+                      out_s, out_i, k, splits)
         if rc:
             raise SystemExit(f"CUDA error {rc}")
     return call, out_s
+
+
+def adc_call(fn, kbits, bq, mode, subsets, cap, lut0, lut1, codes, part,
+             gbuf, out_s, out_i, k, splits):
+    """One ``rt_fused_adc`` launch through either entry: the parent's (19
+    arguments) or the one with the word kernel's warps a query group
+    (20)."""
+    ptr = lambda t: None if t is None else t.data_ptr()
+    st = torch.cuda.current_stream().cuda_stream
+    head = (kbits, bq, mode) + ((subsets,) if fn.n_args == 20 else ()) + (cap,)
+    mid = (ptr(lut0), ptr(lut1), codes.data_ptr(), None, part.data_ptr(),
+           ptr(gbuf), None)
+    return fn(*head, *mid, out_s.data_ptr(), out_i.data_ptr(),
+              lut0.shape[0], codes.shape[0], codes.shape[1], k, splits, st)
 
 
 def main_adc4(path: str, names: list[str]):
@@ -708,7 +951,153 @@ def main_adc4(path: str, names: list[str]):
               f"{both:.4f} ms | {card}", flush=True)
 
 
+def b4_parent_layout(Q: int, N: int, k: int, mb: int):
+    """(queries a block, buffer keys, splits) of the parent's B4 gather
+    layout (``adc_split_kernel``, LUTs and buffers in shared memory): the
+    widest of 16, 8, 4, 2, 1 queries (4, 2, 1 for batches of at most 4)
+    whose LUTs, buffers of next_pow2(2k + 256 / min(bq, 4)) keys and code
+    tile fit in 227 KB; 528 blocks."""
+    for bq in (4, 2, 1) if Q <= 4 else (16, 8, 4, 2, 1):
+        cap = _pow2(2 * k + 256 // min(bq, 4))
+        smem = (bq * cap * 8 + bq * 8 + -(-mb // 4) * 4 * bq * 256
+                + 256 // min(bq, 4) * 4 * 9 * 4 + bq * 8)
+        if smem <= 232448:
+            break
+    splits = max(1, min(-(-528 // -(-Q // bq)), -(-N // max(2048, 2 * k)),
+                        65535))
+    return bq, cap, splits
+
+
+def adc8_launcher(fn, new: bool, lut2d, codes, k, tile=None):
+    """A closure launching B4 with the layout its source expects:
+    ``adc_layout`` where the source has the word kernel (or, for the word
+    kernel at Q >= 5, ``tile``'s queries a block, warps a query group and
+    list placement, one wave of blocks by the occupancy API), else the
+    parent's (``b4_parent_layout``)."""
+    from repro_torch.kernels import adc as A
+
+    Q, N, mb = lut2d.shape[0], codes.shape[0], codes.shape[1]
+    dev = codes.device
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    gbuf = None
+    if new:
+        lay = A.adc_layout(k, mb, 8, Q, N)
+        if tile is not None and lay.word:
+            bq, t, gb = tile
+            gb = gb or A.w_smem_bytes(bq, t, lay.cap, mb, False,
+                                      lay.lutg) > A.SMEM_MAX
+            per_sm = fn.occupancy(bq, t, lay.cap, int(gb), int(lay.lutg), mb)
+            splits = max(1, min(per_sm * 132 // -(-Q // bq),
+                                -(-N // max(2048, 2 * k))))
+            lay = lay._replace(bq=bq, subsets=t, splits=splits, gbuf_keys=(
+                -(-Q // bq) * splits * bq * t * lay.cap if gb else 0))
+        bq, mode, subsets, cap, splits = (lay.bq, lay.mode, lay.subsets,
+                                          lay.cap, lay.splits)
+        parts = lay.parts
+        if lay.gbuf_keys:
+            gbuf = torch.empty(lay.gbuf_keys, dtype=torch.int64, device=dev)
+        if lay.word:
+            occ = fn.occupancy(bq, subsets, cap, int(gbuf is not None),
+                               int(lay.lutg), mb)
+            print(f"  Q={Q} k={k}: {occ} blocks an SM by the occupancy API",
+                  flush=True)
+    else:
+        (bq, cap, splits), mode, subsets = b4_parent_layout(Q, N, k, mb), 0, 1
+        parts = splits
+    print(f"  Q={Q} k={k}: {bq} queries a block, {subsets} warps a query "
+          f"group, {splits} splits, cap {cap}, mode {mode}"
+          f"{', global lists' if gbuf is not None else ''}", flush=True)
+    part = torch.empty(Q * parts * k, dtype=torch.int64, device=dev)
+
+    def call():
+        rc = adc_call(fn, 8, bq, mode, subsets, cap, lut2d, None, codes,
+                      part, gbuf, out_s, out_i, k, splits)
+        if rc:
+            raise SystemExit(f"CUDA error {rc}")
+    return call, out_s, out_i
+
+
+def main_adc(path: str, names: list[str], sift: bool = True):
+    from repro_torch.data import synthetic
+    from repro_torch.engine.scorer import _prepare_pq_lut
+    from repro_torch.kernels import adc as A
+    from repro_torch.kernels import ops as K
+    from repro_torch.knn import make_index
+
+    libs = build(Path(path), names, "adc")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    N, M, Qm = 4_000_000, 32, 256
+    lut = torch.randint(-128, 128, (Qm, M, 256), generator=g,
+                        device="cuda").to(torch.int8)
+    codes = torch.randint(0, 256, (N, M), generator=g,
+                          device="cuda").to(torch.uint8)
+    lut2d = lut.reshape(Qm, -1).contiguous()
+    card = card_name()
+    shapes = ((256, 100), (256, 400), (1, 100))
+    want = {}
+    for Q, k in shapes:
+        want[Q, k] = A.fused_adc_plain(lut2d[:Q], codes, k=k, n_codewords=256)
+    for name, (fn, _, new) in libs.items():
+        row = []
+        for Q, k in shapes:
+            call, out_s, out_i = adc8_launcher(fn, new, lut2d[:Q].contiguous(),
+                                               codes, k, ADC8_TILES.get(name))
+            ms = median_ms(call)
+            tag = ""
+            if name == "as_is":
+                ok = (torch.equal(out_s, want[Q, k][0])
+                      and torch.equal(out_i, want[Q, k][1]))
+                tag = " =plain" if ok else " DIFFERS"
+            row.append(f"Q={Q} k={k}: {ms:.4f} ms{tag}")
+        print(f"{path} adc {name} | " + "; ".join(row) + f" | {card}",
+              flush=True)
+    if "as_is" in libs:
+        call, _, _ = adc8_launcher(libs["as_is"][0], libs["as_is"][2], lut2d,
+                                   codes, 100)
+        print(f"as_is Q=256 k=100 under load: {clocks(call)}", flush=True)
+    del lut, codes, lut2d, want
+    torch.cuda.empty_cache()
+    if not sift:
+        return
+
+    # the SIFT-like pq16+lpq request: p50, LUT build, B4, and the variants
+    corpus, queries, metric = synthetic.load("sift", 1_000_000, 1000)
+    idx = make_index("pq16+lpq", corpus, metric=metric)
+    srch = idx.searcher(100, batch_sizes=(1, 8, 32, 256))
+    for b in (1, 8, 32, 256):
+        srch(queries[:b])
+    torch.cuda.synchronize()
+    lat = []
+    for s0 in range(0, 1000, 256):
+        t = time.perf_counter()
+        srch(queries[s0:s0 + 256])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    q = queries[:256]
+    store = idx.store
+    lut = _prepare_pq_lut(q, store, metric)
+    lut_ms = median_ms(lambda: _prepare_pq_lut(q, store, metric))
+    b4_ms = median_ms(lambda: K.fused_adc_topk(lut, store.codes, 100))
+    print(f"sift pq16+lpq 1000000x128 l2: request p50 "
+          f"{statistics.median(lat):.4f} ms (256-query requests, "
+          f"{len(lat)} requests); LUT build {lut_ms:.4f} ms; B4 (public op) "
+          f"{b4_ms:.4f} ms; LUT values in [{int(lut.min())}, "
+          f"{int(lut.max())}] | {card}", flush=True)
+    lut2d = lut.reshape(lut.shape[0], -1).contiguous()
+    for name, (fn, _, new) in libs.items():
+        call, _, _ = adc8_launcher(fn, new, lut2d, store.codes, 100,
+                                   ADC8_TILES.get(name))
+        print(f"sift pq16 adc {name} Q=256 k=100: {median_ms(call):.4f} ms "
+              f"| {card}", flush=True)
+
+
 def main():
+    if sys.argv[1] == "--adc":
+        if sys.argv[2] == "--random-only":
+            return main_adc(sys.argv[3], sys.argv[4:], sift=False)
+        return main_adc(sys.argv[2], sys.argv[3:])
     if sys.argv[1] == "--int8":
         return main_int8(sys.argv[2], sys.argv[3:])
     if sys.argv[1] == "--int4":

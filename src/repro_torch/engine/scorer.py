@@ -294,12 +294,12 @@ def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
         s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG)
         i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
     if _pq_fused(store, metric):
-        n_chunks = -(-store.n // (_adc.A4_BM if store.bits == 4 else _adc.BN))
+        lay = _adc.adc_layout(min(k, store.n), store.row_bytes, store.bits, Q,
+                              store.n)
+        n_chunks = -(-store.n // lay.tile)
         # the fused grid re-streams the code matrix once per query block
         # (the LUTs are what stay resident, not the codes)
-        bq = K.fused_adc_query_tile(min(k, store.n), store.row_bytes,
-                                    store.bits, Q)
-        passes = max(1, -(-Q // bq))
+        passes = max(1, -(-Q // lay.bq))
     else:
         n_chunks = max(1, -(-store.n // chunk))
         passes = 1

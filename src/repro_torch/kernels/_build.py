@@ -47,12 +47,14 @@ SIGNATURES = {
         "rt_i8_blocks_per_sm": ([_I, _I, _I, _I, _I, _I], _I),
     },
     "adc": {
-        # kbits, bq, lutg, cap, lut0, lut1, codes, mask, part, gbuf, mbuf,
-        # out_s, out_i, Q, N, mb, k, n_splits, stream
-        "rt_fused_adc": ([_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _I, _L, _I, _I, _I, _P], _I),
+        # kbits, bq, mode, subsets, cap, lut0, lut1, codes, mask, part,
+        # gbuf, mbuf, out_s, out_i, Q, N, mb, k, n_splits, stream
+        "rt_fused_adc": ([_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _I, _L, _I, _I, _I, _P], _I),
         # bq, cap, gbuf, mb
         "rt_adc4_blocks_per_sm": ([_I, _I, _I, _I], _I),
+        # bq, subsets, cap, gbuf, lutg, mb
+        "rt_adc_word_blocks_per_sm": ([_I, _I, _I, _I, _I, _I], _I),
     },
     "qscore": {
         # i4, l2, tile, q0, q1, x, out, Q, N, width, stream

@@ -62,14 +62,6 @@ def fused_query_tile(k: int = 100, q: int = 16, fp32: bool = False) -> int:
             else _fused.i8_query_tile(q))
 
 
-def fused_adc_query_tile(k: int, code_bytes: int, kbits: int = 8,
-                         q: int = _adc.BQ) -> int:
-    """Query rows per fused-ADC block (each carries its LUT) — the code
-    re-stream granularity the engine's ``bytes_read`` accounting derives
-    from."""
-    return _adc.query_tile(k, code_bytes, kbits, q)
-
-
 def fused_topk(
     q: torch.Tensor,
     x: torch.Tensor,

@@ -151,50 +151,115 @@ def test_many_exact_ties_break_by_id():
                                                and row_i[a] < row_i[a + 1])
 
 
-def test_launch_layout_fits_shared_memory():
-    """The Python-side layout (the CUDA source takes it as given): B4's
-    query tile shrinks with M and k so the block's LUTs and candidate
-    buffers stay within the H100's 227 KB, down to 1 query; then the
-    buffers move to global memory, and a LUT too wide for one query is
-    read from global memory, so every M and k launches.  B5 (the one-hot
-    MMA kernel) takes the batch's tile of 8, 16 or 32 queries, 8 where
-    its LUTs or lists leave a 32-query block alone on its SM, the lists
-    in global memory where shared memory cannot hold them."""
-    for kbits, widths in ((8, (1, 7, 16, 32, 64, 128, 256, 512, 1024)),
-                          (4, (1, 4, 32, 64, 512))):
-        for mb in widths:
-            for k in (1, 100, 400, 1024, 1025, 5000):
-                lay = A.adc_layout(k, mb, kbits, 256, 4_000_000)
-                gbuf = lay.gbuf_keys > 0
-                if kbits == 4:
-                    assert not lay.lutg and not lay.gather
-                    assert lay.bq in (32, 8) and lay.mode == 0
-                    assert lay.cap == F.i8_cap(k) >= k + A.A4_BM
-                    assert A.a4_smem_bytes(lay.bq, lay.cap, gbuf,
-                                           mb) <= A.SMEM_MAX
-                    assert A.query_tile(k, mb, kbits, 3) == 4
-                    continue
-                assert lay.bq in (16, 8, 4, 2, 1)
-                assert A.smem_bytes(lay.bq, lay.cap, mb, kbits, gbuf,
-                                    lay.lutg) <= A.SMEM_MAX
-                assert lay.cap == A.adc_cap(k, lay.bq) >= k + A.tile_rows(
-                    lay.bq) // 4
-                assert lay.lutg == (mb >= 1024)
-                if k <= 1024 and mb <= 64:      # unchanged below the old caps
-                    assert not gbuf and lay.bq in (16, 8, 4)
-                    assert lay.cap == F._pow2(2 * k + 64)
-                assert A.query_tile(k, mb, kbits, 3) in (4, 2, 1)
-    assert A.query_tile(100, 32, 8, 256) == 16          # pq32: 8 KB LUTs
-    assert A.query_tile(100, 32, 4, 256) == 32          # pq64x4: 1 KB LUTs
-    assert A.query_tile(400, 32, 4, 256) == 8           # pq64x4 at depth 400
-    assert A.query_tile(400, 32, 8, 256) == 8           # pq32 at depth 400
-    assert A.query_tile(100, 256, 8, 256) == 2          # 64 KB LUTs
-    assert A.query_tile(100, 512, 8, 256) == 1          # 128 KB LUTs
-    assert A.adc_layout(100, 1024, 8, 256, 10 ** 6).lutg  # 256 KB: global
+def test_wide_lut_cases_reach_every_b4_gather_instance():
+    """The card's wide-LUT cases (``ADC_WIDE`` in tests/test_torch_gpu.py)
+    launch every instance of the gather kernel that B4 batches of at most
+    4 queries can take: 1, 2 or 4 queries a block, lists in shared or
+    global memory, LUTs in shared or (at 4) global memory."""
+    from test_torch_gpu import ADC_WIDE
+
+    seen = set()
+    for bits, m, q, k in ADC_WIDE:
+        lay = A.adc_layout(k, m, 8, q, 20001)
+        if bits == 8 and lay.gather:
+            seen.add((lay.bq, lay.gbuf_keys > 0, lay.lutg))
+    assert seen == set(A._gather_modes(1))
+    assert len(seen) == 8
+
+
+@pytest.mark.parametrize("kbits", [8, 4])
+def test_launch_layout_fits_shared_memory(kbits):
+    """The Python-side layout (the CUDA source takes it as given).  B4 from
+    5 queries on runs the word kernel: groups of 4 queries, 8 or 4 queries
+    a block, 1, 2 or 4 warps a group, the ring able to serve each warp
+    (its next stage at most W_STAGES steps ahead), the block within the
+    H100's 227 KB, the lists moved to global memory where shared memory
+    cannot hold them and the LUTs read from global memory where no group's
+    LUTs fit (past M = 192), so every M and k launches; at pq32, k=100 two
+    blocks of 8 queries an SM.  B5 (the one-hot MMA kernel) takes the
+    batch's tile of 8, 16 or 32 queries, 8 where its LUTs or lists leave a
+    32-query block alone on its SM, the lists in global memory where shared
+    memory cannot hold them.  Batches of at most 4 queries take the gather
+    kernel (B4 and B5 alike)."""
+    n = 4_000_000
+    widths = ((1, 7, 16, 32, 33, 64, 128, 192, 193, 256, 512, 1024)
+              if kbits == 8 else (1, 4, 32, 64, 512))
+    for mb in widths:
+        for k in (1, 100, 400, 1024, 1025, 5000):
+            lay = A.adc_layout(k, mb, kbits, 256, n)
+            gbuf = lay.gbuf_keys > 0
+            assert A.query_tile(k, mb, kbits, 3) in (4, 2, 1)
+            assert A.adc_layout(k, mb, kbits, 3, n).gather
+            if kbits == 4:
+                assert not lay.lutg and not lay.gather and not lay.word
+                assert lay.bq in (32, 8) and lay.mode == 0
+                assert lay.cap == F.i8_cap(k) >= k + A.A4_BM
+                assert A.a4_smem_bytes(lay.bq, lay.cap, gbuf,
+                                       mb) <= A.SMEM_MAX
+                assert A.query_tile(k, mb, kbits, 3) == 4
+                continue
+            assert lay.word and not lay.gather and lay.mode & 4
+            assert (lay.bq, lay.subsets) in A.W_TILES
+            assert (lay.subsets - 1) * A.w_chunks(mb) < A.W_STAGES
+            assert A.w_smem_bytes(lay.bq, lay.subsets, lay.cap, mb, gbuf,
+                                  lay.lutg) <= A.SMEM_MAX
+            # a list takes at most 32 rows (a quarter tile) between checks
+            assert lay.cap == F.i8_cap(k) >= k + 32
+            assert lay.lutg == (mb > 192) and (lay.mode & 1) == lay.lutg
+            per_sm = A.w_blocks_per_sm(lay.bq, lay.subsets, lay.cap, mb, gbuf,
+                                       lay.lutg)
+            qblocks = -(-256 // lay.bq)
+            assert lay.splits == max(1, min(per_sm * 132 // qblocks,
+                                            -(-n // max(2048, 2 * k))))
+            assert lay.parts == lay.splits * lay.subsets and lay.tile == A.W_BM
+            if gbuf:
+                assert lay.gbuf_keys == (qblocks * lay.splits * lay.bq
+                                         * lay.subsets * lay.cap)
+                assert A.w_smem_bytes(lay.bq, lay.subsets, lay.cap, mb, False,
+                                      lay.lutg) > A.SMEM_MAX or per_sm * (
+                    lay.bq // 4 * lay.subsets) >= A.W_ENOUGH_WARPS
+    if kbits == 4:
+        assert A.query_tile(100, 32, 4, 256) == 32      # pq64x4: 1 KB LUTs
+        assert A.query_tile(400, 32, 4, 256) == 8       # pq64x4 at depth 400
+        return
+    # pq32 and pq16, k=100: two blocks of two query groups and 2 warps each,
+    # lists in shared memory (8 consumer warps an SM)
+    for mb in (32, 16):
+        lay = A.adc_layout(100, mb, 8, 256, n)
+        assert (lay.bq, lay.subsets, lay.gbuf_keys, lay.lutg) == (8, 2, 0, False)
+        assert A.w_blocks_per_sm(8, 2, lay.cap, mb) == 2
+    assert A.query_tile(100, 32, 8, 256) == A.BQ == 8
+    # pq32 at depth 400: lists of 512 keys; one group and 4 warps a block
+    assert A.adc_layout(400, 32, 8, 256, n)[:2] == (4, False)
+    assert A.adc_layout(400, 32, 8, 256, n).subsets == 4
+    assert A.adc_layout(100, 1024, 8, 256, 10 ** 6).lutg    # 256 KB: global
     assert A.tile_rows(16) == A.tile_rows(4) == A.BN == 256
     assert (A.tile_rows(2), A.tile_rows(1)) == (512, 1024)
     assert A.n_splits(256, 4_000_000, 16) == 33
     assert A.n_splits(1, 1, 4) == 1
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+def test_b4_small_batches_take_the_gather_kernel(q):
+    """A batch of at most 4 queries would fill part of one word kernel
+    group of 4: ``adc_layout`` gives B4 the gather kernel at 1, 2 or 4
+    queries a block (the tile of B5's small batches), its LUTs in shared
+    memory while they fit, its buffers in global memory past that, at every
+    M and k; from 5 queries on, the word kernel."""
+    for mb in (1, 7, 32, 64, 256, 512, 1024):
+        for k in (1, 100, 400, 1025, 3000):
+            lay = A.adc_layout(k, mb, 8, q, 4_000_000)
+            assert lay.gather and not lay.word and lay.subsets == 1
+            assert lay.mode == 2 | int(lay.lutg)
+            gbuf = lay.gbuf_keys > 0
+            assert A.smem_bytes(lay.bq, lay.cap, mb, 8, gbuf,
+                                lay.lutg) <= A.SMEM_MAX
+            assert lay.cap == A.adc_cap(k, lay.bq) >= k + A.tile_rows(
+                lay.bq) // 4
+            assert lay.parts == lay.splits
+            if not lay.lutg:
+                assert lay.bq == (1 if q == 1 else 2 if q == 2 else 4)
+            assert A.adc_layout(k, mb, 8, 5, 4_000_000).word
 
 
 @pytest.mark.parametrize("q", [9, 17, 256])
@@ -304,6 +369,83 @@ def test_adc4_kernel_model_bit_equal_to_plain_and_reference(m, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     _equal((got[0].numpy(), got[1].numpy()),
            _ref(lut, payload, k, 4, mask, interpret=True))
+
+
+def _adc_word_kernel_model(lut2d, codes, k, mask=None):
+    """B4's word-kernel arithmetic in plain torch (int64 holding 32-bit
+    words): each group of 4 queries' LUT as biased bytes (u8 = lut + 128,
+    zero for pad queries and for the pad subspaces up to a multiple of 32),
+    one word a (subspace, codeword) with query 4 g + i in byte i; at step j
+    of a 32-subspace chunk the row in lane r % 32 takes subspace r ^ j,
+    gathers its code's word and adds bytes 0, 2 and bytes 1, 3 to two
+    words of two 16-bit lanes each; the lanes are flushed into int32 every
+    8 chunks and at the end (checked exact against a plain per-query sum),
+    and 128 M comes off."""
+    Q, N, M = lut2d.shape[0], codes.shape[0], codes.shape[1]
+    nch = A.w_chunks(M)
+    ng = -(-Q // 4)
+    b = torch.zeros((4 * ng, 32 * nch, 256), dtype=torch.int64)
+    b[:Q, :M] = lut2d.reshape(Q, M, 256).to(torch.int64) + 128
+    words = sum(b[i::4] << (8 * i) for i in range(4))      # [ng, 32 nch, 256]
+    c = torch.zeros((N, 32 * nch), dtype=torch.int64)
+    c[:, :M] = codes.to(torch.int64)
+    rows = torch.arange(N)
+    lane = rows % 32
+    sc = torch.zeros((4 * ng, N), dtype=torch.int64)
+    exact = torch.zeros((4 * ng, N), dtype=torch.int64)
+    E = torch.zeros((ng, N), dtype=torch.int64)
+    O = torch.zeros((ng, N), dtype=torch.int64)
+    for ch in range(nch):
+        for j in range(32):
+            s = ch * 32 + (lane ^ j)
+            w = words[:, s, c[rows, s]]                         # [ng, N]
+            E += w & 0x00FF00FF
+            O += (w >> 8) & 0x00FF00FF
+            for i in range(4):
+                exact[i::4] += (w >> (8 * i)) & 0xFF
+        if ch % 8 == 7 or ch == nch - 1:
+            assert int(E.max()) < 2 ** 32 and int(O.max()) < 2 ** 32
+            sc[0::4] += E & 0xFFFF
+            sc[1::4] += O & 0xFFFF
+            sc[2::4] += E >> 16
+            sc[3::4] += O >> 16
+            assert torch.equal(sc, exact)     # no lane carried into the next
+            E.zero_()
+            O.zero_()
+    s = (sc[:Q] - 128 * M).to(torch.int32)
+    return F._masked_topk(s, k, mask)
+
+
+@pytest.mark.parametrize("m,kind", [
+    (1, "random"), (7, "random"), (32, "random"), (257, "random"),
+    (258, "random"), (300, "random"), (300, "all_min"), (300, "all_max"),
+    (32, "equal_rows"), (16, "small"), (40, "small")])
+def test_adc_word_kernel_model_bit_equal_to_plain_and_reference(m, kind):
+    """The word kernel's summation (``_adc_word_kernel_model``) bit-equal to
+    ``fused_adc_plain`` and to the reference's ``fused_adc_pallas`` in
+    interpret mode on seeded numpy inputs, with a mask: M at 1, 7, 32 and
+    across the 257-subspace flush edge (257, 258, 300); LUTs all -128 and
+    all 127 (the 16-bit lanes' low and high edges: every row ties, order by
+    id); LUT rows all equal (every row ties); small LUT values (many exact
+    ties)."""
+    Q, N, k = 9, 300, 40
+    lut, codes, _ = _inputs(Q, N, m, 8, seed=13 * m + len(kind))
+    if kind == "all_min":
+        lut[:] = -128
+    elif kind == "all_max":
+        lut[:] = 127
+    elif kind == "equal_rows":
+        lut[:] = lut[:, :, :1]
+    elif kind == "small":
+        lut = np.random.default_rng(m).integers(-2, 3, lut.shape).astype(np.int8)
+    mask = (np.random.default_rng(m).random(N) < 0.8).astype(np.int8)
+    t, tc, tm = (torch.from_numpy(lut.reshape(Q, -1)), torch.from_numpy(codes),
+                 torch.from_numpy(mask))
+    got = _adc_word_kernel_model(t, tc, k, tm)
+    want = A.fused_adc_plain(t, tc, k=k, n_codewords=256, mask=tm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _equal((got[0].numpy(), got[1].numpy()),
+           _ref(lut, codes, k, 8, mask, interpret=True))
 
 
 def test_cpu_calls_launch_nothing_and_other_devices_raise():

@@ -345,15 +345,32 @@ def test_fused_adc_matches_plain(dev, bits, m, k):
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
-@pytest.mark.parametrize("bits,m", [(8, 256), (8, 512), (8, 1024), (4, 256),
-                                    (4, 1024)])
-@pytest.mark.parametrize("k", [100, 1025])
-def test_fused_adc_wide_lut_and_any_k(dev, bits, m, k):
-    """C5: B4 / B5 at M whose LUTs leave room for 2 or 1 queries a block
-    (B4 M = 256, 512) or none (B4 M = 1024: LUTs read from global memory),
-    and past the old k cap; bit-equal with and without a mask."""
+#: C5's wide LUTs and deep k (bits, M, Q, k): B4 / B5 at M = 256, 512 and
+#: 1024 at Q = 1 and 3 (the gather kernel, whose LUTs leave room for one
+#: query a block or none: B4 reads them from global memory at 4 queries a
+#: block) and Q = 9 (B4's word kernel, its LUTs read from global memory
+#: past M = 192; B5's one-hot MMA kernel), k = 100 and 1025; then the B4
+#: gather kernel's other instances: lists in global memory at 1 and 2
+#: queries a block and at 4 with the LUTs in global memory (k = 3000), 4
+#: queries a block with the LUTs in shared memory and the lists in shared
+#: (M = 128, k = 100) or global memory (k = 1025), and 2 queries a block
+#: with both in shared memory (tests/test_torch_adc.py checks that these
+#: cases reach every instance)
+ADC_WIDE = ([(bits, m, q, k)
+             for bits, m in ((8, 256), (8, 512), (8, 1024), (4, 256),
+                             (4, 1024))
+             for q in (1, 3, 9) for k in (100, 1025)]
+            + [(8, 512, 1, 3000), (8, 256, 2, 3000), (8, 256, 3, 3000),
+               (8, 128, 3, 100), (8, 128, 3, 1025), (8, 128, 2, 100)])
+
+
+@pytest.mark.parametrize("bits,m,Q,k", ADC_WIDE)
+def test_fused_adc_wide_lut_and_any_k(dev, bits, m, Q, k):
+    """C5: B4 / B5 at the wide LUTs and deep k of ``ADC_WIDE``, through
+    every kernel and instance that such batches take; bit-equal with and
+    without a mask."""
     g = torch.Generator(device=dev).manual_seed(5)
-    Q, N, kc = 9, 20001, 2 ** bits
+    N, kc = 20001, 2 ** bits
     lut = torch.randint(-128, 128, (Q, m, kc), generator=g,
                         device=dev).to(torch.int8)
     codes = torch.randint(0, kc, (N, m), generator=g, device=dev).to(torch.uint8)
@@ -452,6 +469,69 @@ def test_adc4_layout_blocks_per_sm_match_the_card(dev, q, k, mb):
                                                  mb)
     cap = 2 if lay.bq == 32 else 4
     assert got == per_sm if per_sm < cap else got >= per_sm
+
+
+#: B4 edge cases around the word kernel (Q, N, M, k, LUT kind, mask): M
+#: across the 257-subspace flush of its 16-bit lanes (257, 258, 300: LUTs
+#: read from global memory), at 192 / 193 (the widest LUTs kept in shared
+#: memory, the first read from global memory) and at 33 (two chunks, the
+#: second all but one pad subspace); LUTs all -128 and all 127 (every row
+#: ties: order by id alone) and small values (many ties) at M = 32 and
+#: 300; k = 1024, 1025 and 3000 (lists in global memory); Q = 4 and 5 (the
+#: gather kernel's last batch, the word kernel's first), with and without
+#: a mask
+ADC_WORD_EDGES = (
+    [(9, 3001, m, 100, "random", False) for m in (257, 258, 300, 192, 193, 33)]
+    + [(37, 3001, m, 100, c, True) for m in (32, 300)
+       for c in ("all_min", "all_max", "small")]
+    + [(37, 20001, 32, k, "random", True) for k in (1024, 1025, 3000)]
+    + [(q, 20001, 32, 100, "random", mk) for q in (4, 5)
+       for mk in (False, True)])
+
+
+@pytest.mark.parametrize("Q,N,m,k,kind,masked", ADC_WORD_EDGES)
+def test_fused_adc_word_edges(dev, Q, N, m, k, kind, masked):
+    g = torch.Generator(device=dev).manual_seed(11)
+    lut = torch.randint(-128, 128, (Q, m, 256), generator=g,
+                        device=dev).to(torch.int8)
+    codes = torch.randint(0, 256, (N, m), generator=g,
+                          device=dev).to(torch.uint8)
+    if kind == "all_min":
+        lut.fill_(-128)
+    elif kind == "all_max":
+        lut.fill_(127)
+    elif kind == "small":
+        lut = torch.randint(-2, 3, lut.shape, generator=g,
+                            device=dev).to(torch.int8)
+    mask = ((torch.rand(N, generator=g, device=dev) < 0.5).to(torch.int8)
+            if masked else None)
+    assert A.adc_layout(k, m, 8, Q, N).word == (Q > 4)
+    got = K.fused_adc_topk(lut, codes, k, mask=mask)
+    want = A.fused_adc_plain(lut.reshape(Q, -1), codes, k=k, n_codewords=256,
+                             mask=mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("q,k,mb", [(256, 100, 32), (256, 100, 16),
+                                    (256, 400, 32), (9, 100, 64),
+                                    (37, 3000, 32), (9, 100, 300),
+                                    (9, 100, 192)])
+def test_adc_word_layout_blocks_per_sm_match_the_card(dev, q, k, mb):
+    """B4's word-kernel layout: its resident blocks an SM (plain Python,
+    which sizes the split count) are what the occupancy API reports where
+    shared memory limits them, and never more where registers do."""
+    from repro_torch.kernels import _build
+
+    lay = A.adc_layout(k, mb, 8, q, 4_000_000)
+    assert lay.word
+    gbuf = lay.gbuf_keys > 0
+    per_sm = A.w_blocks_per_sm(lay.bq, lay.subsets, lay.cap, mb, gbuf,
+                               lay.lutg)
+    got = _build.lib("adc").rt_adc_word_blocks_per_sm(
+        lay.bq, lay.subsets, lay.cap, int(gbuf), int(lay.lutg), mb)
+    regs = 18 // (lay.bq // 4 * lay.subsets + 1)
+    assert got == per_sm if per_sm < regs else got >= per_sm
 
 
 def test_rerank_search_at_wide_depth_matches_cpu(dev):
