@@ -842,7 +842,9 @@ def check_qscore(err: dict) -> None:
     B7: 101) or an odd packed width (B8: d=258, 129 bytes a row); then on
     extreme codes (all -128 / 127, nibbles -8 / 7, alternating), where a
     wrong sign extension, a lost norm or a swapped nibble would show; then
-    at the edges of the tensor-core tiling (``qscore_edge_cases``)."""
+    at the edges of the tensor-core tiling (``qscore_edge_cases``); then
+    the extreme pairs at a width where the negated squared L2 wraps in
+    int32 (``QSCORE_WRAP``)."""
     import torch
 
     from repro_torch.core import pack as PK
@@ -892,19 +894,39 @@ def check_qscore(err: dict) -> None:
             hold_qscore(name, getattr(K, name)(q, xs), qscore_plain(name, q, xs),
                         f"edge Q={Q} N={N} d={d} offset={offset}", err)
             case += 1
+        d = QSCORE_WRAP[name]
+        q = torch.tensor([[-128] * d, [127] * d], dtype=torch.int8, device=dev)
+        x = torch.tensor([[lo] * d, [0] * d, [hi] * d], dtype=torch.int8,
+                         device=dev)
+        xs = PK.pack_int4(x) if packed else x
+        want = qscore_plain(name, q, xs)
+        need(name in ("qmip", "qmip4") or int(want[0, 2]) > 0,
+             f"{name}: the wrap-around case did not wrap at d={d}")
+        hold_qscore(name, getattr(K, name)(q, xs), want,
+                    f"wrap-around Q=2 N=3 d={d}", err)
+        case += 1
     torch.cuda.synchronize()
     log(f"[kernels] {case} score-matrix cases (B6-B8) bit-equal to the plain "
-        "versions, extreme codes and the tensor-core tiling's edges included")
+        "versions, extreme codes, the tensor-core tiling's edges, packed "
+        "rows' pad bytes and int32 wrap-around included")
+
+
+#: widths at which -(|q|^2 + |x|^2 - 2 q . x) of the extreme pairs passes
+#: 2^31: (-128 - 127)^2 d for int8 rows, (-128 - 7)^2 d for int8 queries
+#: against int4 nibbles (run for B6 / B8a too)
+QSCORE_WRAP = {"qmip": 33_040, "ql2": 33_040, "qmip4": 117_840,
+               "ql24": 117_840}
 
 
 def qscore_edge_cases(dev) -> list:
-    """(Q, N, d, offset) at the edges of the tensor-core kernel's tiling
-    (B6, B8a; B7 and B8b run them too): Q at each query-tile boundary; N
-    at and just past the corpus tile and k times the SM count of tiles
-    (the persistent stride at k blocks an SM), odd N leaving output rows
-    unaligned; d = 31, 32, 33 and a packed width of 17 bytes (d=34); a
-    corpus view at an unaligned base (``x[offset:]`` of an [N + 1, d]
-    buffer, d = 100 and 102: 50 / 51 packed bytes a row)."""
+    """(Q, N, d, offset) at the edges of the tensor-core kernel's tiling,
+    which all four ops share: Q at each query-tile boundary; N at and just
+    past the corpus tile and k times the SM count of tiles (the persistent
+    stride at k blocks an SM), odd N leaving output rows unaligned; d =
+    31 ... 34; rows of 17, 50, 51 and 129 bytes when packed (d = 34, 100,
+    102, 258: B8b's pad bytes past the row are not a multiple of its
+    64-byte chunk), each also as a corpus view at an unaligned base
+    (``x[offset:]`` of an [N + 1, d] buffer)."""
     import torch
 
     from repro_torch.kernels import _qscore
@@ -916,7 +938,8 @@ def qscore_edge_cases(dev) -> list:
         cases += [(q, k * bm + p, 64, 0) for k in (1, sms, 2 * sms)
                   for p in (0, 1)]
     cases += [(5, 333, d, 0) for d in (31, 32, 33, 34)]
-    return cases + [(9, 1000, d, 1) for d in (100, 102)]
+    return cases + [(9, 1000, 2 * w, off) for w in (17, 50, 51, 129)
+                    for off in (0, 1)]
 
 
 def time_qscore(err: dict) -> dict:

@@ -1,31 +1,35 @@
 """Time probe variants of the score-matrix source on one GPU: the kernels
 of a ``qscore.cu`` rebuilt with a few lines changed, launched directly
-(no Python wrapper inside the clock) on B6 and B8a at Q=512 and Q=1.
+(no Python wrapper inside the clock) on B6, B8a, B7 and B8b at Q=512 and
+Q=1.
 
     python scripts/qscore_probe.py <qscore.cu> <variant> [<variant> ...]
 
-Variants of the dp4a form (the source before the tensor-core redesign,
-e.g. ``git show 470eefe:src/repro_torch/csrc/qscore.cu``):
+Variants of the tensor-core kernel (``qmip_mma_kernel``; a source that
+still has the dp4a kernel ``qscore_l2_kernel`` runs B7 / B8b there, at its
+own query tiles, and takes ``as_is`` only):
   as_is        the source unchanged
-  stores_only  the dot loop removed: the epilogue writes the [Q, N] output
-  dots_only    the dot loop kept, the stores predicated off on the data
-Variants of the tensor-core kernel (``qmip_mma_kernel``):
-  as_is        the source unchanged
-  nostore      copies and MMAs, the stores predicated off on the data
-  nodots       copies and stores, the MMA loop removed
+  nostore      copies and MMAs (and norms), the stores predicated off on
+               the data
+  nodots       copies and stores, the MMA loop removed (norms too)
   noreads      the corpus copies removed (MMAs on stale shared memory)
   stores_alone the corpus copies and the MMA loop removed
+  nonorms      L2: the norms' dp4a sums removed (the norms stay 0; the
+               shuffles and the combine kept)
+  nocombine    L2: the dot stored in place of the combine, so the compiler
+               drops the norms too: the L2 instance without what it adds
   kc64         64-byte int8 row chunks per stage (two stages a row at d=128)
   s2, s4       a ring of 2 / 4 stages
   bm256        256 corpus rows a tile at 64 and 128 queries (one warp
                column of 8 warps)
 
-Table 1,000,000 x 128 random int8 codes (B8a: int4 codes, packed), seed 5;
+Table 1,000,000 x 128 random int8 codes (B8: int4 codes, packed), seed 5;
 each time is the median of 20 calls by CUDA events around the launch
 alone, after 3 warm calls.  Variants that keep the result are checked
-against ``torch._int_mm``; the output of the others is not meaningful.
-Prints ``zero_`` of the [512, N] int32 output (the card's write rate) and
-``_int_mm`` beside them.  Builds into build/qscore_probe/.
+against ``torch._int_mm`` (B7 / B8b: with the two norms and the combine
+in int32); the output of the others is not meaningful.  Prints ``zero_``
+of the [512, N] int32 output (the card's write rate) and ``_int_mm``
+beside them.  Builds into build/qscore_probe/.
 """
 
 import ctypes
@@ -50,16 +54,15 @@ NO_READS = ("    stage_rows<C::BM, C::KC, C::SROW>(st, x, n0, N, width, k0, "
 #: variant -> [(text in the source, replacement)]
 VARIANTS = {
     "as_is": [],
-    "stores_only": [("for (int c = 0; c < n_chunks; ++c) {",
-                     "for (int c = 0; c < 0 * n_chunks; ++c) {")],
-    "dots_only": [("__stcs(orow + n, val);",
-                   "if (val == 0x7fffffff) __stcs(orow + n, val);")],
     "nostore": [("        int32_t* o = out + q * N + n;\n",
                  "        if (val.x != 0x7fffffff) continue;\n"
                  "        int32_t* o = out + q * N + n;\n")],
     "nodots": [NO_DOTS],
     "noreads": [NO_READS],
     "stores_alone": [NO_READS, NO_DOTS],
+    "nonorms": [("  s = __dp4a((int)w, (int)w, s);\n", "")],
+    "nocombine": [("  return (int)(0u - (qq + xx - 2u * (uint32_t)dot));",
+                   "  return dot;")],
     "kc64": [("static constexpr int KC = I4 ? 64 : 128;",
               "static constexpr int KC = 64;")],
     "s2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
@@ -117,7 +120,7 @@ def median_ms(fn, n=20):
 def main():
     source = Path(sys.argv[1]).read_text()
     libs = build(source, sys.argv[2:])
-    mma = "qmip_mma_kernel" in source
+    mma = "qscore_l2_kernel" not in source      # B7 / B8b on tensor cores
     g = torch.Generator(device="cuda")
     g.manual_seed(5)
     N, d = 1_000_000, 128
@@ -130,26 +133,36 @@ def main():
           | ((x4[:, 1::2] + 8).to(torch.uint8) << 4)).contiguous()
     out = torch.empty((512, N), dtype=torch.int32, device="cuda")
     st = torch.cuda.current_stream().cuda_stream
+
+    def sq(v):
+        return (v.int() ** 2).sum(1, dtype=torch.int32)
+
     cases = []
     for Q in (512, 1):
         q, q4 = codes(128, Q), codes(8, Q)
         pad = (0, 0, 0, max(0, 32 - Q))          # _int_mm needs > 16 rows
-        tile = (128 if Q > 16 else 8) if mma else (16 if Q > 16 else 1)
-        cases.append((f"B6 Q={Q}", Q, tile, 0, q, None, x, d,
-                      torch._int_mm(torch.nn.functional.pad(q, pad), x.T)[:Q]))
-        cases.append((f"B8a Q={Q}", Q, tile, 1, q4[:, 0::2].contiguous(),
-                      q4[:, 1::2].contiguous(), px, d // 2, torch._int_mm(
-                          torch.nn.functional.pad(q4, pad), x4.T)[:Q]))
+        tile = 128 if Q > 16 else 8
+        dp4a_tile = 16 if Q > 16 else 1
+        ip = torch._int_mm(torch.nn.functional.pad(q, pad), x.T)[:Q]
+        ip4 = torch._int_mm(torch.nn.functional.pad(q4, pad), x4.T)[:Q]
+        qe, qo = q4[:, 0::2].contiguous(), q4[:, 1::2].contiguous()
+        cases += [
+            (f"B6 Q={Q}", Q, tile, 0, 0, q, None, x, d, ip),
+            (f"B8a Q={Q}", Q, tile, 1, 0, qe, qo, px, d // 2, ip4),
+            (f"B7 Q={Q}", Q, tile if mma else dp4a_tile, 0, 1, q, None, x, d,
+             -(sq(q)[:, None] + sq(x)[None, :] - 2 * ip)),
+            (f"B8b Q={Q}", Q, tile if mma else dp4a_tile, 1, 1, qe, qo, px,
+             d // 2, -(sq(q4)[:, None] + sq(x4)[None, :] - 2 * ip4))]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     for name, lib in libs.items():
         row = []
-        for tag, Q, tile, i4, a, b, xx, width, want in cases:
+        for tag, Q, tile, i4, l2, a, b, xx, width, want in cases:
             o = out[:Q]
 
             def call():
-                rc = lib.rt_qscore(i4, 0, tile, a.data_ptr(),
+                rc = lib.rt_qscore(i4, l2, tile, a.data_ptr(),
                                    None if b is None else b.data_ptr(),
                                    xx.data_ptr(), o.data_ptr(), Q, N, width,
                                    st)
@@ -162,7 +175,7 @@ def main():
             row.append(f"{tag} tile {tile}: {ms:.4f} ms{ok}")
         print(f"{sys.argv[1]} {name} | " + "; ".join(row), flush=True)
     print(f"zero_ [512, {N}] int32: {median_ms(out.zero_):.4f} ms; _int_mm "
-          f"B6 Q=512: {median_ms(lambda: torch._int_mm(cases[0][4], x.T)):.4f}"
+          f"B6 Q=512: {median_ms(lambda: torch._int_mm(cases[0][5], x.T)):.4f}"
           f" ms | {card}", flush=True)
 
 

@@ -9,9 +9,9 @@
 //       packed-int4 corpus, q_even . lo + q_odd . hi
 // What carries over is what they compute: every (query, corpus row) pair
 // scored exactly in int32 and the whole [Q, N] matrix written out.  The TPU
-// kernels take (bq, bn) tiles padded to multiples by the wrapper; here each
+// kernels take (bq, bn) tiles padded to multiples by the wrapper; here the
 // kernel masks ragged Q, N and d itself, so nothing is padded in device
-// memory.  Neither kernel allocates: the wrapper passes the output.
+// memory.  It does not allocate: the wrapper passes the output.
 //
 // Bound on the H100: bytes.  The [Q, N] int32 output dominates from a few
 // queries on (Q = 512, N = 1M: 2.05 GB, 0.61 ms at 3.35 TB/s); a single
@@ -20,7 +20,8 @@
 // tensor cores, a tenth of the byte bound, so a kernel at the bound must
 // keep the output stream busy all the time and hide the dots under it.
 //
-// B6 and B8a: `qmip_mma_kernel`, on the int8 tensor cores.
+// All four: `qmip_mma_kernel`, on the int8 tensor cores (`L2` selects B7 /
+// B8b's negated squared L2; B6 / B8a are its `L2 = false` instances).
 //   * mma.sync m16n8k32 s8 x s8 -> s32, corpus rows in M and queries in N:
 //     both operands are stored K-contiguous ([N, w] and [Q, w] bytes) as
 //     `.row.col` wants, and ldmatrix fills the fragments from shared memory.
@@ -28,14 +29,14 @@
 //     corpus rows x QT queries; QT follows Q (8 ... 128, chosen by the
 //     wrapper), so a single query wastes 7/8 of a cheap MMA, no more.
 //     Eight warps, each 32 corpus rows x QT / WARPS_N queries.
-//   * B8a: ldmatrix loads packed bytes where the int8 kernel loads codes:
-//     a 32-bit word holds four consecutive bytes of one row, i.e. K
+//   * B8a / B8b: ldmatrix loads packed bytes where the int8 kernel loads
+//     codes: a 32-bit word holds four consecutive bytes of one row, i.e. K
 //     positions j..j+3 of both nibble planes.  __vsub4 unpacks it in
 //     registers into the lo word (against the even query half) and the hi
 //     word (against the odd half): two s8 MMAs per packed K-step.
 //   * Staging: a ring of STAGES shared-memory buffers, each one K-chunk of
 //     KC bytes of the corpus tile and the query tile (two query planes for
-//     B8a), filled by cp.async 16-byte copies STAGES - 1 steps ahead.  KC
+//     B8), filled by cp.async 16-byte copies STAGES - 1 steps ahead.  KC
 //     is 128 for int8 rows and 64 for packed ones, so at d = 128 a stage
 //     holds whole rows and reads its corpus tile as one contiguous span.
 //     The ring runs across output tiles, so the next tile's copies are in
@@ -58,26 +59,22 @@
 //     come back from L2 while they are hot.  Under the output's write
 //     stream the corpus reads are what the stores wait behind, so the
 //     fewer of them reach HBM the better.
-//
-// B7 and B8b: `qscore_l2_kernel`, dp4a on the CUDA cores (the design of
-// the first port, kept: both beat their library yardstick, whose norms and
-// combine take extra passes over the [Q, N] matrix).  Grid (ceil(Q / BQ),
-// corpus tiles); thread i owns columns i and i + 256 of a 512-row tile for
-// all BQ queries (BQ = 1 ... 16 from the wrapper), so a warp's stores are
-// 128 contiguous bytes.  The corpus tile is staged in 64-byte d-chunks at
-// a stride of 20 words, padded past the row with 0 (int8) or 0x88 (packed
-// bytes, whose nibbles unpack to 0).  |q|^2 and |x|^2 are summed from the
-// staged chunks beside the dots and combined in uint32, so the result
-// wraps as the reference's int32 arithmetic does.
+//   * L2 (B7, B8b): the same dots, the same ring and the same stores; only
+//     the staged values change, to -(|q|^2 + |x|^2 - 2 q . x).  Both norms
+//     are summed from the fragments already in registers, so a call stays
+//     one launch and reads nothing more: each lane `dp4a`s its A words
+//     (B8b: the unpacked lo and hi words) into its two rows of each m16
+//     group and its B words into its query of each n8 tile, and the
+//     epilogue adds the four lanes of a row group with two shuffles.  A
+//     zero pad byte unpacks to (-8, -8), so a packed row's sum is 128 too
+//     high for every byte staged past its width; that count is the same
+//     for every row and is taken off once.  The combine runs in uint32, so
+//     the result wraps as the reference's int32 arithmetic does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// B6 / B8a: tensor cores
-// ---------------------------------------------------------------------------
 
 constexpr int MMA_NT = 256;          // threads per block (8 warps)
 constexpr int STAGES = 3;            // ring depth
@@ -141,6 +138,22 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// L2: s += the squares of the four s8 lanes of w
+__device__ __forceinline__ void add_sq(int& s, uint32_t w) {
+  s = __dp4a((int)w, (int)w, s);
+}
+
+// L2: the sum of v over the four lanes of this lane's row group
+__device__ __forceinline__ int quad_sum(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// L2: -(qq + xx - 2 dot), wrapping as the reference's int32 arithmetic
+__device__ __forceinline__ int neg_l2(int dot, uint32_t qq, uint32_t xx) {
+  return (int)(0u - (qq + xx - 2u * (uint32_t)dot));
+}
+
 // Stage rows [row0, row0 + R) x bytes [k0, k0 + KC) of a [n_rows, width]
 // byte matrix into `dst` (row stride SROW), zero past n_rows and width:
 // cp.async 16-byte copies where `vec` (rows and base 16-byte aligned), else
@@ -184,10 +197,11 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst,
 }
 
 // I4: x holds packed bytes, q0 / q1 the even / odd query halves (width
-// bytes each); else x and q0 are int8 rows of width = d.  The block owns
-// corpus tiles blockIdx.x, + gridDim.x, ... (rows nt * BM ...) and runs
-// every query tile (queries qt * QT ...) on each in turn.
-template <int QT, bool I4>
+// bytes each); else x and q0 are int8 rows of width = d.  L2: negated
+// squared L2 in place of the inner product.  The block owns corpus tiles
+// blockIdx.x, + gridDim.x, ... (rows nt * BM ...) and runs every query
+// tile (queries qt * QT ...) on each in turn.
+template <int QT, bool I4, bool L2>
 __global__ void __launch_bounds__(MMA_NT)
 qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
                 const uint8_t* __restrict__ x, int32_t* __restrict__ out,
@@ -206,6 +220,9 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
   const int n_chunks = (width + C::KC - 1) / C::KC;
   const long long steps =
       ((n_nt - 1 - blockIdx.x) / gridDim.x + 1) * n_qt * n_chunks;
+  // L2, packed rows: what the zero bytes staged past the row add to |x|^2
+  [[maybe_unused]] const uint32_t x_pad =
+      128u * (uint32_t)(n_chunks * C::KC - width);
 
   // the copy side of the ring runs STAGES - 1 steps ahead of the MMAs
   long long ld_nt = blockIdx.x;
@@ -246,6 +263,9 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
     for (int ni = 0; ni < C::NTILE; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  // L2: this lane's parts of |x|^2 of rows mi * 16 + g (+ 8) and of |q|^2
+  // of query g of each n8 tile, over the tile's K-chunks
+  [[maybe_unused]] int xn[2][2] = {}, qn[C::NTILE] = {};
 
   long long nt = blockIdx.x;
   int qt = 0, chunk = 0, slot = 0;
@@ -276,6 +296,13 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
             ah[mi][e] = __vsub4((w >> 4) & 0x0F0F0F0Fu, 0x08080808u);
           }
         }
+        if constexpr (L2) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // a[mi][e]: row g (e even), g + 8
+            add_sq(xn[mi][e & 1], a[mi][e]);
+            if constexpr (I4) add_sq(xn[mi][e & 1], ah[mi][e]);
+          }
+        }
       }
 #pragma unroll
       for (int p = 0; p < C::P; ++p) {
@@ -283,6 +310,10 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
         if constexpr (C::NTILE == 1) {
           uint32_t b0, b1;
           ldsm_x2(b0, b1, Bp);
+          if constexpr (L2) {
+            add_sq(qn[0], b0);
+            add_sq(qn[0], b1);
+          }
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
             mma_s8(acc[mi][0], p ? ah[mi] : a[mi], b0, b1);
@@ -291,6 +322,12 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
           for (int ni = 0; ni < C::NTILE; ni += 2) {
             uint32_t b[4];
             ldsm_x4(b, Bp + ni * 8 * C::SROW);
+            if constexpr (L2) {
+              add_sq(qn[ni], b[0]);
+              add_sq(qn[ni], b[1]);
+              add_sq(qn[ni + 1], b[2]);
+              add_sq(qn[ni + 1], b[3]);
+            }
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
               mma_s8(acc[mi][ni], p ? ah[mi] : a[mi], b[0], b[1]);
@@ -306,19 +343,43 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
     // epilogue: this warp's 32 corpus rows x WN queries, EW queries a round
     const long long n0 = nt * C::BM + wm * 32;
     const long long qw = (long long)qt * QT + wn * C::WN;
+    [[maybe_unused]] uint32_t xx[2][2];  // L2: |x|^2 of rows mi * 16 + g (+ 8)
+    if constexpr (L2) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xx[mi][h] = (uint32_t)quad_sum(xn[mi][h]) - (I4 ? x_pad : 0u);
+#pragma unroll
+      for (int ni = 0; ni < C::NTILE; ++ni) qn[ni] = quad_sum(qn[ni]);
+    }
 #pragma unroll
     for (int rr = 0; rr < C::WN / C::EW; ++rr) {
 #pragma unroll
       for (int nj = 0; nj < C::EW / 8; ++nj) {
         const int ni = rr * (C::EW / 8) + nj;
         const int ql = nj * 8 + 2 * t4;
+        if constexpr (L2) {
+          // |q|^2 of queries 2 t4 and 2 t4 + 1: row groups 2 t4, 2 t4 + 1
+          const uint32_t qa = __shfl_sync(0xffffffffu, qn[ni], 8 * t4);
+          const uint32_t qb = __shfl_sync(0xffffffffu, qn[ni], 8 * t4 + 4);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = mi * 16 + g;
-          stg[ql * ES + r] = acc[mi][ni][0];
-          stg[(ql + 1) * ES + r] = acc[mi][ni][1];
-          stg[ql * ES + r + 8] = acc[mi][ni][2];
-          stg[(ql + 1) * ES + r + 8] = acc[mi][ni][3];
+          for (int mi = 0; mi < 2; ++mi) {
+            const int r = mi * 16 + g;
+            stg[ql * ES + r] = neg_l2(acc[mi][ni][0], qa, xx[mi][0]);
+            stg[(ql + 1) * ES + r] = neg_l2(acc[mi][ni][1], qb, xx[mi][0]);
+            stg[ql * ES + r + 8] = neg_l2(acc[mi][ni][2], qa, xx[mi][1]);
+            stg[(ql + 1) * ES + r + 8] = neg_l2(acc[mi][ni][3], qb, xx[mi][1]);
+          }
+        } else {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const int r = mi * 16 + g;
+            stg[ql * ES + r] = acc[mi][ni][0];
+            stg[(ql + 1) * ES + r] = acc[mi][ni][1];
+            stg[ql * ES + r + 8] = acc[mi][ni][2];
+            stg[(ql + 1) * ES + r + 8] = acc[mi][ni][3];
+          }
         }
       }
       __syncwarp();
@@ -347,6 +408,12 @@ qmip_mma_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
       for (int ni = 0; ni < C::NTILE; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+    if constexpr (L2) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) xn[mi][0] = xn[mi][1] = 0;
+#pragma unroll
+      for (int ni = 0; ni < C::NTILE; ++ni) qn[ni] = 0;
+    }
     chunk = 0;
     if (++qt == n_qt) {
       qt = 0;
@@ -360,7 +427,7 @@ bool rows16(const void* p, int width) {
   return ((uintptr_t)p & 15) == 0 && width % 16 == 0;
 }
 
-template <int QT, bool I4>
+template <int QT, bool I4, bool L2>
 cudaError_t launch_mma(const void* q0, const void* q1, const void* x,
                        void* out, int Q, long long N, int width,
                        cudaStream_t stream) {
@@ -373,7 +440,7 @@ cudaError_t launch_mma(const void* q0, const void* q1, const void* x,
   static const Init init = [] {
     Init r{cudaSuccess, 0};
     int dev = 0, sms = 0, per_sm = 0;
-    r.err = cudaFuncSetAttribute(qmip_mma_kernel<QT, I4>,
+    r.err = cudaFuncSetAttribute(qmip_mma_kernel<QT, I4, L2>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  C::SMEM);
     if (r.err == cudaSuccess) r.err = cudaGetDevice(&dev);
@@ -381,7 +448,7 @@ cudaError_t launch_mma(const void* q0, const void* q1, const void* x,
       r.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (r.err == cudaSuccess)
       r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, qmip_mma_kernel<QT, I4>, MMA_NT, C::SMEM);
+          &per_sm, qmip_mma_kernel<QT, I4, L2>, MMA_NT, C::SMEM);
     r.blocks = sms * per_sm;
     if (r.err == cudaSuccess && r.blocks == 0)
       r.err = cudaErrorInvalidConfiguration;
@@ -392,222 +459,22 @@ cudaError_t launch_mma(const void* q0, const void* q1, const void* x,
   const int grid = (int)(n_nt < init.blocks ? n_nt : init.blocks);
   const bool q_vec = rows16(q0, width) && (q1 == nullptr || rows16(q1, width));
   const bool out_vec = ((uintptr_t)out & 15) == 0 && N % 4 == 0;
-  qmip_mma_kernel<QT, I4><<<grid, MMA_NT, C::SMEM, stream>>>(
+  qmip_mma_kernel<QT, I4, L2><<<grid, MMA_NT, C::SMEM, stream>>>(
       (const int8_t*)q0, (const int8_t*)q1, (const uint8_t*)x, (int32_t*)out,
       Q, N, width, rows16(x, width), q_vec, out_vec);
   return cudaGetLastError();
 }
 
-template <bool I4>
+template <bool I4, bool L2>
 cudaError_t launch_mma_bn(int bn, const void* q0, const void* q1,
                           const void* x, void* out, int Q, long long N,
                           int width, cudaStream_t st) {
   switch (bn) {
-    case 8: return launch_mma<8, I4>(q0, q1, x, out, Q, N, width, st);
-    case 16: return launch_mma<16, I4>(q0, q1, x, out, Q, N, width, st);
-    case 32: return launch_mma<32, I4>(q0, q1, x, out, Q, N, width, st);
-    case 64: return launch_mma<64, I4>(q0, q1, x, out, Q, N, width, st);
-    case 128: return launch_mma<128, I4>(q0, q1, x, out, Q, N, width, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B7 / B8b: dp4a
-// ---------------------------------------------------------------------------
-
-constexpr int NT = 256;            // threads per block
-constexpr int TR = 2;              // corpus columns per thread
-constexpr int BN = NT * TR;        // 512 corpus rows per tile
-constexpr int CW = 16;             // 32-bit words per d-chunk (64 bytes)
-constexpr int CB = CW * 4;         // bytes per d-chunk
-constexpr int SEG = CW / 4;        // 16-byte segments per chunk row
-constexpr int XS = CW + 4;         // shared row stride in words (XS/4 odd)
-
-// a 16-byte group of row `row`'s bytes [b, b + 16) of a `width`-byte row,
-// `pad` past the end of the row (or for a row past the last)
-__device__ __forceinline__ uint4 load_seg(const uint8_t* __restrict__ base,
-                                          long long row, long long n_rows,
-                                          int width, int b, bool vec,
-                                          uint32_t pad) {
-  if (row >= n_rows || b >= width) return make_uint4(pad, pad, pad, pad);
-  const uint8_t* p = base + row * width + b;
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t v = 0;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int idx = 4 * j + t;
-      const uint32_t byte = b + idx < width ? (uint32_t)__ldg(p + idx)
-                                            : (pad & 0xFFu);
-      v |= byte << (8 * t);
-    }
-    w[j] = v;
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// packed-int4 word -> (even-dim, odd-dim) signed nibble words
-__device__ __forceinline__ void unpack4(uint32_t raw, int& lo, int& hi) {
-  lo = (int)__vsub4(raw & 0x0F0F0F0Fu, 0x08080808u);
-  hi = (int)__vsub4((raw >> 4) & 0x0F0F0F0Fu, 0x08080808u);
-}
-
-// I4: x holds packed bytes (width = d/2 per row), q0 / q1 the even / odd
-// query halves (width bytes each); else x and q0 are int8 rows of width = d.
-template <int BQ, bool I4>
-__global__ void __launch_bounds__(NT)
-qscore_l2_kernel(const int8_t* __restrict__ q0, const int8_t* __restrict__ q1,
-                 const uint8_t* __restrict__ x, int32_t* __restrict__ out,
-                 int Q, long long N, int width, long long n_tiles, bool x_vec,
-                 bool q_vec) {
-  constexpr int P = I4 ? 2 : 1;                 // query planes
-  constexpr uint32_t XPAD = I4 ? 0x88888888u : 0u;
-  __shared__ __align__(16) uint32_t xs[BN * XS];
-  __shared__ __align__(16) uint32_t qs[P * BQ * CW];
-  __shared__ int qq_s[BQ];
-
-  const int tid = threadIdx.x;
-  const int qbase = blockIdx.x * BQ;
-  const int n_chunks = (width + CB - 1) / CB;
-
-  for (long long tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
-    const long long n0 = tile * BN;
-    int acc[BQ][TR];
-    int xx[TR];
-#pragma unroll
-    for (int q = 0; q < BQ; ++q)
-#pragma unroll
-      for (int r = 0; r < TR; ++r) acc[q][r] = 0;
-#pragma unroll
-    for (int r = 0; r < TR; ++r) xx[r] = 0;
-    int qq = 0;                        // |q|^2 of query `tid` (tid < BQ)
-
-    for (int c = 0; c < n_chunks; ++c) {
-      const int cb = c * CB;
-      __syncthreads();                 // the previous chunk has been read
-      // corpus chunk: BN rows x SEG segments, all loads before the stores
-      uint4 v[BN * SEG / NT];
-#pragma unroll
-      for (int j = 0; j < BN * SEG / NT; ++j) {
-        const int i = tid + j * NT;
-        v[j] = load_seg(x, n0 + i / SEG, N, width, cb + (i % SEG) * 16, x_vec,
-                        XPAD);
-      }
-#pragma unroll
-      for (int j = 0; j < BN * SEG / NT; ++j) {
-        const int i = tid + j * NT;
-        *reinterpret_cast<uint4*>(&xs[(i / SEG) * XS + (i % SEG) * 4]) = v[j];
-      }
-      // query chunk: P planes x BQ rows x SEG segments (0 past Q and width)
-      for (int i = tid; i < P * BQ * SEG; i += NT) {
-        const int p = i / (BQ * SEG);
-        const int rq = (i / SEG) % BQ;
-        const uint4 w = load_seg(reinterpret_cast<const uint8_t*>(p ? q1 : q0),
-                                 qbase + rq, Q, width, cb + (i % SEG) * 16,
-                                 q_vec, 0u);
-        *reinterpret_cast<uint4*>(&qs[(p * BQ + rq) * CW + (i % SEG) * 4]) = w;
-      }
-      __syncthreads();
-      if (tid < BQ) {
-#pragma unroll
-        for (int w = 0; w < P * CW; ++w) {
-          const int v = (int)qs[((w / CW) * BQ + tid) * CW + w % CW];
-          qq = __dp4a(v, v, qq);
-        }
-      }
-
-#pragma unroll
-      for (int s = 0; s < SEG; ++s) {
-        // this thread's TR rows: 4 words each (unpacked to 8 for int4)
-        int xa[TR][4], xb[TR][4];
-#pragma unroll
-        for (int r = 0; r < TR; ++r) {
-          const uint4 w = *reinterpret_cast<const uint4*>(
-              &xs[(tid + r * NT) * XS + s * 4]);
-          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (I4) {
-              unpack4(ws[j], xa[r][j], xb[r][j]);
-              xx[r] = __dp4a(xa[r][j], xa[r][j], xx[r]);
-              xx[r] = __dp4a(xb[r][j], xb[r][j], xx[r]);
-            } else {
-              xa[r][j] = (int)ws[j];
-              xb[r][j] = 0;
-              xx[r] = __dp4a(xa[r][j], xa[r][j], xx[r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < BQ; ++q) {
-          const uint4 qa = *reinterpret_cast<const uint4*>(&qs[q * CW + s * 4]);
-          const int qa4[4] = {(int)qa.x, (int)qa.y, (int)qa.z, (int)qa.w};
-          int qb4[4] = {0, 0, 0, 0};
-          if (I4) {
-            const uint4 qb = *reinterpret_cast<const uint4*>(
-                &qs[(BQ + q) * CW + s * 4]);
-            qb4[0] = (int)qb.x; qb4[1] = (int)qb.y;
-            qb4[2] = (int)qb.z; qb4[3] = (int)qb.w;
-          }
-#pragma unroll
-          for (int r = 0; r < TR; ++r)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[q][r] = __dp4a(qa4[j], xa[r][j], acc[q][r]);
-              if (I4) acc[q][r] = __dp4a(qb4[j], xb[r][j], acc[q][r]);
-            }
-        }
-      }
-    }
-
-    if (tid < BQ) qq_s[tid] = qq;
-    __syncthreads();
-    // epilogue: -(qq + xx - 2 dot), wrapping as int32
-#pragma unroll
-    for (int q = 0; q < BQ; ++q) {
-      const int qi = qbase + q;
-      if (qi >= Q) break;
-      int32_t* orow = out + (long long)qi * N;
-#pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        const long long n = n0 + tid + r * NT;
-        if (n >= N) continue;
-        const uint32_t t = (uint32_t)qq_s[q] + (uint32_t)xx[r] -
-                           2u * (uint32_t)acc[q][r];
-        __stcs(orow + n, (int)(0u - t));
-      }
-    }
-  }
-}
-
-template <int BQ, bool I4>
-cudaError_t launch_l2(const void* q0, const void* q1, const void* x,
-                      void* out, int Q, long long N, int width,
-                      cudaStream_t stream) {
-  const bool x_vec = rows16(x, width);
-  const bool q_vec = rows16(q0, width) && (q1 == nullptr || rows16(q1, width));
-  const long long n_tiles = (N + BN - 1) / BN;
-  dim3 grid((Q + BQ - 1) / BQ,
-            (unsigned)(n_tiles < 65535 ? n_tiles : 65535));
-  qscore_l2_kernel<BQ, I4><<<grid, NT, 0, stream>>>(
-      (const int8_t*)q0, (const int8_t*)q1, (const uint8_t*)x,
-      (int32_t*)out, Q, N, width, n_tiles, x_vec, q_vec);
-  return cudaGetLastError();
-}
-
-template <bool I4>
-cudaError_t launch_l2_bq(int bq, const void* q0, const void* q1,
-                         const void* x, void* out, int Q, long long N,
-                         int width, cudaStream_t st) {
-  switch (bq) {
-    case 1: return launch_l2<1, I4>(q0, q1, x, out, Q, N, width, st);
-    case 2: return launch_l2<2, I4>(q0, q1, x, out, Q, N, width, st);
-    case 4: return launch_l2<4, I4>(q0, q1, x, out, Q, N, width, st);
-    case 8: return launch_l2<8, I4>(q0, q1, x, out, Q, N, width, st);
-    case 16: return launch_l2<16, I4>(q0, q1, x, out, Q, N, width, st);
+    case 8: return launch_mma<8, I4, L2>(q0, q1, x, out, Q, N, width, st);
+    case 16: return launch_mma<16, I4, L2>(q0, q1, x, out, Q, N, width, st);
+    case 32: return launch_mma<32, I4, L2>(q0, q1, x, out, Q, N, width, st);
+    case 64: return launch_mma<64, I4, L2>(q0, q1, x, out, Q, N, width, st);
+    case 128: return launch_mma<128, I4, L2>(q0, q1, x, out, Q, N, width, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -616,22 +483,19 @@ cudaError_t launch_l2_bq(int bq, const void* q0, const void* q1,
 
 // i4: 0 for int8 rows (q0 [Q, width], x [N, width] int8), 1 for packed int4
 // (q0 / q1 the even / odd query halves [Q, width] int8, x [N, width] uint8
-// packed bytes); l2: 0 inner product (B6 / B8a, tensor cores; tile = queries
-// per output tile: 8, 16, 32, 64 or 128), 1 negated squared L2 (B7 / B8b,
-// dp4a; tile = queries per block: 1, 2, 4, 8 or 16).  Writes out [Q, N]
-// int32 on `stream`; returns the launch's cudaError_t (0 on success).
+// packed bytes); l2: 0 inner product (B6 / B8a), 1 negated squared L2 (B7 /
+// B8b); tile: queries per output tile (8, 16, 32, 64 or 128).  Writes out
+// [Q, N] int32 on `stream`; returns the launch's cudaError_t (0 on
+// success).
 extern "C" int rt_qscore(int i4, int l2, int tile, const void* q0,
                          const void* q1, const void* x, void* out, int Q,
                          long long N, int width, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
   if (width <= 0 || (i4 && q1 == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (l2)
-    err = i4 ? launch_l2_bq<true>(tile, q0, q1, x, out, Q, N, width, st)
-             : launch_l2_bq<false>(tile, q0, q1, x, out, Q, N, width, st);
-  else
-    err = i4 ? launch_mma_bn<true>(tile, q0, q1, x, out, Q, N, width, st)
-             : launch_mma_bn<false>(tile, q0, q1, x, out, Q, N, width, st);
-  return (int)err;
+  const auto launch = i4 ? (l2 ? launch_mma_bn<true, true>
+                                : launch_mma_bn<true, false>)
+                         : (l2 ? launch_mma_bn<false, true>
+                               : launch_mma_bn<false, false>);
+  return (int)launch(tile, q0, q1, x, out, Q, N, width, st);
 }

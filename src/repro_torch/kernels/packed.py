@@ -27,9 +27,13 @@ LAUNCHES = {"qmip4": 0, "ql24": 0}
 
 
 def split_nibble_queries(q_codes: torch.Tensor):
-    """[Q, d] int4-valued codes -> the (even, odd) dim halves [Q, d/2]."""
-    assert q_codes.shape[1] % 2 == 0, q_codes.shape
-    return q_codes[:, 0::2].contiguous(), q_codes[:, 1::2].contiguous()
+    """[Q, d] int4-valued codes -> the (even, odd) dim halves [Q, d/2],
+    contiguous views of one [2, Q, d/2] copy (a single copy kernel on
+    CUDA, where it precedes every packed-int4 launch)."""
+    q_rows, d = q_codes.shape
+    assert d % 2 == 0, q_codes.shape
+    return q_codes.reshape(q_rows, d // 2, 2).permute(2, 0, 1).contiguous(
+    ).unbind(0)
 
 
 def merge_nibble_queries(q_even: torch.Tensor, q_odd: torch.Tensor):

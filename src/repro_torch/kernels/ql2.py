@@ -3,10 +3,11 @@
 
     out[i, j] = -( |q_i|^2 + |x_j|^2 - 2 q_i . x_j )   (int32)
 
-``ql2_cuda`` launches ``csrc/qscore.cu`` for CUDA tensors, which recomputes
-both norms inside each block as ``_ql2_kernel`` does per tile; a CPU tensor
-takes the plain version (``ref.ql2_ref``), and only because it lies on the
-CPU.  A CUDA tensor either launches the kernel or raises.
+``ql2_cuda`` launches the L2 form of B6's tensor-core kernel
+(``csrc/qscore.cu``) for CUDA tensors, which sums both norms from the
+fragments it multiplies, as ``_ql2_kernel`` recomputes them per tile; a CPU
+tensor takes the plain version (``ref.ql2_ref``), and only because it lies
+on the CPU.  A CUDA tensor either launches the kernel or raises.
 """
 
 from __future__ import annotations

@@ -560,18 +560,25 @@ def test_rerank_search_at_wide_depth_matches_cpu(dev):
     assert (got.ids.cpu() != want.ids).float().mean().item() < 0.01
 
 
-#: edge cases of the tensor-core kernel's tiling (B6, B8a; run for B7 and
-#: B8b too): Q at each query-tile boundary; N at and just past the corpus
-#: tile ("t") and k times the SM count of tiles ("s<k>", the persistent
-#: stride at k blocks an SM), odd N leaving output rows unaligned; d = 31,
-#: 32, 33 and a packed width of 17 bytes; and a corpus view at an unaligned
-#: base (``offset`` 1: ``x[1:]`` of an [N + 1, d] buffer).
+#: edge cases of the tensor-core kernel's tiling (B6-B8): Q at each
+#: query-tile boundary; N at and just past the corpus tile ("t") and k
+#: times the SM count of tiles ("s<k>", the persistent stride at k blocks
+#: an SM), odd N leaving output rows unaligned; d = 31 ... 34; rows of 17,
+#: 50, 51 and 129 bytes when packed (B8b's pad bytes past the row are not a
+#: multiple of a 64-byte chunk), each also as a corpus view at an unaligned
+#: base (``offset`` 1: ``x[1:]`` of an [N + 1, d] buffer); and "wrap": the
+#: extreme pairs at a width where -(|q|^2 + |x|^2 - 2 q . x) wraps in int32.
 EDGE_CASES = (
     [(q, 1000, 128, 0) for q in (1, 7, 8, 9, 16, 17, 64, 65, 128, 129)]
     + [(q, n, 64, 0) for q in (1, 100)
        for n in ("t", "t+1", "s1", "s1+1", "s2", "s2+1")]
     + [(5, 333, d, 0) for d in (31, 32, 33, 34)]
-    + [(9, 1000, d, 1) for d in (100, 102)])
+    + [(9, 1000, 2 * w, off) for w in (17, 50, 51, 129) for off in (0, 1)]
+    + [(2, 3, "wrap", 0)])
+#: the "wrap" width: (-128 - 127)^2 d passes 2^31 for int8 rows, (-128 -
+#: 7)^2 d for int8 queries against int4 nibbles
+WRAP_WIDTHS = {"qmip": 33_040, "ql2": 33_040, "qmip4": 117_840,
+               "ql24": 117_840}
 
 
 def _resolve_n(n, q, dev):
@@ -600,7 +607,10 @@ def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d, offset):
     from repro_torch.kernels import qmip as IPK
 
     packed = name in ("qmip4", "ql24")
-    if packed and d % 2:
+    wrap = d == "wrap"
+    if wrap:
+        d = WRAP_WIDTHS[name]
+    elif packed and d % 2:
         d += 1
     N = _resolve_n(N, Q, dev)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -611,6 +621,8 @@ def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d, offset):
     q[0] = -lim
     x[offset] = -lim
     x[-1] = lim - 1
+    if wrap:                          # int8 queries at both ends of the range
+        q[0], q[1] = -128, 127
     plain = {"qmip": IPK.qmip_plain, "ql2": L2K.ql2_plain,
              "qmip4": PKD.qmip4_plain, "ql24": PKD.ql24_plain}[name]
     if packed:
@@ -625,3 +637,5 @@ def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d, offset):
         assert (x if not packed else px).data_ptr() % 16 != 0
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    if wrap and name in ("ql2", "ql24"):
+        assert want[0, -1] > 0          # the sum of squares wrapped

@@ -90,6 +90,30 @@ def test_extreme_codes_match_reference(name, bits):
     np.testing.assert_array_equal(got, want)
 
 
+#: widths at which the extreme pairs' sum of squared differences passes
+#: 2^31: (-128 - 127)^2 d for int8 rows, (-128 - 7)^2 d for int8 queries
+#: against int4 nibbles
+WRAP_WIDTHS = {"ql2": 33_040, "ql24": 117_840}
+
+
+@pytest.mark.parametrize("name", ["ql2", "ql24"])
+def test_l2_wraps_as_the_reference(name):
+    """-(|q|^2 + |x|^2 - 2 q . x) past int32: both sides wrap alike (the
+    reference's int32 arithmetic), so the CUDA kernel's uint32 combine has
+    one answer to match."""
+    d = WRAP_WIDTHS[name]
+    hi = 127 if name == "ql2" else 7
+    q = np.array([[-128] * d, [127] * d], dtype=np.int8)
+    x = np.array([[hi] * d, [-128 if name == "ql2" else -8] * d, [0] * d],
+                 dtype=np.int8)
+    if name == "ql24":
+        x = np.array(RP.pack_int4(jnp.asarray(x)))
+    got, want = _both(name, q, x)
+    np.testing.assert_array_equal(got, want)
+    # the first pair wrapped: a negated sum of squares came out positive
+    assert got[0, 0] > 0 and got[1, 2] < 0
+
+
 def test_cpu_calls_count_no_launch_and_tiles_follow_q():
     kernels.reset_launch_counts()
     rng = np.random.default_rng(3)
@@ -100,8 +124,10 @@ def test_cpu_calls_count_no_launch_and_tiles_follow_q():
     counts = kernels.launch_counts()
     assert {"qmip", "ql2", "qmip4", "ql24"} <= set(counts)
     assert set(counts.values()) == {0}
-    assert [_qscore.query_tile(n) for n in (1, 2, 3, 9, 16, 17, 512)] == [
-        1, 2, 4, 16, 16, 16, 16]
+    # B7 and B8b share the tensor-core kernel's output tile with B6 / B8a
+    assert [_qscore.mma_tiles(n) for n in (1, 2, 3, 9, 16, 17, 64, 65, 512)] == [
+        (8, 256), (8, 256), (8, 256), (16, 256), (16, 256), (32, 256),
+        (64, 128), (128, 128), (128, 128)]
     # the plain versions split / merge the query halves losslessly
     qe, qo = TPK.split_nibble_queries(q)
     assert torch.equal(TPK.merge_nibble_queries(qe, qo), q)
