@@ -57,10 +57,25 @@ Phases (each prints its lines; any failure exits non-zero):
               plain path's; then the public score-matrix ops (B6-B8) as
               one run of their own; then recall@100 at n=20000 within 0.01
               of the reference's (REF_RETRIEVAL_RECALL)
+  7. graph    the graph walk and HNSW: (a) hnsw8 int8 ip / l2 / angular
+              and packed-int4 arms at 4,000 x 64, built on the card and on
+              the CPU from the same levels: adjacency and entry equal, and a
+              bucketed Searcher's ids and scores equal at ef_search 40 and
+              80 (fp32 hnsw8: recall@10 within 0.01); (b) the paper's arm
+              hnsw32,lpq8@gaussian:3 and hnsw32 (ef_construction 300, batch
+              256) at product-like 20,000 x 256, 128 queries: recall@100 at
+              ef_search 300 and 800 within max(0.02, the reference's spread)
+              of the reference's mean (REF_HNSW); (c) the same arms at
+              GRAPH_N x 256 as one run of the main path (counters set to 0
+              before, read after): build seconds, memory against the
+              reference's formula, recall@100, QPS and p50 at 256-query
+              requests and the mixed 1/8/32 stream, then one request's walk
+              steps, iterations a query, B1 launches (1 int8, 0 fp32) and
+              kernels a step (torch.profiler, at ef_search 300)
 
 Output: one JSON line of kernel records (times and bound at each record's
-``shape``, launches summed over the runs of phase 4, the retrieval path
-and the score-matrix ops), then the card's name and power
+``shape``, launches summed over the runs of phase 4, the retrieval path,
+the score-matrix ops and the graph path), then the card's name and power
 limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1477,6 +1492,258 @@ def retrieval_recall() -> None:
          f"{REF_RETRIEVAL_RECALL}")
 
 
+# --------------------------------------------------------------------------
+# phase 7: the graph walk and HNSW (the paper's hnsw32,lpq8@gaussian:3 arm)
+# --------------------------------------------------------------------------
+
+#: phase 7(a): integer arms (factory, metric) built and searched on the card
+#: and on the CPU from the same levels, held bit-equal
+GRAPH_EXACT = (("hnsw8,lpq8@gaussian:3", "ip"), ("hnsw8,lpq8", "l2"),
+               ("hnsw8,lpq8@global_absmax", "angular"), ("hnsw8,lpq4", "ip"))
+#: the paper's arm and its fp32 pair (src/repro/configs/lpq_ann.py:24),
+#: built with Table 1's batch and paper section 5.2's smallest EFC and M
+GRAPH_ARMS = ("hnsw32,lpq8@gaussian:3", "hnsw32")
+GRAPH_BUILD = {"ef_construction": 300, "batch_size": 256}
+GRAPH_EF = (300, 800)
+#: phase 7(c)'s product-like rows.  The build is the reference's host-side,
+#: point-by-point commit (src/repro/knn/hnsw.py:149-204), which the port
+#: copies, beside a walk of some 50 small launches a step: one 100,000-row
+#: int8 build took 250-264 s on the H100 (scripts/hnsw_probe.py), so two
+#: arms at 100,000 rows would take the script to about 780 s, past half
+#: its 1200 s limit; at 50,000 rows it stays inside that half
+GRAPH_N = 50_000
+
+#: the reference's HNSW recall@100 at n=20000 x 256 product-like, 128
+#: queries, ef_construction 300, batch 256: (mean, spread = max - min) over
+#: three seeds of data and levels, at each ef_search, measured on the CPU
+#: by scripts/hnsw_reference_recall.py
+REF_HNSW = {
+    ("hnsw32,lpq8@gaussian:3", 300): (0.9015, 0.0049),
+    ("hnsw32,lpq8@gaussian:3", 800): (0.9798, 0.0020),
+    ("hnsw32", 300): (0.9024, 0.0042),
+    ("hnsw32", 800): (0.9929, 0.0017),
+}
+
+
+def hnsw_memory(idx, n: int, d: int) -> int:
+    """The reference's HNSW memory formula (src/repro/knn/hnsw.py:373-382):
+    the store (int8 codes + Eq. 1 constants, or fp32 rows) plus 4 bytes a
+    slot of every dense layer, [N, 2m] at layer 0 and [N, m] above."""
+    store = n * d + 3 * d * 4 if idx.quantized else n * d * 4
+    return store + 4 * n * (2 * idx.m + (len(idx.layers) - 1) * idx.m)
+
+
+def graph_exact() -> None:
+    """7(a): each integer arm built on the card and on the CPU from the same
+    inputs (the port's own levels, Eq. 1 constants learned once on the
+    CPU: each device's reductions round the corpus statistics their own
+    way) has the same codes, the same adjacency, layer for layer, and the
+    same entry; a Searcher with buckets (1, 8, 32, 256) returns the same
+    ids and scores on both devices for 256 queries (requests of 1, 8, 32
+    and 215, one a bucket) at ef_search 40 and 80.  The fp32 arm: the
+    card's recall@10 within 0.01 of the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.knn import SearchParams, as_spec, make_index
+    from repro_torch.knn.hnsw import HNSWIndex, draw_levels
+
+    n, d = 4000, 64
+    rng = np.random.default_rng(7)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((256, d)).astype(np.float32)
+    levels = draw_levels(n, 8, 0)
+
+    def build(f, metric, dev):
+        spec = as_spec(f, metric=metric)
+        if spec.quant is not None:
+            qp = spec.quant.learn(torch.from_numpy(corpus))
+            spec = dataclasses.replace(spec, quant=spec.quant.with_params(qp))
+        return HNSWIndex.build(corpus, spec, device=dev, ef_construction=40,
+                               batch_size=128, _levels=levels)
+
+    def requests(idx, ef):
+        s = idx.searcher(10, SearchParams(ef_search=ef), batch_sizes=BUCKETS)
+        out, start = [], 0
+        for b in (1, 8, 32, 215):
+            out.append(s(queries[start:start + b]))
+            start += b
+        return (torch.cat([r.scores.cpu() for r in out]),
+                torch.cat([r.ids.cpu() for r in out]))
+
+    # why one set of constants: the card's reductions round them otherwise
+    quant = as_spec(GRAPH_EXACT[0][0]).quant
+    x = torch.from_numpy(corpus)
+    own = [quant.learn(x.to(dev)) for dev in ("cuda", "cpu")]
+    consts = sum(int(torch.sum(getattr(own[0], a).cpu() != getattr(own[1], a)))
+                 for a in ("lo", "hi", "zero"))
+    codes = int(torch.sum(quant.encode(x.cuda(), own[0]).cpu()
+                          != quant.encode(x, own[1])))
+    log(f"[graph] {GRAPH_EXACT[0][0]} {n}x{d}: Eq. 1 constants learned on "
+        f"the card differ from the CPU's in {consts} of {3 * d} values, the "
+        f"codes in {codes} of {n * d}")
+    for f, metric in GRAPH_EXACT:
+        t0 = time.perf_counter()
+        card = build(f, metric, "cuda")
+        card_s = time.perf_counter() - t0
+        cpu = build(f, metric, "cpu")
+        need(torch.equal(card.store.data.cpu(), cpu.store.data),
+             f"{f} {metric}: the card's codes differ from the CPU's")
+        need(len(card.layers) == len(cpu.layers) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(card.layers, cpu.layers)),
+            f"{f} {metric}: the card's adjacency differs from the CPU's")
+        need(card.entry == cpu.entry, f"{f} {metric}: entry differs")
+        for ef in (40, 80):
+            (sa, ia), (sb, ib) = requests(card, ef), requests(cpu, ef)
+            need(torch.equal(ia, ib) and torch.equal(sa, sb),
+                 f"{f} {metric} ef_search {ef}: the card's results differ "
+                 "from the CPU's")
+        log(f"[graph] {f} {metric} {n}x{d}: {len(card.layers)} layers, "
+            f"adjacency and entry equal to the CPU build's; Searcher ids and "
+            f"scores equal at ef_search 40 and 80 (card build "
+            f"{card_s:.2f} s)")
+    gt = make_index("flat", corpus, device="cpu").search(queries, 10).ids
+    rec = {dev: recall_at_k(gt, requests(build("hnsw8", "ip", dev), 40)[1])
+           for dev in ("cuda", "cpu")}
+    ok = abs(rec["cuda"] - rec["cpu"]) <= 0.01
+    log(f"[graph] hnsw8 ip (fp32) {n}x{d}: recall@10 card {rec['cuda']:.4f} "
+        f"CPU {rec['cpu']:.4f} (|diff| <= 0.01: {ok})")
+    need(ok, f"hnsw8: card recall {rec['cuda']:.4f} vs CPU {rec['cpu']:.4f}")
+
+
+def graph_recall() -> None:
+    """7(b): the paper's arm and its fp32 pair at n=20000 x 256
+    product-like, 128 queries: recall@100 against the fp32 flat arm at each
+    ef_search within max(0.02, the reference's spread) of the reference's
+    mean (REF_HNSW)."""
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.knn import SearchParams, make_index
+
+    corpus, queries, metric = synthetic.load("product", 20000, 128)
+    gt = make_index("flat", corpus, metric=metric).search(queries, 100).ids
+    for f in GRAPH_ARMS:
+        idx = make_index(f, corpus, metric=metric, **GRAPH_BUILD)
+        for ef in GRAPH_EF:
+            s = idx.searcher(100, SearchParams(ef_search=ef))
+            rec = recall_at_k(gt, s(queries).ids)
+            want, spread = REF_HNSW[f, ef]
+            tol = max(0.02, spread)
+            ok = abs(rec - want) <= tol
+            log(f"[graph] product 20000x256 {metric} {f} ef_search {ef}: "
+                f"recall@100 {rec:.4f} (reference mean {want}, spread "
+                f"{spread}, |diff| <= {tol}: {ok}) | {smi()}")
+            need(ok, f"HNSW recall for {f} at ef_search {ef}: {rec:.4f} vs "
+                 f"{want} +- {tol}")
+
+
+def walk_request(searcher, queries, profiled: bool):
+    """One request's walk: its layer-0 and upper-layer steps and per-query
+    iterations (``graph.STEPS``), its B1 launches, and, when ``profiled``,
+    the CUDA kernels a step from a torch.profiler trace of it (device
+    kernel records, or the host's launch calls where the trace holds no
+    device record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.knn import graph as G
+
+    before = kernels.launch_counts()["quantize"]
+    G.reset_steps()
+    if not profiled:
+        searcher(queries)
+        torch.cuda.synchronize()
+        return dict(G.STEPS), kernels.launch_counts()["quantize"] - before, None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        searcher(queries)
+        torch.cuda.synchronize()
+    steps = dict(G.STEPS)
+    events = prof.events()
+    launched = sum(1 for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if launched == 0:
+        launched = sum(1 for e in events if e.name.startswith("cudaLaunch"))
+    per_step = launched / max(steps["beam"] + steps["greedy"], 1)
+    return steps, kernels.launch_counts()["quantize"] - before, per_step
+
+
+def graph_path() -> dict:
+    """7(c): the paper's arm and its fp32 pair at GRAPH_N x 256
+    product-like through make_index + Searcher, one run of the path with the
+    launch counters set to 0 before it and read after: build seconds, the
+    memory ratio (against the reference's formula, over the fp32 graph and
+    over fp32 flat), recall@100 against the fp32 flat arm, QPS and p50 at
+    256-query requests and for the mixed 1/8/32 stream at each ef_search.
+    Then, per arm and ef_search, one 256-query request's walk: layer-0
+    steps, iterations a query, B1 launches, and (at the first ef_search,
+    under torch.profiler) kernels a step."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.knn import SearchParams, make_index
+
+    card = smi()
+    n, k = GRAPH_N, 100
+    corpus, queries, metric = synthetic.load("product", n, 1000)
+    d = corpus.shape[1]
+    gt = make_index("flat", corpus, metric=metric).search(queries, k).ids
+    kernels.reset_launch_counts()
+    built, mem = {}, {}
+    for f in GRAPH_ARMS:
+        t0 = time.perf_counter()
+        idx = make_index(f, corpus, metric=metric, **GRAPH_BUILD)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mem[f] = idx.memory_bytes()
+        need(mem[f] == hnsw_memory(idx, n, d),
+             f"{f}: memory {mem[f]} is not the reference's formula's "
+             f"{hnsw_memory(idx, n, d)}")
+        for ef in GRAPH_EF:
+            s = idx.searcher(k, SearchParams(ef_search=ef))
+            ids, qps, p50, _ = serve(idx, queries, k, (256,), s)
+            need(ids.shape == (1000, k) and bool(torch.all(ids >= 0)),
+                 f"{f}: bad ids")
+            rec = recall_at_k(gt, ids)
+            _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+            log(f"[graph] product {n}x{d} {metric} {f} ef_search {ef}: "
+                f"recall@100 {rec:.4f} QPS {qps:.1f} p50 {p50:.2f} ms "
+                f"(256-query requests); mixed 1/8/32: QPS {mqps:.1f} p50 "
+                f"{mp50:.2f} ms | {card}")
+        log(f"[graph] {f}: build {build_s:.2f} s ({len(idx.layers)} layers), "
+            f"memory {mem[f]} bytes = {mem[f] / (n * d * 4):.4f} of fp32 "
+            f"flat | {card}")
+        built[f] = idx
+    run = kernels.launch_counts()
+    log(f"[graph] kernel launches on this run of the graph path: {run}")
+    need(run["quantize"] > 0, "kernel quantize was never launched on the "
+         "graph path")
+    q8, q32 = GRAPH_ARMS
+    log(f"[graph] memory ratio {q8} / {q32}: {mem[q8] / mem[q32]:.4f}")
+    for f, idx in built.items():
+        for ef in GRAPH_EF:
+            s = idx.searcher(k, SearchParams(ef_search=ef))
+            steps, b1, per_step = walk_request(s, queries[:256],
+                                               profiled=ef == GRAPH_EF[0])
+            kern = ("" if per_step is None
+                    else f", {per_step:.1f} CUDA kernels a step")
+            log(f"[graph] {f} ef_search {ef}, one 256-query request: "
+                f"{steps['beam']} layer-0 steps ({steps['beam_iters'] / 256:.1f} "
+                f"iterations a query), {steps['greedy']} upper-layer "
+                f"steps{kern}, {b1} B1 launches")
+            need(b1 == (1 if idx.quantized else 0),
+                 f"{f}: {b1} B1 launches in one request")
+    del built, corpus, queries, gt
+    torch.cuda.empty_cache()
+    return {"quantize": run["quantize"]}
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -1542,6 +1809,10 @@ def main() -> int:
                 counts[name] = counts.get(name, 0) + c
         table2()
         retrieval_recall()
+        graph_exact()
+        graph_recall()
+        for name, c in graph_path().items():
+            counts[name] += c
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

@@ -1,9 +1,10 @@
 """Carry a reference index's state into the port.
 
 The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
-``rr_`` rerank prefix), or a reference-saved npz, holds nothing
-JAX-specific: numpy arrays plus a JSON-able meta record; so does a
-recsys ``QuantizedTable`` (int8 codes and Eq. 1 constants).  These helpers
+``rr_`` rerank prefix), an HNSW graph's layers, levels and entry, or a
+reference-saved npz, holds nothing JAX-specific: numpy arrays plus a
+JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
+and Eq. 1 constants).  These helpers
 turn them into the port's objects so both packages can run on the same
 codes, codebooks and Eq. 1 constants.
 """
@@ -17,6 +18,7 @@ import numpy as np
 from repro_torch.core.quant import QuantParams
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.knn.flat import FlatIndex
+from repro_torch.knn.hnsw import HNSWIndex
 from repro_torch.knn.pq import PQIndex
 from repro_torch.models.recsys.embedding import QuantizedTable
 
@@ -55,6 +57,18 @@ def pq_from_reference_state(arrays: dict[str, np.ndarray],
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return PQIndex.from_state(arrays, meta, device=device)
+
+
+def hnsw_from_reference_state(arrays: dict[str, np.ndarray],
+                              meta: dict[str, Any], device) -> HNSWIndex:
+    """A reference HNSW index's (arrays, meta) -> the port's ``HNSWIndex``.
+
+    ``arrays`` hold ``levels``, ``layer_<l>`` and the store (plus ``rr_``)
+    arrays; ``meta`` holds ``metric``, ``m``, ``entry``, ``n_layers`` and the
+    store records, as ``HNSWIndex.save`` writes them.
+    """
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return HNSWIndex.from_state(arrays, meta, device=device)
 
 
 def quantized_table_from_numpy(codes: np.ndarray, lo: np.ndarray,

@@ -5,6 +5,7 @@ from repro_torch.engine.scorer import (  # noqa: F401
     NEG,
     build_pq_lut,
     chunked_topk,
+    make_batch_score_set,
     make_score_set,
     merge_topk,
     pad_rows,

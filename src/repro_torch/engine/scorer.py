@@ -1,9 +1,9 @@
 """The scoring engine's query hot path (port of the main-path half of
 ``repro.engine.scorer``).
 
-``topk`` / ``topk_among`` / ``make_score_set`` own metric x bits dispatch,
-chunking, invalid-id masking and streaming top-k; index classes hold
-structure and delegate every score here.
+``topk`` / ``topk_among`` / ``make_score_set`` / ``make_batch_score_set``
+own metric x bits dispatch, chunking, invalid-id masking and streaming
+top-k; index classes hold structure and delegate every score here.
 
 Dispatch (metric x storage), by the store's device:
 
@@ -130,6 +130,19 @@ def make_score_set(store: CodeStore, metric: str) -> ScoreSet:
         vecs = store.take(ids)
         return D.scores(q[None], vecs, metric,
                         quantized=store.quantized)[0].to(torch.float32)
+
+    return score_set
+
+
+def make_batch_score_set(store: CodeStore, metric: str) -> ScoreSet:
+    """(queries [Q, d], ids [Q, W]) -> larger-is-closer [Q, W] f32 over
+    store rows: the batched graph walk's score set.  Integer scores are
+    summed exactly and cast to f32 afterwards, as ``make_score_set``'s."""
+
+    def score_set(q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        rows = store.take(ids)                             # [Q, W, d]
+        return D.scores_among(q, rows, metric,
+                              quantized=store.quantized).to(torch.float32)
 
     return score_set
 

@@ -21,9 +21,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class SearchParams:
     """Union of every index kind's search-time knobs (see the reference):
-    ``chunk`` bounds the exhaustive scan's working set; ``nprobe``,
-    ``ef_search`` and ``budgets`` belong to kinds not ported yet; ``filter``
-    is not ported yet and must stay None."""
+    ``chunk`` bounds the exhaustive scan's working set; ``ef_search`` is
+    the hnsw beam width; ``nprobe`` and ``budgets`` belong to kinds not
+    ported yet; ``filter`` is not ported yet and must stay None."""
 
     chunk: int = 16384
     nprobe: int = 8

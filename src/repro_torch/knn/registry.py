@@ -1,11 +1,11 @@
 """kind -> implementation registry and the ``make_index`` / ``load_index``
 entry points (port of ``repro.knn.registry``).
 
-``flat`` and ``pq`` are ported.  Every other kind the grammar parses raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  Entry
-points run on the card by default: ``device=None`` resolves to ``cuda``
-and raises when no CUDA device exists; pass ``device="cpu"`` to run on
-the CPU.
+``flat``, ``hnsw`` and ``pq`` are ported.  Every other kind the grammar
+parses raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.  Entry points run on the card by default: ``device=None`` resolves to
+``cuda`` and raises when no CUDA device exists; pass ``device="cpu"`` to
+run on the CPU.
 """
 
 from __future__ import annotations
@@ -19,8 +19,7 @@ _REGISTRY: dict[str, type] = {}
 
 #: parsed kinds that are not ported yet -> the ROADMAP queue A item
 NOT_PORTED = {
-    "hnsw": "queue A6 (graph kinds)",
-    "graph": "queue A6 (graph kinds)",
+    "graph": "queue A6b (knn/graph_index.py)",
     "ivf": "queue A7 (knn/ivf.py)",
     "stream": "queue A10 (stream/)",
     "cascade": "queue A11 (cascade/)",
@@ -40,6 +39,7 @@ def register(kind: str):
 
 def _ensure_registered() -> None:
     from repro_torch.knn import flat  # noqa: F401  (kind "flat")
+    from repro_torch.knn import hnsw  # noqa: F401  (kind "hnsw")
     from repro_torch.knn import pq  # noqa: F401  (kind "pq")
 
 

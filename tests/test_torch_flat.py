@@ -178,11 +178,11 @@ def test_factory_grammar_rejects_what_the_reference_rejects(bad):
 
 def test_unported_kinds_and_options_raise_clearly(data):
     corpus, queries = data
-    assert kinds() == ("flat", "pq")
+    assert kinds() == ("flat", "hnsw", "pq")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
         make_index("ivf8,lpq8", corpus, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        make_index("hnsw8,lpq8", corpus, device="cpu")
+        make_index("graph24,lpq8", corpus, device="cpu")
     idx = make_index("flat,lpq8", corpus, device="cpu")
     with pytest.raises(NotImplementedError, match="filter is not ported"):
         idx.searcher(K, SearchParams(filter=object()))

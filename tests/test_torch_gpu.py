@@ -639,3 +639,44 @@ def test_score_matrix_bit_equal_to_plain(dev, name, Q, N, d, offset):
     assert got.dtype == torch.int32 and torch.equal(got, want)
     if wrap and name in ("ql2", "ql24"):
         assert want[0, -1] > 0          # the sum of squares wrapped
+
+
+@pytest.mark.parametrize("f,metric", [("hnsw8,lpq8@gaussian:3", "ip"),
+                                      ("hnsw8,lpq8", "l2"),
+                                      ("hnsw8,lpq8@global_absmax", "angular"),
+                                      ("hnsw8,lpq4", "ip")])
+def test_hnsw_on_the_card_equals_the_cpu(dev, f, metric):
+    """The graph walk on the card: an integer arm built on the card and on
+    the CPU from the same inputs (levels, and Eq. 1 constants learned once
+    on the CPU) has the same codes, adjacency and entry, and a bucketed
+    Searcher returns the same ids and scores (``chip_smoke.py`` phase 7(a)
+    at a smaller size)."""
+    import dataclasses
+
+    from repro_torch.knn import SearchParams, as_spec
+    from repro_torch.knn.hnsw import HNSWIndex, draw_levels
+
+    g = torch.Generator().manual_seed(9)
+    corpus = torch.randn(1500, 32, generator=g)
+    queries = torch.randn(45, 32, generator=g)
+    levels = draw_levels(1500, 8, 0)
+    spec = as_spec(f, metric=metric)
+    spec = dataclasses.replace(
+        spec, quant=spec.quant.with_params(spec.quant.learn(corpus)))
+    built = [HNSWIndex.build(corpus, spec, device=d, ef_construction=40,
+                             batch_size=128, _levels=levels)
+             for d in (dev, "cpu")]
+    card, cpu = built
+    assert torch.equal(card.store.data.cpu(), cpu.store.data)
+    assert len(card.layers) == len(cpu.layers) > 1
+    for a, b in zip(card.layers, cpu.layers):
+        assert torch.equal(a.cpu(), b)
+    assert card.entry == cpu.entry
+    for ef in (16, 40):
+        # 45 queries: a 32-query bucket and a padded 32 for the rest
+        got, want = (i.searcher(10, SearchParams(ef_search=ef),
+                                batch_sizes=(1, 8, 32))(queries)
+                     for i in built)
+        assert torch.equal(got.ids.cpu(), want.ids)
+        assert torch.equal(got.scores.cpu(), want.scores)
+        assert got.stats == want.stats
