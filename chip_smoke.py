@@ -72,11 +72,37 @@ Phases (each prints its lines; any failure exits non-zero):
               requests and the mixed 1/8/32 stream, then one request's walk
               steps, iterations a query, B1 launches (1 int8, 0 fp32) and
               kernels a step (torch.profiler, at ef_search 300)
+  8. index  the NGT-style graph index and the ivf kind: (a) graph8 int8 ip
+              (augmented to d+1) / l2 / angular and packed-int4 arms and
+              ivf32 int8 ip / l2 and int4 arms at 4,000 x 64, built on the
+              card and on the CPU from the same k-means centroids, ip
+              augmentation column and Eq. 1 constants (made once on the
+              CPU): codes, adjacency, seeds and seed ids or lists and
+              centroids equal, and a bucketed Searcher's ids and scores
+              equal (graph at ef_search 40 and 80, ivf at nprobe 4 and 16;
+              fp32 graph8 / ivf32: recall@10 within 0.01); (b) Table 3's
+              arm pairs (graph24 and graph24,<fragment> on SIFT-like l2,
+              GloVe-like angular and product-like ip) at ef_search 300 and
+              ivf128,lpq8@global_minmax / ivf128 at nprobe 8 and 32, 20,000
+              rows, 128 queries: recall@100 within max(0.02, the
+              reference's spread) of the reference's mean (REF_GRAPH); (c)
+              graph24,lpq8@global_minmax, graph24 (ef_search 300),
+              ivf1024,lpq8@global_minmax and ivf1024 (nprobe 16 and 64) at
+              SIFT-like 1,000,000 x 128, and graph24,lpq8@gaussian:3 at
+              product-like 1,000,000 x 256 (its walk at width 257), as one
+              run of the main path (counters set to 0 before, read after):
+              build seconds and their parts, memory against the
+              reference's formula, recall@100, QPS and p50 at 256-query
+              requests and the mixed 1/8/32 stream; then each graph arm's
+              steps and kernels a step (torch.profiler), each ivf arm's
+              bytes a fine-scoring block gathers, and 1,024 rows of the
+              width-257 self-join (B2 int8, Q = 1,024 of N = 10^6) held
+              bit-equal to the plain version
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
-the score-matrix ops and the graph path), then the card's name and power
-limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
+the score-matrix ops, the HNSW path and the graph / ivf path), then the
+card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
 """
@@ -292,7 +318,7 @@ def check_kernels(err: dict) -> None:
     case = 0
     n_tie_swaps = 0
     for kind in ("int8", "fp32", "int4"):
-        ds = {"int8": (64, 128, 256, 257), "fp32": (64, 128, 256),
+        ds = {"int8": (64, 128, 256, 257), "fp32": (64, 128, 256, 257),
               "int4": (64, 128, 256, 258)}[kind]
         for Q in (1, 37, 300):
             for N in (1, 511, 70001):
@@ -1744,6 +1770,365 @@ def graph_path() -> dict:
     return {"quantize": run["quantize"]}
 
 
+# --------------------------------------------------------------------------
+# phase 8: the NGT-style graph index (Table 3) and the ivf kind
+# --------------------------------------------------------------------------
+
+#: phase 8(a): integer arms (factory, metric) built on the card and on the
+#: CPU from the same draws, held bit-equal
+INDEX_EXACT = (("graph8,lpq8@gaussian:3", "ip"), ("graph8,lpq8", "l2"),
+               ("graph8,lpq8@global_absmax", "angular"), ("graph8,lpq4", "ip"),
+               ("ivf32,lpq8@gaussian:3", "ip"), ("ivf32,lpq8", "l2"),
+               ("ivf32,lpq4", "ip"))
+#: phase 8(a)'s fp32 arms: the card's recall@10 within 0.01 of the CPU's
+INDEX_FP32 = (("graph8", "ip"), ("ivf32", "ip"))
+#: phase 8(b): benchmarks/table3_graph_recall.py's arm pairs and two IVF
+#: arms: (dataset, factory, knob, values)
+TABLE3_ARMS = (
+    ("sift", "graph24", "ef_search", (300,)),
+    ("sift", "graph24,lpq8@global_minmax", "ef_search", (300,)),
+    ("glove", "graph24", "ef_search", (300,)),
+    ("glove", "graph24,lpq8@global_absmax", "ef_search", (300,)),
+    ("product", "graph24", "ef_search", (300,)),
+    ("product", "graph24,lpq8@gaussian:3", "ef_search", (300,)),
+    ("sift", "ivf128,lpq8@global_minmax", "nprobe", (8, 32)),
+    ("sift", "ivf128", "nprobe", (8, 32)),
+)
+#: the reference's recall@100 of TABLE3_ARMS at n=20000, 128 queries:
+#: (mean, spread = max - min) over three seeds of data and k-means inits,
+#: measured on the CPU by scripts/graph_reference_recall.py
+REF_GRAPH = {
+    ("sift", "graph24", 300): (0.7366, 0.0109),
+    ("sift", "graph24,lpq8@global_minmax", 300): (0.7381, 0.0109),
+    ("glove", "graph24", 300): (0.6263, 0.0129),
+    ("glove", "graph24,lpq8@global_absmax", 300): (0.6227, 0.0146),
+    ("product", "graph24", 300): (0.4018, 0.0037),
+    ("product", "graph24,lpq8@gaussian:3", 300): (0.3854, 0.0100),
+    ("sift", "ivf128,lpq8@global_minmax", 8): (0.2983, 0.0110),
+    ("sift", "ivf128,lpq8@global_minmax", 32): (0.6206, 0.0196),
+    ("sift", "ivf128", 8): (0.2983, 0.0110),
+    ("sift", "ivf128", 32): (0.6206, 0.0196),
+}
+#: phase 8(c): the SIFT-like 1,000,000 x 128 arms, the graph's ef_search
+#: and the IVF nprobe values, and the product-like int8 graph at width 257
+INDEX_GRAPH_ARMS = ("graph24,lpq8@global_minmax", "graph24")
+INDEX_IVF_ARMS = ("ivf1024,lpq8@global_minmax", "ivf1024")
+INDEX_EF = 300
+INDEX_NPROBE = (16, 64)
+INDEX_N = 1_000_000
+PRODUCT_GRAPH = "graph24,lpq8@gaussian:3"
+#: self-join rows of the product-like graph held against the plain version
+JOIN_CHECK_ROWS = 1024
+
+
+def graph_memory(idx, n: int, d: int) -> int:
+    """The reference's graph memory formula (src/repro/knn/graph_index.py
+    :330-339): the store over the index's own width (d+1 for ip) plus 4
+    bytes a slot of the adjacency, a seed coordinate and a seed id."""
+    w = d + 1 if idx.aug else d
+    store = n * w + 3 * w * 4 if idx.quantized else n * w * 4
+    s = idx.seeds.shape[0]
+    return store + 4 * n * idx.degree + 4 * s * w + 4 * s
+
+
+def ivf_memory(idx, n: int, d: int) -> int:
+    """The reference's IVF memory formula (src/repro/knn/ivf.py:463-470):
+    the store plus 4 bytes a centroid coordinate and a list slot."""
+    store = n * d + 3 * d * 4 if idx.quantized else n * d * 4
+    return store + 4 * idx.nlist * d + 4 * idx.nlist * idx.max_list
+
+
+def index_draws(f: str, metric: str, corpus):
+    """8(a)'s build inputs, made once on the CPU: the spec, and ``_given``
+    (k-means centroids of the index's space, the ip augmentation column,
+    the Eq. 1 constants), which each device would otherwise draw or reduce
+    its own way."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.knn import as_spec
+    from repro_torch.knn.graph_index import mip_column
+    from repro_torch.knn.ivf import kmeans
+
+    spec = as_spec(f, metric=metric)
+    x = torch.from_numpy(corpus)
+    if spec.kind == "ivf":
+        if spec.quant is not None:
+            spec = dataclasses.replace(
+                spec, quant=spec.quant.with_params(spec.quant.learn(x)))
+        return spec, {"centroids": kmeans(x, int(spec.params["nlist"]), 0)}
+    given = {}
+    if metric == "ip":
+        given["extra"] = mip_column(x)
+        x = torch.cat([x, given["extra"][:, None]], dim=-1)
+    given["centroids"] = kmeans(x, 32, 0)
+    if spec.quant is not None:
+        given["params"] = spec.quant.learn(x)
+    return spec, given
+
+
+def seed_tie(card, cpu) -> str:
+    """Where the card's and the CPU's seed ids differ: each such seed's two
+    rows and their float64 distances to the centroid (an exact tie, as a
+    k-means cluster of two rows gives, is decided by f32 rounding)."""
+    import torch
+
+    a, b = card.seed_ids.cpu(), cpu.seed_ids
+    x = cpu.store.data.to(torch.float64) if not cpu.quantized else None
+    out = []
+    for s in torch.nonzero(a != b).flatten().tolist():
+        c = cpu.seeds[s].to(torch.float64)
+        if x is None:
+            out.append(f"seed {s}: card row {int(a[s])}, CPU row {int(b[s])}")
+            continue
+        da, db = (float(((x[int(i)] - c) ** 2).sum()) for i in (a[s], b[s]))
+        out.append(f"seed {s}: card row {int(a[s])} ({da:.9g}), CPU row "
+                   f"{int(b[s])} ({db:.9g})")
+    return "; ".join(out)
+
+
+def index_exact() -> None:
+    """8(a): each integer graph / ivf arm built on the card and on the CPU
+    from the same inputs (index_draws) has the same codes, the same
+    adjacency, seeds and seed ids (graph) or lists and centroids (ivf), and
+    a Searcher with buckets (1, 8, 32, 256) returns the same ids and scores
+    on both for 256 queries (requests of 1, 8, 32 and 215), graph at
+    ef_search 40 and 80, ivf at nprobe 4 and 16.  The fp32 arms: the
+    card's recall@10 within 0.01 of the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.knn.registry import get_impl
+
+    n, d = 4000, 64
+    rng = np.random.default_rng(8)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((256, d)).astype(np.float32)
+
+    def knobs(kind):
+        return ([SearchParams(ef_search=e) for e in (40, 80)] if kind == "graph"
+                else [SearchParams(nprobe=p) for p in (4, 16)])
+
+    def requests(idx, sp, k=10):
+        s = idx.searcher(k, sp, batch_sizes=BUCKETS)
+        out, start = [], 0
+        for b in (1, 8, 32, 215):
+            out.append(s(queries[start:start + b]))
+            start += b
+        return (torch.cat([r.scores.cpu() for r in out]),
+                torch.cat([r.ids.cpu() for r in out]))
+
+    for f, metric in INDEX_EXACT:
+        spec, given = index_draws(f, metric, corpus)
+        impl = get_impl(spec.kind)
+        t0 = time.perf_counter()
+        card = impl.build(corpus, spec, device="cuda", _given=given)
+        card_s = time.perf_counter() - t0
+        cpu = impl.build(corpus, spec, device="cpu", _given=given)
+        need(torch.equal(card.store.data.cpu(), cpu.store.data),
+             f"{f} {metric}: the card's codes differ from the CPU's")
+        if spec.kind == "graph":
+            need(torch.equal(card.adj.cpu(), cpu.adj),
+                 f"{f} {metric}: the card's adjacency differs from the CPU's")
+            need(torch.equal(card.seeds.cpu(), cpu.seeds),
+                 f"{f} {metric}: seeds differ")
+            need(torch.equal(card.seed_ids.cpu(), cpu.seed_ids),
+                 f"{f} {metric}: seed ids differ (G-T5): {seed_tie(card, cpu)}")
+            what = "adjacency, seeds and seed ids"
+        else:
+            need(torch.equal(card.lists.cpu(), cpu.lists),
+                 f"{f} {metric}: the card's lists differ from the CPU's")
+            need(torch.equal(card.centroids.cpu(), cpu.centroids),
+                 f"{f} {metric}: centroids differ")
+            what = f"lists (max_list {card.max_list}) and centroids"
+        for sp in knobs(spec.kind):
+            (sa, ia), (sb, ib) = requests(card, sp), requests(cpu, sp)
+            need(torch.equal(ia, ib) and torch.equal(sa, sb),
+                 f"{f} {metric} {sp}: the card's results differ from the "
+                 "CPU's")
+        knob = "ef_search 40 and 80" if spec.kind == "graph" else "nprobe 4 and 16"
+        log(f"[index] {f} {metric} {n}x{d}: codes, {what} equal to the CPU "
+            f"build's; Searcher ids and scores equal at {knob} (card build "
+            f"{card_s:.2f} s)")
+    gt = make_index("flat", corpus, device="cpu").search(queries, 10).ids
+    for f, metric in INDEX_FP32:
+        spec, given = index_draws(f, metric, corpus)
+        impl = get_impl(spec.kind)
+        sp = knobs(spec.kind)[0]
+        rec = {dev: recall_at_k(gt, requests(impl.build(
+            corpus, spec, device=dev, _given=given), sp)[1])
+            for dev in ("cuda", "cpu")}
+        ok = abs(rec["cuda"] - rec["cpu"]) <= 0.01
+        log(f"[index] {f} {metric} (fp32) {n}x{d}: recall@10 card "
+            f"{rec['cuda']:.4f} CPU {rec['cpu']:.4f} (|diff| <= 0.01: {ok})")
+        need(ok, f"{f}: card recall {rec['cuda']:.4f} vs CPU {rec['cpu']:.4f}")
+
+
+def index_recall() -> None:
+    """8(b): Table 3's arm pairs and the IVF arms at n=20000, 128 queries:
+    recall@100 against the fp32 flat arm within max(0.02, the reference's
+    spread) of the reference's mean (REF_GRAPH)."""
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.knn import make_index
+
+    data = {}
+    for name, f, knob, values in TABLE3_ARMS:
+        if name not in data:
+            corpus, queries, metric = synthetic.load(name, 20000, 128)
+            gt = make_index("flat", corpus, metric=metric).search(
+                queries, 100).ids
+            data[name] = corpus, queries, metric, gt
+        corpus, queries, metric, gt = data[name]
+        idx = make_index(f, corpus, metric=metric)
+        for v in values:
+            rec = recall_at_k(gt, idx.search(queries, 100, **{knob: v}).ids)
+            want, spread = REF_GRAPH[name, f, v]
+            tol = max(0.02, spread)
+            ok = abs(rec - want) <= tol
+            log(f"[table3] {name} 20000x{corpus.shape[1]} {metric} {f} {knob} "
+                f"{v}: recall@100 {rec:.4f} (reference mean {want}, spread "
+                f"{spread}, |diff| <= {tol}: {ok}) | {smi()}")
+            need(ok, f"recall for {name} {f} {knob} {v}: {rec:.4f} vs {want} "
+                 f"+- {tol}")
+
+
+def index_path(err: dict) -> dict:
+    """8(c): SIFT-like INDEX_N x 128 graph and IVF arms and the product-like
+    int8 graph at width 257 through make_index + Searcher, one run of the
+    path with the launch counters set to 0 before it and read after: build
+    seconds and their parts, memory against the reference's formula,
+    recall@100 against the fp32 flat arm, QPS and p50 at 256-query
+    requests and for the mixed 1/8/32 stream.  Then each graph arm's walk
+    (layer-0 steps, kernels a step under torch.profiler), each IVF arm's
+    bytes a fine-scoring block gathers, and 1,024 rows of the product-like
+    self-join held against the plain version."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import quant as Qz
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import fused_topk as F
+    from repro_torch.kernels import ops as K
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.knn import ivf as IVF
+
+    card = smi()
+    n, k = INDEX_N, 100
+    corpus, queries, metric = synthetic.load("sift", n, 1000)
+    d = corpus.shape[1]
+    gt = make_index("flat", corpus, metric=metric).search(queries, k).ids
+    kernels.reset_launch_counts()
+    built = {}
+
+    def report(f, idx, sp, label):
+        s = idx.searcher(k, sp)
+        ids, qps, p50, _ = serve(idx, queries, k, (256,), s)
+        need(ids.shape == (1000, k) and bool(torch.all(ids >= 0)),
+             f"{f}: bad ids")
+        rec = recall_at_k(gt, ids)
+        _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+        log(f"[index] sift {n}x{d} {metric} {f} {label}: recall@100 "
+            f"{rec:.4f} QPS {qps:.1f} p50 {p50:.2f} ms (256-query "
+            f"requests); mixed 1/8/32: QPS {mqps:.1f} p50 {mp50:.2f} ms | "
+            f"{card}")
+
+    for f in INDEX_GRAPH_ARMS:
+        t0 = time.perf_counter()
+        idx = make_index(f, corpus, metric=metric)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mem = idx.memory_bytes()
+        need(mem == graph_memory(idx, n, d), f"{f}: memory {mem} is not the "
+             f"reference's formula's {graph_memory(idx, n, d)}")
+        parts = ", ".join(f"{a} {b:.2f} s" for a, b in idx.build_parts.items())
+        log(f"[index] {f}: build {build_s:.2f} s ({parts}), memory {mem} "
+            f"bytes = {mem / (n * d * 4):.4f} of fp32 flat | {card}")
+        report(f, idx, SearchParams(ef_search=INDEX_EF),
+               f"ef_search {INDEX_EF}")
+        built[f] = idx
+    for f in INDEX_IVF_ARMS:
+        t0 = time.perf_counter()
+        idx = make_index(f, corpus, metric=metric)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mem = idx.memory_bytes()
+        need(mem == ivf_memory(idx, n, d), f"{f}: memory {mem} is not the "
+             f"reference's formula's {ivf_memory(idx, n, d)}")
+        parts = ", ".join(f"{a} {b:.2f} s" for a, b in idx.build_parts.items())
+        sizes = idx.list_sizes()
+        log(f"[index] {f}: build {build_s:.2f} s ({parts}), max_list "
+            f"{idx.max_list} (lists of {min(sizes)}-{max(sizes)} rows), "
+            f"memory {mem} bytes = {mem / (n * d * 4):.4f} of fp32 flat | "
+            f"{card}")
+        for p in INDEX_NPROBE:
+            report(f, idx, SearchParams(nprobe=p), f"nprobe {p}")
+        built[f] = idx
+    pc, pq, pm = synthetic.load("product", n, 256)
+    t0 = time.perf_counter()
+    prod = make_index(PRODUCT_GRAPH, pc, metric=pm)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = prod.searcher(k, SearchParams(ef_search=INDEX_EF))(pq)
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t0) * 1e3
+    need(res.ids.shape == (256, k) and bool(torch.all(res.ids >= 0)),
+         f"{PRODUCT_GRAPH}: bad ids")
+    parts = ", ".join(f"{a} {b:.2f} s" for a, b in prod.build_parts.items())
+    log(f"[index] product {n}x{pc.shape[1]} {pm} {PRODUCT_GRAPH} (walk width "
+        f"{prod.store.d}): build {build_s:.2f} s ({parts}), memory "
+        f"{prod.memory_bytes()} bytes; one 256-query request at ef_search "
+        f"{INDEX_EF}: {req_ms:.2f} ms (first, unwarmed) | {card}")
+    run = kernels.launch_counts()
+    log(f"[index] kernel launches on this run of the graph / ivf path: {run}")
+    for name in ("quantize", "fused_topk_int8", "fused_topk_fp32"):
+        need(run[name] > 0, f"kernel {name} was never launched on the graph "
+             "/ ivf path")
+
+    for f in INDEX_GRAPH_ARMS:
+        s = built[f].searcher(k, SearchParams(ef_search=INDEX_EF))
+        steps, b1, per_step = walk_request(s, queries[:256], profiled=True)
+        log(f"[index] {f} ef_search {INDEX_EF}, one 256-query request: "
+            f"{steps['beam']} steps ({steps['beam_iters'] / 256:.1f} "
+            f"iterations a query), {per_step:.1f} CUDA kernels a step, {b1} "
+            "B1 launches")
+        need(b1 == (1 if built[f].quantized else 0),
+             f"{f}: {b1} B1 launches in one request")
+    for f in INDEX_IVF_ARMS:
+        idx = built[f]
+        for p in INDEX_NPROBE:
+            width = min(p, idx.nlist) * idx.max_list
+            rows = IVF.fine_block_rows(idx.store, width)
+            gathered = rows * width * idx.store.d_eff * (
+                1 if idx.quantized else 4)
+            log(f"[index] {f} nprobe {p}: {width} candidates a query, "
+                f"{rows} queries a fine-scoring block, {gathered} bytes of "
+                f"rows gathered a block ({rows * width * idx.store.d_eff * 8}"
+                f" more for the float64 copy of an integer dot)")
+
+    # 1,024 rows of the width-257 self-join: kernel against plain version
+    store = prod.store
+    codes = store.data[:JOIN_CHECK_ROWS]
+    q = store.encode_queries(Qz.dequantize(codes[:, : store.d], store.params))
+    half = max(prod.degree // 2, 1)
+    got = K.fused_topk(q, store.data, half + 1, "l2")
+    want = F.fused_topk_plain(q, store.data, k=half + 1, metric="l2")
+    hold("fused_topk_int8", got, want, q, store.data, half + 1, "l2", None,
+         f"product self-join {JOIN_CHECK_ROWS} rows d={store.d}", err)
+    log(f"[index] {PRODUCT_GRAPH}: {JOIN_CHECK_ROWS} self-join rows (Q="
+        f"{JOIN_CHECK_ROWS}, N={n}, d={store.d}, k={half + 1}, l2) equal to "
+        "the plain version, ids and scores")
+    del built, prod, corpus, queries, gt, pc, pq
+    torch.cuda.empty_cache()
+    return {name: run[name] for name in
+            ("quantize", "fused_topk_int8", "fused_topk_fp32")}
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -1812,6 +2197,10 @@ def main() -> int:
         graph_exact()
         graph_recall()
         for name, c in graph_path().items():
+            counts[name] += c
+        index_exact()
+        index_recall()
+        for name, c in index_path(err).items():
             counts[name] += c
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "

@@ -1,7 +1,8 @@
 """Carry a reference index's state into the port.
 
 The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
-``rr_`` rerank prefix), an HNSW graph's layers, levels and entry, or a
+``rr_`` rerank prefix), an HNSW graph's layers, levels and entry, a graph
+index's adjacency and seeds, an IVF index's centroids and lists, or a
 reference-saved npz, holds nothing JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
 and Eq. 1 constants).  These helpers
@@ -18,17 +19,22 @@ import numpy as np
 from repro_torch.core.quant import QuantParams
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.knn.flat import FlatIndex
+from repro_torch.knn.graph_index import GraphIndex
 from repro_torch.knn.hnsw import HNSWIndex
+from repro_torch.knn.ivf import IVFIndex
 from repro_torch.knn.pq import PQIndex
 from repro_torch.models.recsys.embedding import QuantizedTable
 
 
 def quant_params_from_numpy(lo: np.ndarray, hi: np.ndarray, zero: np.ndarray,
                             bits: int, scheme: str,
-                            device="cpu") -> QuantParams:
-    """Eq. 1 constants (numpy [d] f32 each) -> the port's ``QuantParams``."""
+                            device=None) -> QuantParams:
+    """Eq. 1 constants (numpy [d] f32 each) -> the port's ``QuantParams`` on
+    ``device`` (``None``: the GPU)."""
+    dev = resolve_device(device)
+
     def t(a):
-        return to_tensor(np.asarray(a, dtype=np.float32), device=device)
+        return to_tensor(np.asarray(a, dtype=np.float32), device=dev)
 
     return QuantParams(lo=t(lo), hi=t(hi), zero=t(zero), bits=int(bits),
                        scheme=str(scheme))
@@ -69,6 +75,31 @@ def hnsw_from_reference_state(arrays: dict[str, np.ndarray],
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return HNSWIndex.from_state(arrays, meta, device=device)
+
+
+def graph_from_reference_state(arrays: dict[str, np.ndarray],
+                               meta: dict[str, Any], device) -> GraphIndex:
+    """A reference graph index's (arrays, meta) -> the port's ``GraphIndex``.
+
+    ``arrays`` hold ``adj``, ``seeds``, ``seed_ids`` and the store (plus
+    ``rr_``) arrays; ``meta`` holds ``metric``, ``degree``,
+    ``internal_metric``, ``aug`` and the store records, as
+    ``GraphIndex.save`` writes them.
+    """
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return GraphIndex.from_state(arrays, meta, device=device)
+
+
+def ivf_from_reference_state(arrays: dict[str, np.ndarray],
+                             meta: dict[str, Any], device) -> IVFIndex:
+    """A reference IVF index's (arrays, meta) -> the port's ``IVFIndex``.
+
+    ``arrays`` hold ``centroids``, ``lists`` and the store (plus ``rr_``)
+    arrays; ``meta`` holds ``metric``, ``nlist``, ``max_list`` and the
+    store records, as ``IVFIndex.save`` writes them.
+    """
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return IVFIndex.from_state(arrays, meta, device=device)
 
 
 def quantized_table_from_numpy(codes: np.ndarray, lo: np.ndarray,

@@ -133,3 +133,18 @@ def quantize(x: torch.Tensor, params: QuantParams) -> torch.Tensor:
 def dequantize(q: torch.Tensor, params: QuantParams) -> torch.Tensor:
     """Inverse linear map (midpoint reconstruction), diagnostics only."""
     return q.to(torch.float32) * params.scale + params.zero
+
+
+# --------------------------------------------------------------------------
+# Convenience one-call API used by the graph utilities.
+# --------------------------------------------------------------------------
+
+def quantize_corpus(
+    corpus: torch.Tensor,
+    bits: int = 8,
+    scheme: Scheme | str = Scheme.GAUSSIAN,
+    sigmas: float = 1.0,
+):
+    """learn + apply: returns (codes, params)."""
+    params = learn_params(corpus, bits=bits, scheme=scheme, sigmas=sigmas)
+    return quantize(corpus, params), params

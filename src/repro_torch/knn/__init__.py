@@ -1,7 +1,9 @@
-"""Index kinds behind one API (port of ``repro.knn``; ``flat``, ``hnsw``
-and ``pq`` so far)."""
+"""Index kinds behind one API (port of ``repro.knn``; ``flat``, ``graph``,
+``hnsw``, ``ivf`` and ``pq`` so far), and the graph-construction
+utilities."""
 
 from repro_torch.knn.base import SearchParams, SearchResult  # noqa: F401
+from repro_torch.knn.graph_utils import knn_graph, radius_graph  # noqa: F401
 from repro_torch.knn.registry import kinds, load_index, make_index  # noqa: F401
 from repro_torch.knn.spec import (  # noqa: F401
     IndexSpec,

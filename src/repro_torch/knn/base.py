@@ -22,8 +22,9 @@ import torch
 class SearchParams:
     """Union of every index kind's search-time knobs (see the reference):
     ``chunk`` bounds the exhaustive scan's working set; ``ef_search`` is
-    the hnsw beam width; ``nprobe`` and ``budgets`` belong to kinds not
-    ported yet; ``filter`` is not ported yet and must stay None."""
+    the hnsw / graph beam width; ``nprobe`` is the ivf lists probed;
+    ``budgets`` belongs to the cascade kind, not ported yet; ``filter`` is
+    not ported yet and must stay None."""
 
     chunk: int = 16384
     nprobe: int = 8

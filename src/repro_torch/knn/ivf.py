@@ -1,15 +1,60 @@
-"""k-means, the coarse quantizer (port of ``repro.knn.ivf.kmeans``).
+"""IVF (inverted-file) index and its coarse quantizer, k-means (port of
+``repro.knn.ivf``).
 
-Only ``kmeans`` is ported so far: PQ trains its per-subspace codebooks
-with it.  The ``ivf`` index kind itself is not ported yet (ROADMAP queue
-A7); the registry raises for it.
+Two steps, both through the engine: a coarse probe, ``engine.topk`` of
+the queries over the (always fp32) centroid table in the user's metric
+(B2 fp32 on the card for ip / l2), and fine scoring, ``engine.topk_among``
+over the probed lists' rows of the corpus store (fp32, int8 or packed
+int4).  Lists are padded to a fixed length, a multiple of 128, with id -1;
+the pads are gathered as row 0 and masked, and ties go to the earlier
+candidate slot (probe order, then list order), as in the reference.
+
+Fine scoring runs in blocks of queries whose gathered rows, with their
+widest temporary (the float64 copy of an integer dot on CUDA), stay under
+``FINE_BYTES``: each query's top-k does not depend on the others, so the
+result is the one-batch result.
+
+Random draws: the reference draws the k-means init from ``jax.random``;
+here ``key`` (an int) seeds a ``torch.Generator`` on the corpus's device.
+The private ``_given`` argument takes the centroids from elsewhere (the
+reference's, or another device's), and then the build's lists are the
+reference's.
+
+Registered as kind ``"ivf"``; factory strings ``"ivf256"``,
+``"ivf256,lpq8"``, ``"ivf256,lpq4"`` (packed int4).  Not ported yet:
+per-list constants (``regions``, ROADMAP queue A11), filters (A9) and
+the list-placed mesh plan (A14); each raises naming its item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
 import torch
 
+from repro_torch import engine
 from repro_torch.core import distances as D
+from repro_torch.core import quant as Qz
+from repro_torch.device import resolve_device, to_tensor
+from repro_torch.knn import base as B
+from repro_torch.knn import registry
+from repro_torch.knn.spec import (
+    IndexSpec,
+    build_rerank_store,
+    quant_spec_from_kwargs,
+    resolve_build_spec,
+)
+
+_REGIONS = ("per-list Eq. 1 constants ('regions') are not ported yet: "
+            "ROADMAP queue A11 (cascade/)")
+_MESH = ("the list-placed (mesh) ivf plan is not ported yet: ROADMAP "
+         "queue A14 (dist/)")
+
+#: bytes one block of fine scoring may gather, temporaries included
+FINE_BYTES = 1 << 30
 
 #: score-matrix entries one assignment chunk may hold ([rows, C] f32, 256 MB)
 _ASSIGN_ENTRIES = 1 << 26
@@ -53,3 +98,237 @@ def kmeans(x: torch.Tensor, n_clusters: int, key: int = 0,
         new = sums / torch.clamp_min(counts[:, None], 1.0)
         cents = torch.where(counts[:, None] > 0, new, cents)
     return cents
+
+
+def fine_block_rows(store: engine.CodeStore, width: int) -> int:
+    """Queries a block of fine scoring takes: ``FINE_BYTES`` over what one
+    query gathers, its ``width`` candidate rows at full width, each byte
+    with room for a float64 copy (the exact integer dot on CUDA)."""
+    elt = 4 if not store.quantized else 1
+    return max(1, FINE_BYTES // max(1, width * store.d_eff * (elt + 8)))
+
+
+def bucket_lists(assign: np.ndarray, nlist: int) -> np.ndarray:
+    """Row ids by list, ascending within each (``np.where(assign == c)``
+    for every c), padded with -1 to the longest list rounded up to a
+    multiple of 128: [nlist, max_list] int32."""
+    order = np.argsort(assign, kind="stable")
+    a = assign[order]
+    counts = np.bincount(assign, minlength=nlist)
+    max_list = max(1, int(counts.max(initial=0)))
+    max_list = ((max_list + 127) // 128) * 128
+    starts = np.cumsum(counts) - counts
+    lists = np.full((nlist, max_list), -1, np.int32)
+    lists[a, np.arange(a.size) - starts[a]] = order
+    return lists
+
+
+@registry.register("ivf")
+@dataclasses.dataclass(frozen=True)
+class IVFIndex:
+    metric: str
+    nlist: int
+    max_list: int
+    centroids: torch.Tensor              # [nlist, d] f32
+    lists: torch.Tensor                  # [nlist, max_list] int32, -1 pad
+    store: engine.CodeStore              # corpus payload at any precision
+    rerank_store: Optional[engine.CodeStore] = None
+    #: build seconds by part (kmeans with the assignment, lists, store);
+    #: not saved
+    build_parts: dict = dataclasses.field(default_factory=dict,
+                                          compare=False)
+
+    # -- views --------------------------------------------------------------
+    @property
+    def quantized(self) -> bool:
+        return self.store.quantized
+
+    @property
+    def n(self) -> int:
+        return self.store.n
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self.store.data
+
+    @property
+    def params(self) -> Optional[Qz.QuantParams]:
+        return self.store.params
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
+
+    # -- construction -----------------------------------------------------
+    @staticmethod
+    def build(
+        corpus,
+        spec: IndexSpec | str | None = None,
+        *,
+        key: int | None = None,
+        device=None,
+        nlist: int = 64,
+        metric: str = "ip",
+        quantized: bool = False,
+        bits: int = 8,
+        scheme: str | Qz.Scheme = Qz.Scheme.GAUSSIAN,
+        sigmas: float = 1.0,
+        params: Optional[Qz.QuantParams] = None,
+        kmeans_iters: int = 10,
+        _given: Optional[dict[str, Any]] = None,
+    ) -> "IVFIndex":
+        """Build on ``device`` (default: the GPU).  ``key`` is an int seed
+        for k-means (default 0); ``_given`` may hold ``centroids``
+        ([nlist, d] f32), which replace the k-means."""
+        spec, p = resolve_build_spec(
+            "ivf", spec, metric=metric,
+            quant=quant_spec_from_kwargs(quantized, bits, scheme, sigmas,
+                                         params),
+            nlist=nlist, kmeans_iters=kmeans_iters,
+        )
+        if p.get("regions"):
+            raise NotImplementedError(_REGIONS)
+        nlist = int(p["nlist"])
+        kmeans_iters = int(p["kmeans_iters"])
+        given = dict(_given or {})
+
+        t0 = time.perf_counter()
+        dev = resolve_device(device)
+        corpus = to_tensor(corpus, device=dev, dtype=torch.float32)
+        cents = given.get("centroids")
+        if cents is None:
+            cents = kmeans(corpus, nlist, 0 if key is None else key,
+                           iters=kmeans_iters)
+        cents = to_tensor(cents, device=dev, dtype=torch.float32)
+        assign = _assign(corpus, cents).cpu().numpy()
+        t1 = time.perf_counter()
+        # bucket ids into fixed-width lists (host-side; build is offline)
+        lists = bucket_lists(assign, nlist)
+        t2 = time.perf_counter()
+        store = (
+            engine.CodeStore.dense(corpus)
+            if spec.quant is None
+            else spec.quant.build_store(corpus)
+        )
+        idx = IVFIndex(
+            metric=spec.metric, nlist=nlist, max_list=lists.shape[1],
+            centroids=cents, lists=torch.from_numpy(lists).to(dev),
+            store=store, rerank_store=build_rerank_store(spec, corpus),
+        )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        idx.build_parts.update(kmeans=t1 - t0, lists=t2 - t1,
+                               store=time.perf_counter() - t2)
+        return idx
+
+    # -- query ------------------------------------------------------------
+    def prepare_queries(self, queries) -> torch.Tensor:
+        return self.store.encode_queries(queries)
+
+    def list_sizes(self):
+        """Per-list member counts (host ints)."""
+        return tuple(int(x) for x in (self.lists >= 0).sum(dim=1).cpu())
+
+    def placement(self, n_shards: int):
+        raise NotImplementedError(_MESH)
+
+    def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
+             mesh=None, placement=None):
+        """Freeze (k, nprobe) into a probe-then-fine-score runner ``queries
+        -> SearchResult``."""
+        if mesh is not None or placement is not None:
+            raise NotImplementedError(_MESH)
+        sp = params or B.SearchParams()
+        if sp.filter is not None:
+            sp.validate()                # raises: filter is not ported yet
+        nprobe = min(sp.nprobe, self.nlist)
+        cent_store = engine.CodeStore.dense(self.centroids)
+        width = nprobe * self.max_list
+        rows = fine_block_rows(self.store, width)
+
+        def run(queries) -> B.SearchResult:
+            qf = to_tensor(queries, device=self.device, dtype=torch.float32)
+            qq = self.prepare_queries(qf)
+            nq = qf.shape[0]
+            # 1) coarse: engine top-k over the fp32 centroid table, in the
+            #    user's metric
+            _cs, probe, _ = engine.topk(qf, cent_store, nprobe, self.metric)
+            # 2) candidate ids [Q, nprobe * max_list], probe order first
+            cand = self.lists[probe.long()].reshape(nq, -1)
+            # 3) fine scoring + top-k through the engine, in query blocks
+            parts = [engine.topk_among(qq[s:s + rows], self.store,
+                                       cand[s:s + rows], k, self.metric)
+                     for s in range(0, nq, rows)]
+            scores = torch.cat([s for s, _ in parts])
+            ids = torch.cat([i for _, i in parts])
+            stats = {"kind": "ivf", "nprobe": nprobe,
+                     **engine.search_stats(self.store, candidates=width,
+                                           chunks=nprobe,
+                                           rows_read=nq * width)}
+            return B.SearchResult(scores, ids, stats)
+
+        return run
+
+    def searcher(self, k: int, params: Optional[B.SearchParams] = None, **kw):
+        from repro_torch.knn.searcher import Searcher
+
+        return Searcher(self, k, params, **kw)
+
+    def search(self, queries, k: int, params: Optional[B.SearchParams] = None,
+               *, nprobe: int | None = None) -> B.SearchResult:
+        """One-shot plan-and-run: probe the nprobe best lists per query,
+        exact-score the members.  Returns ``SearchResult`` [Q, k]."""
+        from repro_torch.knn import searcher as S
+
+        sp = (params or B.SearchParams()).merged(nprobe=nprobe)
+        return S.one_shot(self, queries, k, sp)
+
+    # -- accounting ---------------------------------------------------------
+    def memory_bytes(self) -> int:
+        base = self.store.memory_bytes()
+        base += int(self.centroids.numel()) * 4 + int(self.lists.numel()) * 4
+        if self.rerank_store is not None:
+            base += self.rerank_store.memory_bytes()
+        return base
+
+    def region_drift(self, live_corpus):
+        raise NotImplementedError(_REGIONS)
+
+    # -- disk round-trip ---------------------------------------------------
+    def save(self, path) -> None:
+        arrays, meta = self.store.state()
+        if self.rerank_store is not None:
+            rr_a, rr_m = self.rerank_store.state(prefix="rr_")
+            arrays.update(rr_a)
+            meta.update(rr_m)
+        B.save_state(
+            path,
+            {"centroids": self.centroids, "lists": self.lists, **arrays},
+            {"kind": "ivf", "metric": self.metric, "quantized": self.quantized,
+             "n": self.n, "nlist": self.nlist, "max_list": self.max_list,
+             **meta},
+        )
+
+    @staticmethod
+    def from_state(arrays, meta, device=None) -> "IVFIndex":
+        """Rebuild from (arrays, meta) as ``save`` writes them."""
+        if "rg_regions" in meta:
+            raise NotImplementedError(_REGIONS)
+        dev = resolve_device(device)
+        return IVFIndex(
+            metric=meta["metric"], nlist=int(meta["nlist"]),
+            max_list=int(meta["max_list"]),
+            centroids=to_tensor(arrays["centroids"], device=dev,
+                                dtype=torch.float32).contiguous(),
+            lists=to_tensor(arrays["lists"], device=dev,
+                            dtype=torch.int32).contiguous(),
+            store=engine.CodeStore.from_state(arrays, meta, device=dev),
+            rerank_store=(engine.CodeStore.from_state(arrays, meta,
+                                                      prefix="rr_", device=dev)
+                          if "rr_store" in meta else None),
+        )
+
+    @staticmethod
+    def load(path, device=None) -> "IVFIndex":
+        arrays, meta = B.load_state(path)
+        return IVFIndex.from_state(arrays, meta, device=device)

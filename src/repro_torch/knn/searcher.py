@@ -53,9 +53,11 @@ class Rerank:
 
 
 def _query_dim(index) -> Optional[int]:
+    """Expected query width, for plan-time shape validation."""
     store = getattr(index, "store", None)
     if isinstance(store, engine.CodeStore):
-        return store.d
+        # the graph kind's MIP->L2 augmentation adds one internal column
+        return store.d - 1 if getattr(index, "aug", False) else store.d
     if isinstance(store, engine.PQStore):
         return int(store.codebooks.shape[0] * store.codebooks.shape[2])
     d = getattr(index, "d", None)

@@ -127,7 +127,7 @@ def test_convert_matches_the_npz_route(factory, data, ref_built):
     if ref.params is not None:
         p = convert.quant_params_from_numpy(
             *(np.asarray(v) for v in (ref.params.lo, ref.params.hi, ref.params.zero)),
-            bits=ref.params.bits, scheme=ref.params.scheme)
+            bits=ref.params.bits, scheme=ref.params.scheme, device="cpu")
         assert torch.equal(p.lo, via_npz.params.lo) and p.bits == ref.params.bits
 
 
@@ -178,11 +178,11 @@ def test_factory_grammar_rejects_what_the_reference_rejects(bad):
 
 def test_unported_kinds_and_options_raise_clearly(data):
     corpus, queries = data
-    assert kinds() == ("flat", "hnsw", "pq")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
-        make_index("ivf8,lpq8", corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6"):
-        make_index("graph24,lpq8", corpus, device="cpu")
+    assert kinds() == ("flat", "graph", "hnsw", "ivf", "pq")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A10"):
+        make_index("stream(flat,lpq8)", corpus, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A10"):
+        make_index("stream(ivf8,lpq4)+r32", corpus, device="cpu")
     idx = make_index("flat,lpq8", corpus, device="cpu")
     with pytest.raises(NotImplementedError, match="filter is not ported"):
         idx.searcher(K, SearchParams(filter=object()))

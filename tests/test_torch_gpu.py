@@ -680,3 +680,54 @@ def test_hnsw_on_the_card_equals_the_cpu(dev, f, metric):
         assert torch.equal(got.ids.cpu(), want.ids)
         assert torch.equal(got.scores.cpu(), want.scores)
         assert got.stats == want.stats
+
+
+@pytest.mark.parametrize("f,metric", [("graph8,lpq8@gaussian:3", "ip"),
+                                      ("graph8,lpq8", "l2"),
+                                      ("graph8,lpq8@global_absmax", "angular"),
+                                      ("graph8,lpq4", "ip"),
+                                      ("ivf16,lpq8@gaussian:3", "ip"),
+                                      ("ivf16,lpq8", "l2"),
+                                      ("ivf16,lpq4", "ip")])
+def test_graph_and_ivf_on_the_card_equal_the_cpu(dev, f, metric):
+    """The graph and ivf kinds on the card: an integer arm built on the card
+    and on the CPU from the same inputs (k-means centroids, the ip
+    augmentation column and Eq. 1 constants made once on the CPU) has the
+    same codes and graph / lists, and a bucketed Searcher returns the same
+    ids, scores and stats (``chip_smoke.py`` phase 8(a) at a smaller
+    size).  The self-join runs B2 / B3 at Q = N."""
+    import dataclasses
+
+    from repro_torch.knn import SearchParams, as_spec
+    from repro_torch.knn.graph_index import mip_column
+    from repro_torch.knn.ivf import kmeans
+    from repro_torch.knn.registry import get_impl
+
+    g = torch.Generator().manual_seed(10)
+    corpus = torch.randn(1500, 32, generator=g)
+    queries = torch.randn(45, 32, generator=g)
+    spec = as_spec(f, metric=metric)
+    x = corpus
+    if spec.kind == "ivf":
+        spec = dataclasses.replace(
+            spec, quant=spec.quant.with_params(spec.quant.learn(x)))
+        given = {"centroids": kmeans(x, 16, 0)}
+        sp = SearchParams(nprobe=4)
+    else:
+        given = {}
+        if metric == "ip":
+            given["extra"] = mip_column(x)
+            x = torch.cat([x, given["extra"][:, None]], dim=-1)
+        given.update(centroids=kmeans(x, 32, 0), params=spec.quant.learn(x))
+        sp = SearchParams(ef_search=40)
+    card, cpu = (get_impl(spec.kind).build(corpus, spec, device=d,
+                                           _given=given)
+                 for d in (dev, "cpu"))
+    assert torch.equal(card.store.data.cpu(), cpu.store.data)
+    for name in (("adj", "seed_ids") if spec.kind == "graph" else ("lists",)):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    got, want = (i.searcher(10, sp, batch_sizes=(1, 8, 32))(queries)
+                 for i in (card, cpu))
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.scores.cpu(), want.scores)
+    assert got.stats == want.stats

@@ -40,7 +40,8 @@ def _stores(codes: np.ndarray):
     lo, hi, zero = (np.full(d, v, np.float32) for v in (-1.0, 1.0, 0.0))
     rp = r_quant.QuantParams(lo=jnp.asarray(lo), hi=jnp.asarray(hi),
                              zero=jnp.asarray(zero), bits=8, scheme="gaussian")
-    tp = convert.quant_params_from_numpy(lo, hi, zero, 8, "gaussian")
+    tp = convert.quant_params_from_numpy(lo, hi, zero, 8, "gaussian",
+                                         device="cpu")
     return (r_engine.CodeStore.from_codes(jnp.asarray(codes), rp),
             CodeStore.from_codes(torch.from_numpy(codes), tp))
 

@@ -253,8 +253,8 @@ def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     arrays, meta = load_state(path)
     with pytest.raises(NotImplementedError, match="A11"):
         H.HNSWIndex.from_state(arrays, {**meta, "rg_regions": 4}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A6b"):
-        make_index("graph24,lpq8", corpus, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A10"):
+        make_index("stream(hnsw8,lpq8)", corpus, device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         port.placement(2)
     with pytest.raises(NotImplementedError, match="A14"):
