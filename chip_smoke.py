@@ -98,10 +98,40 @@ Phases (each prints its lines; any failure exits non-zero):
               bytes a fine-scoring block gathers, and 1,024 rows of the
               width-257 self-join (B2 int8, Q = 1,024 of N = 10^6) held
               bit-equal to the plain version
+  9. filter / stream  filtered search through every kind and the stream
+              kind: (a) at 4,000 x 64, every ported kind (flat, int8, int4
+              +r32, pq16+lpq, pq16x4,lpq8, ivf32, hnsw8, graph8 and a stream
+              arm with segments and a memtable) filtered at 0.02 / 0.25 /
+              0.9 equal to its own exhaustive ranking cut to the allowed
+              rows (scores bit-equal, ids up to tie order); the integer
+              flat, ivf, hnsw and graph arms built on the card and on the
+              CPU from one set of draws give equal filtered results; one
+              write sequence on stream(flat,lpq8@global_minmax) and
+              stream(flat,lpq4@global_absmax)+r32 (seal_threshold 512) gives
+              equal segments, ids, live bitmaps, counters and epoch on both,
+              and equal filtered Searcher results (bit for bit where one
+              integer source passes through, fp32 merges within rtol 1e-5);
+              (b) filtered search at full width as runs of the main path:
+              product-like 4,000,000 x 256 ip (flat, flat,lpq8@gaussian:3,
+              flat,lpq4, pq32+lpq, pq64x4+lpq) and SIFT-like 1,000,000 x 128
+              l2 (ivf1024 at nprobe 64, graph24 at ef_search 300), each
+              selectivity beside the unfiltered (p50, QPS, ratio, at
+              256-query requests and in the mixed stream), no disallowed id,
+              flat equal to a flat scan over the allowed rows alone, and
+              every masked kernel launch (B2-B5, ivf's masked probe) held
+              against its plain version given the same mask at every
+              bucket; (c) the stream kind at 4,000,000 x 256 ip
+              (stream(flat,lpq8@gaussian:3), stream(flat,lpq4)+r32): a bulk
+              build, STREAM_ROUNDS rounds of upserts, deletes, a replan and
+              a request (write, seal, compaction and merge-store seconds),
+              the churned snapshot against the fresh build, recall@100
+              against an exact scan of live_items(), one filtered request,
+              and compact(full=True) bit-equal to a from-scratch build
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
-the score-matrix ops, the HNSW path and the graph / ivf path), then the
+the score-matrix ops, the HNSW path, the graph / ivf path and phase 9(b)
+and (c)), then the
 card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -2129,6 +2159,622 @@ def index_path(err: dict) -> dict:
             ("quantize", "fused_topk_int8", "fused_topk_fp32")}
 
 
+# --------------------------------------------------------------------------
+# phase 9: filtered search through every kind, and the stream kind
+# --------------------------------------------------------------------------
+
+#: filter selectivities, and the seed every filter bitmap is drawn from
+FILTER_SELS = (0.02, 0.25, 0.9)
+FILTER_SEED = 0
+#: phase 9(a): every ported kind, filtered, against its own exhaustive
+#: ranking cut to the allowed rows (factory -> build overrides)
+FILTER_EXACT = {
+    "flat": {}, "flat,lpq8@global_minmax": {}, "flat,lpq4+r32": {},
+    "pq16+lpq": {"kmeans_iters": 4}, "pq16x4,lpq8": {"kmeans_iters": 4},
+    "ivf32,lpq8@global_minmax": {"kmeans_iters": 4},
+    "hnsw8,lpq8@global_minmax": {"ef_construction": 40, "batch_size": 128},
+    "graph8,lpq8@global_minmax": {},
+    "stream(flat,lpq4@global_minmax)+r32": {"seal_threshold": 512},
+}
+#: 9(a): integer arms filtered on the card and on the CPU, built from the
+#: same draws as 7(a) and 8(a)
+FILTER_CARD_CPU = ("flat,lpq8@global_minmax", "ivf32,lpq8@global_minmax",
+                   "hnsw8,lpq8@global_minmax", "graph8,lpq8@global_minmax")
+#: 9(a): one write sequence on the card and on the CPU
+STREAM_EXACT = ("stream(flat,lpq8@global_minmax)",
+                "stream(flat,lpq4@global_absmax)+r32")
+#: 9(b): the product-like arms (4,000,000 x 256, ip) and the SIFT-like ones
+#: (1,000,000 x 128, l2): (factory, knob, value, selectivities)
+FILTER_PRODUCT = ("flat", "flat,lpq8@gaussian:3", "flat,lpq4", "pq32+lpq",
+                  "pq64x4+lpq")
+FILTER_SIFT = (("ivf1024,lpq8@global_minmax", "nprobe", 64, FILTER_SELS),
+               ("graph24,lpq8@global_minmax", "ef_search", 300, (0.25, 0.9)))
+#: 9(c): the stream arms on product-like rows, and the churn
+STREAM_ARMS = {"stream(flat,lpq8@gaussian:3)": "flat,lpq8@gaussian:3",
+               "stream(flat,lpq4)+r32": "flat,lpq4+r32"}
+#: rounds of churn: 5, not the 16 first planned.  The plan fetches depth +
+#: masked rows from each segment, so a request's B2 scan over the bulk
+#: segment grows with its tombstones (0.15 s at 2,048, 0.7 s at 8,000,
+#: 1.1-3.6 s at 10,000-16,000, 8.6-10 s at 31,000 on the H100, PERF.md).
+#: With phases 7(c) and 8(c) at full size the script ran 926 s of its
+#: 1200 s limit at 8 rounds with 8(c) at a quarter of its rows, so the
+#: rounds are the first cut.  An odd count leaves the last snapshot a
+#: memtable (a round upserts half the seal threshold), whose fp32 scan the
+#: checks then hold against its plain version too
+STREAM_ROUNDS = 5
+STREAM_UPSERT = 2048          # a round's upserts: half replace live ids
+STREAM_DELETE = 1024
+#: 9(c)'s filtered request after churn: its selectivity and queries.  The
+#: stream plan fetches depth + masked rows from each segment (as the
+#: reference's ``mutable.py`` does), so at 0.25 the 4,000,000-row segment
+#: would be asked for k = 3,000,000 of B2 int8, over a minute for one
+#: query (scripts/large_k_probe.py: 4.35 s at k = 300,000, 18.6 s at
+#: k = 10^6); at 0.99 it is asked for about 75,000
+FILTER_AFTER_CHURN = 0.99
+FILTER_AFTER_CHURN_Q = 32
+#: the churned snapshot's least recall@100 against an exact fp32 scan of
+#: ``live_items()``: with more than one source the merge re-scores every
+#: candidate in fp32, and each segment over-fetches by its tombstones
+STREAM_RECALL = 0.99
+
+
+def allow_mask(n: int, sel: float, salt: int = 0):
+    """A random filter bitmap over n external ids at selectivity ``sel``,
+    made from FILTER_SEED (at least one row allowed)."""
+    import numpy as np
+
+    rng = np.random.default_rng([FILTER_SEED, int(sel * 1000), salt])
+    m = rng.random(n) < sel
+    m[int(rng.integers(n))] = True
+    return m
+
+
+def filter_exact() -> None:
+    """9(a): (1) every ported kind at 4,000 x 64, filtered at each
+    selectivity, against its own exhaustive ranking (ef_search = N, nprobe
+    = nlist, rerank depth N) cut to the allowed rows: scores bit-equal, ids
+    equal up to order inside tie groups; (2) the integer flat, ivf, hnsw
+    and graph arms built on the card and on the CPU from one set of draws:
+    a bucketed filtered Searcher's ids and scores equal; (3) one write
+    sequence on two stream arms, on the card and on the CPU: segments,
+    external ids, live bitmaps, counters and epoch equal, and a filtered
+    Searcher equal at every bucket (bit for bit where one integer source
+    passes through; where the merge re-scores in fp32 on each device,
+    within rtol 1e-5 of the row scale, ids equal outside near-ties)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, as_spec, make_index
+    from repro_torch.knn.hnsw import HNSWIndex, draw_levels
+    from repro_torch.knn.registry import get_impl
+    from repro_torch.testing import (build_with_writes, lifecycles_equal,
+                                     post_filter, stream_lifecycle,
+                                     tie_groups_equal)
+
+    n, d, k = 4000, 64, 10
+    rng = np.random.default_rng(9)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((256, d)).astype(np.float32)
+    q32 = queries[:32]
+
+    def depth_searcher(idx, kk, sp):
+        kw = {}
+        if getattr(idx, "handles_rerank", False) or \
+                getattr(idx, "rerank_store", None) is not None:
+            kw["rerank"] = n
+        return idx.searcher(kk, sp, batch_sizes=None, strict=False, **kw)
+
+    for f, over in FILTER_EXACT.items():
+        t0 = time.perf_counter()
+        if f.startswith("stream"):
+            idx = build_with_writes(
+                make_index, f, corpus, bulk=n // 2, chunk=over["seal_threshold"],
+                dead=np.arange(5, n // 2, 97), metric="ip", **over)
+        else:
+            idx = make_index(f, corpus, metric="ip", **over)
+        nlist = getattr(idx, "nlist", 8)
+        full = depth_searcher(idx, n, SearchParams(nprobe=nlist, ef_search=n))(
+            q32)
+        fs, fi = full.scores.cpu().numpy(), full.ids.cpu().numpy()
+        for sel in FILTER_SELS:
+            allow = allow_mask(n, sel)
+            os_, oi = post_filter(fs, fi, allow, k)
+            res = depth_searcher(idx, k, SearchParams(
+                nprobe=nlist, ef_search=n,
+                filter=Filter.from_mask(allow)))(q32)
+            gs, gi = res.scores.cpu().numpy(), res.ids.cpu().numpy()
+            need(bool(allow[gi[gi >= 0]].all()),
+                 f"{f} at {sel}: a disallowed id came back")
+            need(np.array_equal(gs, os_) and tie_groups_equal(gs, gi, oi),
+                 f"{f} at {sel}: filtered search differs from its own "
+                 "exhaustive ranking cut to the allowed rows")
+        log(f"[filter] {f} ip {n}x{d}: filtered at {FILTER_SELS} equal to its "
+            f"own exhaustive ranking cut to the allowed rows (scores "
+            f"bit-equal, ids up to tie order; {time.perf_counter() - t0:.2f} s)")
+        del idx
+
+    levels = draw_levels(n, 8, 0)
+    for f in FILTER_CARD_CPU:
+        spec = as_spec(f, metric="ip")
+        if spec.kind in ("graph", "ivf"):
+            spec, given = index_draws(f, "ip", corpus)
+            built = [get_impl(spec.kind).build(corpus, spec, device=dev,
+                                               _given=given)
+                     for dev in ("cuda", "cpu")]
+        else:
+            qp = spec.quant.learn(torch.from_numpy(corpus))
+            spec = dataclasses.replace(spec, quant=spec.quant.with_params(qp))
+            if spec.kind == "hnsw":
+                built = [HNSWIndex.build(corpus, spec, device=dev,
+                                         ef_construction=40, batch_size=128,
+                                         _levels=levels)
+                         for dev in ("cuda", "cpu")]
+            else:
+                built = [make_index(spec, corpus, device=dev)
+                         for dev in ("cuda", "cpu")]
+        for sel in FILTER_SELS:
+            sp = SearchParams(nprobe=4, ef_search=40,
+                              filter=Filter.from_mask(allow_mask(n, sel)))
+            outs = []
+            for idx in built:
+                s, start, parts = idx.searcher(k, sp, batch_sizes=BUCKETS), 0, []
+                for b in (1, 8, 32, 215):
+                    parts.append(s(queries[start:start + b]))
+                    start += b
+                outs.append((torch.cat([r.scores.cpu() for r in parts]),
+                             torch.cat([r.ids.cpu() for r in parts])))
+            (sa, ia), (sb, ib) = outs
+            need(torch.equal(ia, ib) and torch.equal(sa, sb),
+                 f"{f} at {sel}: the card's filtered results differ from the "
+                 "CPU's")
+        log(f"[filter] {f} ip {n}x{d}: built on the card and the CPU from one "
+            f"set of draws; filtered Searcher ids and scores equal at "
+            f"{FILTER_SELS}, requests of 1, 8, 32 and 215")
+
+    for f in STREAM_EXACT:
+        allow = allow_mask(6000, 0.25, 1)
+        runs = [stream_lifecycle(make_index, f, corpus, queries, allow,
+                                 (1, 8, 32, 215), bulk=2000, k=k,
+                                 searcher_kw={"batch_sizes": BUCKETS},
+                                 metric="ip", device=dev, seal_threshold=512,
+                                 max_segments=4)
+                for dev in ("cuda", "cpu")]
+        diff, exact, same = lifecycles_equal(*runs, allow, 1e-5)
+        need(diff is None, f"{f}: the card's write sequence differs from the "
+             f"CPU's: {diff}")
+        c = runs[0][-1][1]
+        log(f"[stream] {f} ip: one write sequence (seal_threshold 512, "
+            f"{c['seals']} seals, {c['compactions']} compactions, "
+            f"{c['recalibrations']} recalibrations) on the card and the CPU: "
+            f"segments, external ids, live bitmaps, counters and epoch equal "
+            f"at 8 checkpoints; filtered Searcher bit-equal at the {exact} "
+            f"single-source checkpoints, fp32 merges within rtol 1e-5 "
+            f"({same} scores bit-equal)")
+
+
+def check_masked(f, idx, queries, depth, mask, err, tag,
+                 buckets=BUCKETS) -> None:
+    """A filtered arm's scan kernel against its plain version given the
+    same mask, at each of ``buckets`` (after the run's counts were read):
+    B2 int8 / B3 / B4 / B5 bit-equal, B2 fp32 within rtol 1e-5."""
+    import torch
+
+    from repro_torch.engine import PQStore
+    from repro_torch.engine.scorer import _prepare_pq_lut
+    from repro_torch.kernels import fused_topk as F
+    from repro_torch.kernels import ops as K
+
+    store = idx.store
+    if isinstance(store, PQStore):
+        for b in buckets:
+            lut = _prepare_pq_lut(queries[:b], store, idx.metric)
+            got = K.fused_adc_topk(lut, store.codes, depth,
+                                   packed=store.packed, mask=mask)
+            want = adc_plain(lut, store.codes, depth, store.packed, mask)
+            hold_adc(got, want, f"{f} {tag} Q={b} k={depth}")
+        return
+    name = KERNEL_OF["int4" if store.packed else
+                     "int8" if store.quantized else "fp32"]
+    for b in buckets:
+        q = store.encode_queries(queries[:b])
+        got = K.fused_topk(q, store.data, depth, idx.metric,
+                           packed=store.packed, mask=mask)
+        if store.packed:
+            qe, qo = K.split_nibble_queries(q)
+            want = F.fused_topk4_plain(qe, qo, store.data, k=depth,
+                                       metric=idx.metric, mask=mask)
+        else:
+            want = F.fused_topk_plain(q, store.data, k=depth,
+                                      metric=idx.metric, mask=mask)
+        hold(name, got, want, q, store.data, depth, idx.metric, mask,
+             f"{f} {tag} Q={b} k={depth}", err)
+
+
+def stream_sources(idx, depth, allow=None) -> list:
+    """(label, index, k) of each source a stream index's plan scans, at the
+    plan's over-fetch (``MutableIndex.plan``): every segment's inner index
+    at ``depth`` + its masked rows (tombstones, and rows ``allow`` leaves
+    out), and the memtable's flat fp32 scan likewise."""
+    from repro_torch import engine
+    from repro_torch.knn.flat import FlatIndex
+
+    out = []
+    for j, seg in enumerate(idx.manifest.segments):
+        ok = seg.live if allow is None else seg.live & allow[seg.ext_ids]
+        out.append((f"segment {j}", seg.index,
+                    min(seg.n, depth + seg.n - int(ok.sum()))))
+    mvecs, mids = idx.memtable.snapshot()
+    m = int(mvecs.shape[0])
+    if m:
+        ok = m if allow is None else int(allow[mids].sum())
+        mem = FlatIndex(metric=idx.metric, store=engine.CodeStore.dense(
+            mvecs, device=idx.device))
+        out.append(("memtable", mem, min(m, depth + m - ok)))
+    return out
+
+
+def filtered_arm(f, idx, queries, k, params, sels, card, tag, n):
+    """One arm's unfiltered and filtered requests: p50 and QPS at 256-query
+    requests and in the mixed 1/8/32 stream, and their ratio; returns
+    {sel: (allow mask, ids)}."""
+    import dataclasses
+
+    from repro_torch.filter import Filter
+
+    _ids, qps0, p500, s0 = serve(idx, queries, k, (256,),
+                                 idx.searcher(k, params))
+    _, mqps0, mp500, _ = serve(idx, queries[:205], k, (1, 8, 32), s0)
+    log(f"[filter] {tag} {f}: unfiltered QPS {qps0:.1f} p50 {p500:.2f} ms "
+        f"(256-query requests); mixed 1/8/32: QPS {mqps0:.1f} p50 "
+        f"{mp500:.2f} ms | {card}")
+    out = {}
+    for sel in sels:
+        allow = allow_mask(n, sel)
+        sp = dataclasses.replace(params, filter=Filter.from_mask(allow))
+        s = idx.searcher(k, sp)
+        ids, qps, p50, _ = serve(idx, queries, k, (256,), s)
+        _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+        got = ids.cpu().numpy()
+        need(bool(allow[got[got >= 0]].all()),
+             f"{tag} {f} at {sel}: a disallowed id came back")
+        st = s(queries[:1]).stats
+        extra = (f", {st['filter_lists_skipped']} lists skipped"
+                 if "filter_lists_skipped" in st else "")
+        log(f"[filter] {tag} {f} at {sel} ({int(allow.sum())} rows allowed"
+            f"{extra}): QPS {qps:.1f} p50 {p50:.2f} ms (256-query requests; "
+            f"p50 {p50 / p500:.3f}x, QPS {qps / qps0:.3f}x the unfiltered); "
+            f"mixed 1/8/32: QPS {mqps:.1f} p50 {mp50:.2f} ms ({mp50 / mp500:.3f}"
+            f"x, {mqps / mqps0:.3f}x) | {card}")
+        out[sel] = (allow, got, s)
+    return out
+
+
+def filter_path(err: dict, corpus, queries, sift_n: int = 1_000_000) -> dict:
+    """9(b): filtered search at full width, as runs of the main path
+    (counters set to 0 before each corpus's drive, read after); each
+    masked kernel launch is then held against its plain version given the
+    same mask at every bucket.  Product-like 4,000,000 x 256 ip: the five
+    arms at 256-query requests and in the mixed stream, each selectivity
+    beside the unfiltered; flat's ids equal a flat scan over the allowed
+    rows alone mapped back, outside near-ties.  SIFT-like 1,000,000 x 128
+    l2: ivf1024 at nprobe 64 (lists skipped), graph24 at ef_search 300
+    (walk steps a request)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import synthetic
+    from repro_torch.filter import overfetch
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.kernels import fused_topk as F
+    from repro_torch.kernels import ops as K
+    from repro_torch.testing import fp32_near_equal
+
+    card = smi()
+    k = 100
+    n = corpus.shape[0]
+    counts = dict.fromkeys(kernels.launch_counts(), 0)
+    kernels.reset_launch_counts()
+    built = {}
+    for f in FILTER_PRODUCT:
+        t0 = time.perf_counter()
+        idx = make_index(f, corpus, metric="ip")
+        torch.cuda.synchronize()
+        log(f"[filter] product {n}x{corpus.shape[1]} ip {f}: build "
+            f"{time.perf_counter() - t0:.2f} s")
+        built[f] = (idx, filtered_arm(f, idx, queries, k, SearchParams(),
+                                      FILTER_SELS, card, "product", n))
+    run = kernels.launch_counts()
+    log(f"[filter] product: kernel launches on this run: {run}")
+    for name, c in run.items():
+        counts[name] += c
+    # flat over the allowed rows alone, mapped back
+    flat, sels = built["flat"]
+    for sel, (allow, _ids, s) in sels.items():
+        res = s(queries)
+        keep = torch.from_numpy(np.flatnonzero(allow)).to(corpus.device)
+        sub = make_index("flat", corpus[keep], metric="ip").search(queries, k)
+        back = torch.where(sub.ids >= 0, keep[sub.ids.clamp_min(0).long()]
+                           .to(torch.int32), -1)
+        ok, eq = fp32_near_equal(
+            res.scores.cpu().numpy(), res.ids.cpu().numpy(),
+            sub.scores.cpu().numpy(), back.cpu().numpy(), 1e-5)
+        need(ok, f"product flat at {sel}: filtered ids differ from a flat "
+             "scan over the allowed rows alone")
+        log(f"[filter] product flat at {sel}: ids equal a flat scan over the "
+            f"{int(allow.sum())} allowed rows alone, mapped back, outside "
+            f"near-ties; scores within rtol 1e-5 ({eq} of {res.ids.numel()} "
+            "bit-equal)")
+        del sub
+    for f, (idx, sels) in built.items():
+        for sel, (allow, _ids, _s) in sels.items():
+            mask = torch.from_numpy(np.array(allow)).to(corpus.device)
+            check_masked(f, idx, queries, k, mask, err, f"at {sel}")
+        log(f"[filter] product {f}: the masked scan at N={n}, Q in {BUCKETS}, "
+            f"k={k}, each selectivity, equal to the plain version given the "
+            "same mask")
+    del built, flat, sels
+    torch.cuda.empty_cache()
+
+    sc, sq, sm = synthetic.load("sift", sift_n, 1000)
+    ns = sc.shape[0]
+    kernels.reset_launch_counts()
+    sift = {}
+    for f, knob, value, sels in FILTER_SIFT:
+        t0 = time.perf_counter()
+        idx = make_index(f, sc, metric=sm)
+        torch.cuda.synchronize()
+        log(f"[filter] sift {ns}x{sc.shape[1]} {sm} {f}: build "
+            f"{time.perf_counter() - t0:.2f} s")
+        params = SearchParams(**{knob: value})
+        out = filtered_arm(f, idx, sq, k, params, sels, card,
+                           f"sift {knob} {value}", ns)
+        if knob == "ef_search":
+            for sel, (_a, _i, s) in out.items():
+                steps, _b1, _ = walk_request(s, sq[:256], profiled=False)
+                log(f"[filter] sift {f} at {sel}: ef {s.params.ef_search} -> "
+                    f"{max(value, overfetch(k, sel, ns))}, one 256-query "
+                    f"request {steps['beam']} steps "
+                    f"({steps['beam_iters'] / 256:.1f} iterations a query)")
+        sift[f] = (idx, out)
+    run = kernels.launch_counts()
+    log(f"[filter] sift: kernel launches on this run: {run}")
+    for name, c in run.items():
+        counts[name] += c
+    # the masked coarse probe of the ivf arm against the plain version
+    idx, out = sift["ivf1024,lpq8@global_minmax"]
+    cents = idx.centroids
+    for sel, (_a, _i, s) in out.items():
+        _fm, lmask, _st = idx._filter_masks(s.params)
+        for b in BUCKETS:
+            q = sq[:b]
+            got = K.fused_topk(q, cents, 64, sm, mask=lmask)
+            want = F.fused_topk_plain(q, cents, k=64, metric=sm, mask=lmask)
+            hold("fused_topk_fp32", got, want, q, cents, 64, sm, lmask,
+                 f"ivf1024 probe at {sel} Q={b}", err)
+    log(f"[filter] sift ivf1024,lpq8@global_minmax: the list-masked coarse "
+        f"probe (B2 fp32, 1024 centroids, k=64) at each selectivity and "
+        f"bucket within rtol 1e-5 of the plain version")
+    del sift, idx, out, sc, sq
+    torch.cuda.empty_cache()
+    return counts
+
+
+def stream_path(err: dict, corpus, queries) -> dict:
+    """9(c): the stream kind at full width.  Each arm is two runs of the
+    main path (counters set to 0 before, read after, and every check's own
+    launches made outside them).  The first: a bulk build of the
+    product-like rows into one sealed segment (seal_threshold 4,096,
+    max_segments 8), then STREAM_ROUNDS rounds of 2,048 upserts (half
+    replacing random live ids), 1,024 deletes of random live ids, a replan
+    and one 256-query request, with the seconds of the writes, the seals,
+    the compactions and the merge store's rebuilds; the churned snapshot
+    (p50, QPS against the fresh build); one filtered request.  Its checks:
+    no deleted or disallowed id, recall@100 at least STREAM_RECALL against
+    an exact fp32 scan of ``live_items()``, and every source's scan at the
+    over-fetch k the plan gave it (up to tens of thousands) equal to its
+    plain version.  The second: ``compact(full=True)`` and a request at
+    every bucket, held bit-equal to a from-scratch build of the inner
+    factory on ``live_items()``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, make_index
+
+    card = smi()
+    k = 100
+    n, d = corpus.shape
+    host = corpus.cpu().numpy()
+    pool = synthetic.product_embeddings(
+        STREAM_ROUNDS * STREAM_UPSERT, d, n_queries=1, seed=5)[0].cpu().numpy()
+    counts = dict.fromkeys(kernels.launch_counts(), 0)
+    for arm, inner in STREAM_ARMS.items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        idx = make_index(arm, host, metric="ip")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _, fqps, fp50, _ = serve(idx, queries, k, (256,))
+        log(f"[stream] product {n}x{d} ip {arm}: bulk build {build_s:.2f} s "
+            f"into {idx.stats()['segments']} segment; fresh QPS {fqps:.1f} "
+            f"p50 {fp50:.2f} ms (256-query requests) | {card}")
+        # time the compactions and the merge store's rebuilds inside writes
+        # and plans
+        timed = {"compaction": 0.0, "merge_store": 0.0}
+
+        def wrap(obj, name, key):
+            fn = getattr(obj, name)
+
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timed[key] += time.perf_counter() - t
+                return out
+            setattr(obj, name, run)
+
+        wrap(idx.compactor, "merge", "compaction")
+        wrap(idx, "_build_merge_store", "merge_store")
+        rng = np.random.default_rng([FILTER_SEED, 9])
+        live = np.zeros(n + STREAM_ROUNDS * STREAM_UPSERT, bool)
+        live[:n] = True
+        next_id = n
+        totals = dict.fromkeys(("write", "seal", "delete", "plan", "request"),
+                               0.0)
+        for r in range(STREAM_ROUNDS):
+            half = STREAM_UPSERT // 2
+            repl = rng.choice(np.flatnonzero(live), half, replace=False)
+            new = np.arange(next_id, next_id + half)
+            next_id += half
+            before = dict(timed)
+            seals = idx.counters["seals"]
+            t = time.perf_counter()
+            idx.upsert(np.concatenate([repl, new]),
+                       pool[r * STREAM_UPSERT:(r + 1) * STREAM_UPSERT])
+            torch.cuda.synchronize()
+            up = time.perf_counter() - t
+            live[new] = True
+            comp = timed["compaction"] - before["compaction"]
+            seal = up - comp if idx.counters["seals"] > seals else 0.0
+            dels = rng.choice(np.flatnonzero(live), STREAM_DELETE,
+                              replace=False)
+            t = time.perf_counter()
+            idx.delete(dels)
+            dl = time.perf_counter() - t
+            live[dels] = False
+            t = time.perf_counter()
+            s = idx.searcher(k)
+            torch.cuda.synchronize()
+            pl = time.perf_counter() - t
+            t = time.perf_counter()
+            res = s(queries[:256])
+            torch.cuda.synchronize()
+            rq = time.perf_counter() - t
+            got = res.ids.cpu().numpy()
+            need(bool(live[got[got >= 0]].all()),
+                 f"{arm} round {r}: a deleted id came back")
+            st = idx.stats()
+            ms = timed["merge_store"] - before["merge_store"]
+            for key, v in (("write", up - seal - comp), ("seal", seal),
+                           ("delete", dl), ("plan", pl - ms),
+                           ("request", rq)):
+                totals[key] += v
+            log(f"[stream] {arm} round {r + 1}: upsert {up:.3f} s (seal "
+                f"{seal:.3f}, compaction {comp:.3f}), delete {dl:.3f} s, "
+                f"replan {pl:.3f} s (merge store {ms:.3f}), request "
+                f"{rq * 1e3:.1f} ms; {st['segments']} segments, "
+                f"{st['tombstones']} tombstones, memtable "
+                f"{st['memtable_rows']}, reranked {res.stats['reranked']}")
+        # the churned snapshot: three 256-query requests (each over a second)
+        got, cqps, cp50, cs = serve(idx, queries[:768], k, (256,))
+        got = got.cpu().numpy()
+        st = idx.stats()
+        reranked = cs(queries[:1]).stats["reranked"]
+        # one filtered request over the external ids
+        horizon = next_id
+        depth = cs.rerank.depth if cs.rerank is not None else k
+        allow = allow_mask(horizon, FILTER_AFTER_CHURN, 2)
+        t = time.perf_counter()
+        fres = idx.searcher(k, SearchParams(filter=Filter.from_mask(allow)))(
+            queries[:FILTER_AFTER_CHURN_Q])
+        torch.cuda.synchronize()
+        fq = time.perf_counter() - t
+        run = kernels.launch_counts()
+        # the checks below launch kernels of their own: none of them counts
+        need(bool(np.isin(got[got >= 0], np.flatnonzero(live)).all()),
+             f"{arm}: a deleted id came back after churn")
+        ext, vecs = idx.live_items()
+        exact = make_index("flat", vecs, metric="ip")
+        gt = exact.search(queries[:768], k).ids.cpu().numpy()
+        gt = np.where(gt >= 0, ext[np.clip(gt, 0, None)], -1)
+        rec = recall_at_k(torch.from_numpy(gt), torch.from_numpy(got))
+        del exact, vecs
+        log(f"[stream] {arm} after {STREAM_ROUNDS} rounds: {st['segments']} "
+            f"segments, {st['tombstones']} tombstones, {st['seals']} seals, "
+            f"{st['compactions']} compactions ({st['recalibrations']} "
+            f"recalibrated), reranked {reranked}; "
+            f"QPS {cqps:.1f} p50 {cp50:.2f} ms (256-query requests; p50 "
+            f"{cp50 / fp50:.3f}x the fresh build's); recall@100 {rec:.4f} "
+            f"against an exact fp32 scan of live_items(); seconds over the "
+            f"rounds: " + ", ".join(f"{a} {b:.2f}" for a, b in totals.items())
+            + f", compaction {timed['compaction']:.2f}, merge store "
+            f"{timed['merge_store']:.2f} | {card}")
+        need(rec >= STREAM_RECALL,
+             f"{arm}: recall@100 {rec:.4f} after churn, below {STREAM_RECALL}")
+        # every source of the churned request and of the filtered one, at
+        # its over-fetch k, against its plain version on the request's bucket
+        sources = stream_sources(idx, depth)
+        fsources = stream_sources(idx, depth, allow)
+        # the plan re-scores every candidate its sources return
+        for srcs, rescored in ((sources, reranked),
+                               (fsources, fres.stats["reranked"])):
+            width = sum(c for *_, c in srcs)
+            need(width == rescored, f"{arm}: the sources' k sum to {width}, "
+                 f"the request re-scored {rescored}")
+        for label, src, kj in sources:
+            check_masked(f"{arm} {label}", src, queries, kj, None, err,
+                         "after churn", buckets=(256,))
+        for label, src, kj in fsources:
+            check_masked(f"{arm} {label}", src, queries, kj, None, err,
+                         f"filtered at {FILTER_AFTER_CHURN}",
+                         buckets=(FILTER_AFTER_CHURN_Q,))
+        log(f"[stream] {arm}: each source's scan equal to its plain version "
+            f"(int bit-equal, fp32 within rtol 1e-5) at the churned request's "
+            f"k ({', '.join(f'{a} {c}' for a, _s, c in sources)}; Q=256) and "
+            f"the filtered one's ({', '.join(f'{a} {c}' for a, _s, c in fsources)};"
+            f" Q={FILTER_AFTER_CHURN_Q})")
+        got = fres.ids.cpu().numpy()
+        need(bool(live[got[got >= 0]].all() and allow[got[got >= 0]].all()),
+             f"{arm}: a filtered request returned a dead or disallowed id")
+        log(f"[stream] {arm}: one filtered request ({FILTER_AFTER_CHURN_Q} "
+            f"queries) at {FILTER_AFTER_CHURN} over {horizon} external ids: "
+            f"{fq * 1e3:.1f} ms, every id live and allowed; the bulk segment "
+            f"was asked for k = {fsources[0][2]} (at 0.25 it would be "
+            f"{stream_sources(idx, depth, allow_mask(horizon, 0.25, 2))[0][2]})")
+        del sources, fsources
+        # full compaction and its requests: a second run of the path
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        idx.compact(full=True)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t
+        a_s = idx.searcher(k)
+        after = [a_s(queries[:b]) for b in BUCKETS]
+        for name, c in kernels.launch_counts().items():
+            run[name] += c
+        ext, vecs = idx.live_items()
+        scratch = make_index(inner, vecs, metric="ip")
+        b_s = scratch.searcher(k)
+        for b, a in zip(BUCKETS, after):
+            bb = b_s(queries[:b])
+            mapped = torch.where(bb.ids >= 0, torch.from_numpy(ext).to(
+                bb.ids.device)[bb.ids.clamp_min(0).long()].to(torch.int32), -1)
+            need(torch.equal(a.ids, mapped) and torch.equal(a.scores, bb.scores),
+                 f"{arm}: full compaction differs from a from-scratch {inner} "
+                 f"build at Q={b}")
+        cache = idx._merge_cache
+        merge_bytes = (cache[1].data.numel() * cache[1].data.element_size()
+                       if cache is not None else 0)
+        log(f"[stream] {arm}: compact(full=True) {full_s:.2f} s -> "
+            f"{idx.stats()['segments']} segment of {idx.n} rows, bit-equal to "
+            f"a from-scratch {inner} build on live_items() at Q in {BUCKETS}; "
+            f"memory {idx.memory_bytes()} bytes (host raw + device codes), "
+            f"merge store {merge_bytes} bytes on the card | {card}")
+        log(f"[stream] {arm}: kernel launches on this run: {run}")
+        for name, c in run.items():
+            counts[name] += c
+        del idx, scratch, a_s, b_s, cs, s, res, fres, after, vecs
+        torch.cuda.empty_cache()
+    return counts
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -2173,6 +2819,14 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     err = dict.fromkeys((*MAIN_KERNELS, *QSCORE), 0.0)
+    clock = [time.perf_counter()] * 2
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - clock[1]:.1f} s ({now - clock[0]:.1f} s "
+            "since the start)")
+        clock[1] = now
+
     try:
         info = _build.build_all()
         log(f"[build] {info['seconds']:.1f} s for {info['built'] or 'nothing (cached)'}"
@@ -2181,6 +2835,7 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "error" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
+        mark("build")
         check_kernels(err)
         check_adc()
         check_any_k(err)
@@ -2188,20 +2843,40 @@ def main() -> int:
         timing = time_kernels(err)
         timing.update(time_adc())
         timing.update(time_qscore(err))
+        mark("phase 3")
         counts = main_path(err)
         for path in (retrieval_path(err), ops_path()):
             for name, c in path.items():
                 counts[name] = counts.get(name, 0) + c
         table2()
         retrieval_recall()
+        mark("phases 4-6")
         graph_exact()
         graph_recall()
         for name, c in graph_path().items():
             counts[name] += c
+        mark("phase 7")
         index_exact()
         index_recall()
         for name, c in index_path(err).items():
             counts[name] += c
+        mark("phase 8")
+        filter_exact()
+        mark("phase 9(a)")
+        from repro_torch.data import synthetic
+
+        pc, pq, _ = synthetic.load("product", 4_000_000, 1000)
+        phase9 = dict.fromkeys(counts, 0)
+        for part, path in (("9(b)", filter_path), ("9(c)", stream_path)):
+            for name, c in path(err, pc, pq).items():
+                counts[name] += c
+                phase9[name] += c
+            mark(f"phase {part}")
+        del pc, pq
+        log(f"[phase9] kernel launches on phase 9's runs: {phase9}")
+        for name in MAIN_KERNELS:
+            need(phase9[name] > 0, f"kernel {name} was never launched on "
+                 "phase 9's runs")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

@@ -2,8 +2,10 @@
 
 The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
 ``rr_`` rerank prefix), an HNSW graph's layers, levels and entry, a graph
-index's adjacency and seeds, an IVF index's centroids and lists, or a
-reference-saved npz, holds nothing JAX-specific: numpy arrays plus a
+index's adjacency and seeds, an IVF index's centroids and lists, a
+stream index's segments (each an inner index's npz blob), tombstones,
+memtable, live stats and key, or a reference-saved npz, holds nothing
+JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
 and Eq. 1 constants).  These helpers
 turn them into the port's objects so both packages can run on the same
@@ -100,6 +102,24 @@ def ivf_from_reference_state(arrays: dict[str, np.ndarray],
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return IVFIndex.from_state(arrays, meta, device=device)
+
+
+def stream_from_reference_state(arrays: dict[str, np.ndarray],
+                                meta: dict[str, Any], device=None):
+    """A reference stream index's (arrays, meta) -> the port's
+    ``MutableIndex`` on ``device`` (``None``: the GPU).
+
+    ``arrays`` hold each segment's ``seg<i>_blob`` (the inner index's own
+    npz, loaded through its kind's port: ``flat_from_reference_state``
+    and the others read the same fields), ``raw``, ``ids``, ``live`` and
+    calibration stats, plus ``mem_vecs`` / ``mem_ids``, the ``ls_`` live
+    stats and ``rng_key``; ``meta`` holds the policy, counters and
+    segment records, as ``MutableIndex.save`` writes them.
+    """
+    from repro_torch.stream import MutableIndex
+
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return MutableIndex.from_state(arrays, meta, device=device)
 
 
 def quantized_table_from_numpy(codes: np.ndarray, lo: np.ndarray,

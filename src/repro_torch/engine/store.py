@@ -23,6 +23,20 @@ from repro_torch.core import quant as Qz
 from repro_torch.device import to_tensor
 
 
+def _params_equal(a: Optional[Qz.QuantParams],
+                  b: Optional[Qz.QuantParams]) -> bool:
+    """Exact (bit-level) equality of two quantization-constant sets."""
+    if a is None or b is None:
+        return a is None and b is None
+
+    def same(x, y):
+        return torch.equal(x.detach().cpu(), y.detach().cpu())
+
+    return (a.bits == b.bits and a.scheme == b.scheme
+            and same(a.lo, b.lo) and same(a.hi, b.hi)
+            and same(a.zero, b.zero))
+
+
 #: codeword index widths PQStore supports: 4-bit (16-codeword codebooks,
 #: codes packed two per byte) and 8-bit (256 codewords, one byte each)
 PQ_CODE_BITS = (4, 8)
@@ -61,6 +75,53 @@ class CodeStore:
             codes = PK.pack_int4(codes)
         return CodeStore(n=n, d=d, bits=params.bits, packed=pack,
                          data=codes.contiguous(), params=params, base=base)
+
+    @staticmethod
+    def concat(stores: "list[CodeStore]", base: int = 0) -> "CodeStore":
+        """Row-concatenate layout-compatible stores into one id space (the
+        stream layer's merge primitive).  Every input must agree on (d,
+        bits, packed) and, when quantized, on the exact Eq. 1 constants:
+        one store has one code space.  Input ``base`` offsets are dropped
+        (rows are renumbered 0..sum(n)-1 under the new ``base``)."""
+        if not stores:
+            raise ValueError("CodeStore.concat of zero stores")
+        head = stores[0]
+        for s in stores[1:]:
+            if (s.d, s.bits, s.packed) != (head.d, head.bits, head.packed):
+                raise ValueError(
+                    "concat of layout-incompatible stores: "
+                    f"{(s.d, s.bits, s.packed)} vs "
+                    f"{(head.d, head.bits, head.packed)}"
+                )
+            if not _params_equal(s.params, head.params):
+                raise ValueError(
+                    "concat of stores with different quantization constants "
+                    "— one store has one code space; re-encode first "
+                    "(stream compaction re-quantizes from raw payloads)"
+                )
+        data = torch.cat([s.data.to(head.device) for s in stores], dim=0)
+        return CodeStore(n=sum(s.n for s in stores), d=head.d, bits=head.bits,
+                         packed=head.packed, data=data, params=head.params,
+                         base=base)
+
+    def append(self, vectors) -> "CodeStore":
+        """A new store with fp32 ``vectors`` encoded into this store's code
+        space (B1 on the card) and appended; rows keep their order and ids
+        extend n..n+m-1.  Grows a store under its constants without
+        re-learning."""
+        vectors = to_tensor(vectors, device=self.device, dtype=torch.float32)
+        if vectors.shape[1] != self.d:
+            raise ValueError(
+                f"append dim {vectors.shape[1]} != store d {self.d}")
+        if not self.quantized:
+            extra = CodeStore.dense(vectors)
+        else:
+            from repro_torch.kernels import ops as K
+
+            p = self.params
+            codes = K.quantize(vectors, p.lo, p.hi, p.zero, bits=p.bits)
+            extra = CodeStore.from_codes(codes, p, pack=self.packed)
+        return CodeStore.concat([self, extra], base=self.base)
 
     # -- shape/metadata ----------------------------------------------------
     @property

@@ -1,6 +1,6 @@
 """Index kinds behind one API (port of ``repro.knn``; ``flat``, ``graph``,
-``hnsw``, ``ivf`` and ``pq`` so far), and the graph-construction
-utilities."""
+``hnsw``, ``ivf``, ``pq`` and the ``stream`` wrapper so far), and the
+graph-construction utilities."""
 
 from repro_torch.knn.base import SearchParams, SearchResult  # noqa: F401
 from repro_torch.knn.graph_utils import knn_graph, radius_graph  # noqa: F401
@@ -11,3 +11,13 @@ from repro_torch.knn.spec import (  # noqa: F401
     as_spec,
     parse_factory,
 )
+
+
+def __getattr__(name):
+    # the stream wrapper imports repro_torch.knn submodules itself:
+    # resolve it lazily (PEP 562), as the reference does
+    if name == "MutableIndex":
+        from repro_torch.stream import MutableIndex
+
+        return MutableIndex
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

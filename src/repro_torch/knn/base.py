@@ -24,7 +24,8 @@ class SearchParams:
     ``chunk`` bounds the exhaustive scan's working set; ``ef_search`` is
     the hnsw / graph beam width; ``nprobe`` is the ivf lists probed;
     ``budgets`` belongs to the cascade kind, not ported yet; ``filter`` is
-    not ported yet and must stay None."""
+    a ``repro_torch.filter.Filter`` over the index's external ids (or
+    None)."""
 
     chunk: int = 16384
     nprobe: int = 8
@@ -57,11 +58,28 @@ class SearchParams:
                         f"ints, got {v!r} in {self.budgets!r}"
                     )
         if self.filter is not None:
-            raise NotImplementedError(
-                "filter is not ported yet (ROADMAP queue A9): "
-                "SearchParams.filter must be None"
-            )
+            from repro_torch.filter import Filter
+
+            if not isinstance(self.filter, Filter):
+                raise ValueError(
+                    f"SearchParams.filter must be a repro_torch.filter.Filter "
+                    f"(or None), got {type(self.filter).__name__}"
+                )
         return self
+
+
+def filter_mask(sp: SearchParams, n: int, device
+                ) -> tuple[Optional[torch.Tensor], dict[str, Any]]:
+    """Plan-time view of ``sp.filter`` over an index of ``n`` rows: the
+    bitmap as a [n] bool tensor on ``device`` (moved once, so a request
+    copies nothing from the host), and the ``filter_selectivity`` stat.
+    (None, {}) without a filter."""
+    if sp.filter is None:
+        return None, {}
+    sp.validate()
+    mask = torch.from_numpy(np.array(sp.filter.aligned(n), dtype=bool))
+    return (mask.to(device),
+            {"filter_selectivity": round(sp.filter.selectivity, 6)})
 
 
 @dataclasses.dataclass

@@ -6,7 +6,8 @@ the fused score + top-k kernels B2 / B3.
 
 Registered as kind ``"flat"``; factory strings ``"flat"``,
 ``"flat,lpq8@gaussian:3"``, ``"flat,lpq4"``, ``"flat,lpq4+r32"``.
-The mesh (sharded) path is not ported yet.
+A ``SearchParams.filter`` bitmap rides the scan's id-masking fence.  The
+mesh (sharded) path is not ported yet.
 """
 
 from __future__ import annotations
@@ -111,14 +112,17 @@ class FlatIndex:
             raise NotImplementedError(
                 "the sharded (mesh) flat plan is not ported yet: "
                 "ROADMAP queue A14 (dist/)")
-        if sp.filter is not None:
-            sp.validate()                # raises: filter is not ported yet
+        # filter (DESIGN.md §16): external ids == row ids for a direct
+        # build, so the bitmap aligns with the store as-is and rides the
+        # engine's id-masking fence (B2 / B3's mask on the card)
+        fmask, fstats = B.filter_mask(sp, self.n, self.device)
 
         def run(queries) -> B.SearchResult:
             q = self.prepare_queries(queries)
             s, i, stats = engine.topk(q, self.store, k, self.metric,
-                                      chunk=sp.chunk, prepared=True)
-            return B.SearchResult(s, i, {"kind": "flat", **stats})
+                                      chunk=sp.chunk, prepared=True,
+                                      mask=fmask)
+            return B.SearchResult(s, i, {"kind": "flat", **stats, **fstats})
 
         return run
 

@@ -147,6 +147,21 @@ def beam_search_batch(
     return beam_scores, beam_ids
 
 
+
+def filtered_cut(scores: torch.Tensor, ids: torch.Tensor, k: int,
+                 mask: torch.Tensor | None):
+    """Cut a walk's [Q, ef] beam to k.  With a filter ``mask`` ([N] bool
+    over row ids), disallowed and empty slots become (NEG, -1) first and
+    the cut is stable, so allowed rows keep the beam's order (reference
+    ``hnsw.py`` / ``graph_index.py``: ``lax.top_k`` of the masked beam)."""
+    if mask is None:
+        return scores[:, :k], ids[:, :k]
+    ok = (ids >= 0) & mask[ids.clamp_min(0).long()]
+    s = torch.where(ok, scores.to(torch.float32), NEG)
+    i = torch.where(ok, ids, -1)
+    pos = stable_desc(s, k)
+    return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
+
 def beam_search(
     q: torch.Tensor,
     adj: torch.Tensor,

@@ -30,9 +30,10 @@ on the store's device.  The private ``_given`` argument takes them from
 elsewhere (the reference's, or another device's), and then the integer
 arms build the same graph.
 
-Not ported yet: per-region constants (``regions``, ROADMAP queue A11),
-filters (A9) and placement / mesh plans (A14); each raises naming its
-item.
+A ``SearchParams.filter`` leaves the walk alone, widens ef to
+``overfetch(k, selectivity, n)`` and masks the cut from ef to k.  Not
+ported yet: per-region constants (``regions``, ROADMAP queue A11) and
+placement / mesh plans (A14); each raises naming its item.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from repro_torch import engine
 from repro_torch.core import distances as D
 from repro_torch.core import quant as Qz
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.filter import overfetch
 from repro_torch.knn import base as B
 from repro_torch.knn import graph as G
 from repro_torch.knn import ivf as IVF
@@ -261,9 +263,12 @@ class GraphIndex:
         if mesh is not None or placement is not None:
             raise NotImplementedError(_MESH)
         sp = params or B.SearchParams()
-        if sp.filter is not None:
-            sp.validate()                # raises: filter is not ported yet
         ef = max(sp.ef_search, k)
+        # filter (DESIGN.md §16): walk unfiltered, widen ef by the
+        # filter's selectivity, apply the bitmap at the cut from ef to k
+        fmask, fstats = B.filter_mask(sp, self.n, self.device)
+        if fmask is not None:
+            ef = max(ef, overfetch(k, sp.filter.selectivity, self.n))
         score_set = engine.make_batch_score_set(self.store,
                                                 self.internal_metric)
         n_entry = min(8, self.seeds.shape[0])
@@ -285,8 +290,9 @@ class GraphIndex:
             stats = {"kind": "graph", "ef_search": ef, "n_entry": n_entry,
                      **engine.search_stats(
                          self.store, candidates=cand_bound, chunks=1,
-                         rows_read=nq * cand_bound)}
-            return B.SearchResult(scores[:, :k], ids[:, :k], stats)
+                         rows_read=nq * cand_bound), **fstats}
+            scores, ids = G.filtered_cut(scores, ids, k, fmask)
+            return B.SearchResult(scores, ids, stats)
 
         return run
 

@@ -17,9 +17,10 @@ same levels on every device, though not the reference's.  Given the same
 levels (the private ``_levels`` argument), the integer arms build the
 reference's adjacency and entry exactly.
 
-Not ported yet: per-region constants (``regions``, ROADMAP queue A11),
-filters (A9) and placement / mesh plans (A14); each raises naming its
-item.
+A ``SearchParams.filter`` leaves the walk alone, widens ef to
+``overfetch(k, selectivity, n)`` and masks the cut from ef to k.  Not
+ported yet: per-region constants (``regions``, ROADMAP queue A11) and
+placement / mesh plans (A14); each raises naming its item.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from repro_torch import engine
 from repro_torch.core import quant as Qz
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.filter import overfetch
 from repro_torch.knn import base as B
 from repro_torch.knn import graph as G
 from repro_torch.knn import registry
@@ -255,9 +257,13 @@ class HNSWIndex:
                 "the replicated (mesh) hnsw plan is not ported yet: "
                 "ROADMAP queue A14 (dist/)")
         sp = params or B.SearchParams()
-        if sp.filter is not None:
-            sp.validate()                # raises: filter is not ported yet
         ef = max(sp.ef_search, k)
+        # filter (DESIGN.md §16): the walk stays unfiltered (the graph's
+        # connectivity must not see holes), ef widens by the filter's
+        # selectivity, and the bitmap applies at the cut from ef to k
+        fmask, fstats = B.filter_mask(sp, self.n, self.device)
+        if fmask is not None:
+            ef = max(ef, overfetch(k, sp.filter.selectivity, self.n))
         score_set = engine.make_batch_score_set(self.store, self.metric)
 
         def run(queries) -> B.SearchResult:
@@ -279,8 +285,9 @@ class HNSWIndex:
                      **engine.search_stats(
                          self.store, candidates=cand_bound,
                          chunks=len(self.layers),
-                         rows_read=nq * cand_bound)}
-            return B.SearchResult(scores[:, :k], ids[:, :k], stats)
+                         rows_read=nq * cand_bound), **fstats}
+            scores, ids = G.filtered_cut(scores, ids, k, fmask)
+            return B.SearchResult(scores, ids, stats)
 
         return run
 

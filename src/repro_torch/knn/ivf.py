@@ -21,9 +21,11 @@ reference's, or another device's), and then the build's lists are the
 reference's.
 
 Registered as kind ``"ivf"``; factory strings ``"ivf256"``,
-``"ivf256,lpq8"``, ``"ivf256,lpq4"`` (packed int4).  Not ported yet:
-per-list constants (``regions``, ROADMAP queue A11), filters (A9) and
-the list-placed mesh plan (A14); each raises naming its item.
+``"ivf256,lpq8"``, ``"ivf256,lpq4"`` (packed int4).  A
+``SearchParams.filter`` masks the fine scoring by row and the coarse
+probe by list (a list with no allowed member is never probed).  Not
+ported yet: per-list constants (``regions``, ROADMAP queue A11) and the
+list-placed mesh plan (A14); each raises naming its item.
 """
 
 from __future__ import annotations
@@ -239,12 +241,15 @@ class IVFIndex:
         if mesh is not None or placement is not None:
             raise NotImplementedError(_MESH)
         sp = params or B.SearchParams()
-        if sp.filter is not None:
-            sp.validate()                # raises: filter is not ported yet
         nprobe = min(sp.nprobe, self.nlist)
         cent_store = engine.CodeStore.dense(self.centroids)
         width = nprobe * self.max_list
         rows = fine_block_rows(self.store, width)
+        # filter (DESIGN.md §16): a row mask for the fine-scoring fence,
+        # and a list mask that keeps lists with no allowed member out of
+        # the coarse probe, so their probe slots go to lists that can
+        # still contribute
+        fmask, lmask, fstats = self._filter_masks(sp)
 
         def run(queries) -> B.SearchResult:
             qf = to_tensor(queries, device=self.device, dtype=torch.float32)
@@ -252,22 +257,45 @@ class IVFIndex:
             nq = qf.shape[0]
             # 1) coarse: engine top-k over the fp32 centroid table, in the
             #    user's metric
-            _cs, probe, _ = engine.topk(qf, cent_store, nprobe, self.metric)
-            # 2) candidate ids [Q, nprobe * max_list], probe order first
-            cand = self.lists[probe.long()].reshape(nq, -1)
+            _cs, probe, _ = engine.topk(qf, cent_store, nprobe, self.metric,
+                                        mask=lmask)
+            # 2) candidate ids [Q, nprobe * max_list], probe order first; a
+            #    probe slot the list mask left empty (id -1) gives -1
+            #    candidates, dead at the fine-scoring fence
+            probe = probe.long()
+            cand = self.lists[probe.clamp_min(0)]
+            if lmask is not None:
+                cand = torch.where(probe[..., None] >= 0, cand, -1)
+            cand = cand.reshape(nq, -1)
             # 3) fine scoring + top-k through the engine, in query blocks
             parts = [engine.topk_among(qq[s:s + rows], self.store,
-                                       cand[s:s + rows], k, self.metric)
+                                       cand[s:s + rows], k, self.metric,
+                                       mask=fmask)
                      for s in range(0, nq, rows)]
             scores = torch.cat([s for s, _ in parts])
             ids = torch.cat([i for _, i in parts])
             stats = {"kind": "ivf", "nprobe": nprobe,
                      **engine.search_stats(self.store, candidates=width,
                                            chunks=nprobe,
-                                           rows_read=nq * width)}
+                                           rows_read=nq * width),
+                     **fstats}
             return B.SearchResult(scores, ids, stats)
 
         return run
+
+    def _filter_masks(self, sp):
+        """(row mask [n] | None, probe mask [nlist] | None, filter stats)
+        for ``sp.filter``, on the index's device.  The probe mask marks
+        lists with at least one allowed member (reference ``ivf.py``
+        ``_filter_masks``)."""
+        fmask, fstats = B.filter_mask(sp, self.n, self.device)
+        if fmask is None:
+            return None, None, {}
+        memb = self.lists >= 0
+        allowed = memb & fmask[self.lists.clamp_min(0).long()]
+        lmask = allowed.any(dim=1)
+        fstats["filter_lists_skipped"] = int((~lmask).sum())
+        return fmask, lmask, fstats
 
     def searcher(self, k: int, params: Optional[B.SearchParams] = None, **kw):
         from repro_torch.knn.searcher import Searcher

@@ -172,15 +172,16 @@ class PQIndex:
                 "the sharded (mesh) pq plan is not ported yet: "
                 "ROADMAP queue A14 (dist/)")
         sp = params or B.SearchParams()
-        if sp.filter is not None:
-            sp.validate()                # raises: filter is not ported yet
+        # filter (DESIGN.md §16): the bitmap joins the ADC scan's fence
+        # (B4 / B5's mask on the card; the fp32-LUT scan's otherwise)
+        fmask, fstats = B.filter_mask(sp, self.n, self.device)
 
         def run(queries) -> B.SearchResult:
             s, i, stats = engine.topk(queries, self.store, k, self.metric,
-                                      chunk=sp.chunk)
+                                      chunk=sp.chunk, mask=fmask)
             return B.SearchResult(
                 s, i, {"kind": "pq", "m": self.m,
-                       "lpq_tables": self.lpq_tables, **stats},
+                       "lpq_tables": self.lpq_tables, **stats, **fstats},
             )
 
         return run

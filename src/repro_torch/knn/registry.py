@@ -1,9 +1,9 @@
 """kind -> implementation registry and the ``make_index`` / ``load_index``
 entry points (port of ``repro.knn.registry``).
 
-``flat``, ``graph``, ``hnsw``, ``ivf`` and ``pq`` are ported.  Every
-other kind the grammar parses raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  Entry points run on the card by default: ``device=None`` resolves to
+``flat``, ``graph``, ``hnsw``, ``ivf``, ``pq`` and ``stream`` are
+ported.  ``cascade``, the one other kind the grammar parses, raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  Entry points run on the card by default: ``device=None`` resolves to
 ``cuda`` and raises when no CUDA device exists; pass ``device="cpu"`` to
 run on the CPU.
 """
@@ -19,7 +19,6 @@ _REGISTRY: dict[str, type] = {}
 
 #: parsed kinds that are not ported yet -> the ROADMAP queue A item
 NOT_PORTED = {
-    "stream": "queue A10 (stream/)",
     "cascade": "queue A11 (cascade/)",
 }
 
@@ -41,6 +40,7 @@ def _ensure_registered() -> None:
     from repro_torch.knn import hnsw  # noqa: F401  (kind "hnsw")
     from repro_torch.knn import ivf  # noqa: F401  (kind "ivf")
     from repro_torch.knn import pq  # noqa: F401  (kind "pq")
+    from repro_torch.stream import mutable  # noqa: F401  (kind "stream")
 
 
 def kinds() -> tuple[str, ...]:

@@ -14,23 +14,29 @@ the single-device half of ``repro.knn.searcher``, DESIGN.md §9).
   * **account** — every result's stats carry the engine block plus
     ``{bucket, padded_q, shards, reranked}``.
 
-The sharded (mesh) and multi-source (stream) plans are not ported yet.
+``multi_source_plan`` fuses per-source plans (a stream index's sealed
+segments and memtable) behind one runner.  The sharded (mesh) plan is not
+ported yet (ROADMAP queue A14).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Optional, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 
 from repro_torch import engine
 from repro_torch.device import to_tensor
+from repro_torch.filter import overfetch
+from repro_torch.kernels.ref import NEG, stable_desc
 from repro_torch.knn import base as B
 
-__all__ = ["Searcher", "Rerank", "one_shot", "DEFAULT_BATCH_SIZES",
-           "DEFAULT_RERANK_DEPTH"]
+__all__ = ["Searcher", "Rerank", "one_shot", "multi_source_plan",
+           "DEFAULT_BATCH_SIZES", "DEFAULT_RERANK_DEPTH"]
+
+PlanFn = Callable[[torch.Tensor], B.SearchResult]
 
 #: padded batch-size buckets (smallest covering bucket per request;
 #: oversize requests run in max-bucket slices)
@@ -46,7 +52,12 @@ def DEFAULT_RERANK_DEPTH(k: int, n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Rerank:
     """Rerank stage: re-score the quantized top-``depth`` against ``store``
-    (an fp32 or int8 ``engine.CodeStore``) by exact distance."""
+    (an fp32 or int8 ``engine.CodeStore``) by exact distance.
+
+    ``store`` is None for indexes that own their rerank stage
+    (``handles_rerank = True``: the stream kind, whose multi-source merge
+    re-scores against the raw payloads in its own plan); the Searcher then
+    only resolves the depth and passes it to ``index.plan``."""
 
     depth: int
     store: Optional[engine.CodeStore]
@@ -67,9 +78,26 @@ def _query_dim(index) -> Optional[int]:
 def _resolve_rerank(index, k: int, n: int, rerank) -> Optional[Rerank]:
     """Normalize ``rerank=``: None -> the index's ``+rN`` store at default
     depth (or none); False -> off; int -> depth over the index's store;
-    Rerank -> explicit (its store must cover the same id space)."""
+    Rerank -> explicit (its store must cover the same id space).  An
+    index with ``handles_rerank`` gets a store-less ``Rerank(depth, None)``
+    (None when it has no ``+rN`` and no depth was asked for)."""
     if rerank is False:
         return None
+    if getattr(index, "handles_rerank", False):
+        if rerank is None:
+            if getattr(index, "rerank_bits", None) is None:
+                return None
+            return Rerank(DEFAULT_RERANK_DEPTH(k, n), None)
+        if rerank is True:
+            return Rerank(DEFAULT_RERANK_DEPTH(k, n), None)
+        if isinstance(rerank, bool) or not isinstance(rerank, int):
+            raise TypeError(
+                f"{index.kind!r} owns its rerank stage; pass None / False / "
+                f"an int depth, not {type(rerank)!r}"
+            )
+        if rerank <= 0:
+            raise ValueError(f"rerank depth must be positive, got {rerank}")
+        return Rerank(max(k, min(int(rerank), max(n, k))), None)
     own = getattr(index, "rerank_store", None)
     if rerank is None or rerank is True:
         if own is None:
@@ -103,6 +131,105 @@ def _resolve_rerank(index, k: int, n: int, rerank) -> Optional[Rerank]:
     if rerank.depth <= 0:
         raise ValueError(f"rerank depth must be positive, got {rerank.depth}")
     return dataclasses.replace(rerank, depth=max(k, min(rerank.depth, n)))
+
+
+# --------------------------------------------------------------------------
+# multi-source plans: segments + memtable behind one runner (stream kind)
+# --------------------------------------------------------------------------
+
+def multi_source_plan(
+    sources: Sequence[tuple[PlanFn, int, int]],
+    *,
+    k: int,
+    metric: str,
+    id_map: torch.Tensor,
+    live: torch.Tensor,
+    merge_store: Optional[engine.CodeStore],
+    rescore: bool,
+    stats_extra: Optional[dict] = None,
+) -> PlanFn:
+    """Fuse per-source plans into one runner over a shared internal id
+    space (DESIGN.md §10: the stream kind's search path).
+
+    ``sources`` is a list of ``(runner, base, width)``: each runner is a
+    kind's ``plan`` over one sealed segment (or the memtable's flat scan)
+    returning *local* ids; ``base`` rebases them into the manifest's
+    internal id space; ``width`` is the candidate count it returns.  The
+    runner:
+
+      1. runs every source, rebases ids, and masks candidates through
+         ``live`` ([rows] bool on the device: the tombstone bitmap, and a
+         search-time filter composed into it by the caller), so a dead
+         or filtered row can take a candidate slot but never a result
+         slot; sources over-fetch by their masked count;
+      2. merges: with ``rescore``, every candidate is re-scored in one
+         common space through ``engine.topk_among`` against
+         ``merge_store`` (per-segment quantized scores are not comparable
+         across differently calibrated segments; this is also the ``+rN``
+         rerank tail); a single source with no re-score passes through in
+         its own score order (a stable cut, so dropping dead slots cannot
+         reorder live ties);
+      3. maps internal ids to external ids through ``engine.remap_ids``.
+
+    The runner snapshots the state it closed over: mutations after plan
+    time need a new plan.
+    """
+    if rescore and merge_store is None:
+        raise ValueError("rescoring merge needs a merge_store")
+    extra = dict(stats_extra or {})
+    total_width = sum(w for _, _, w in sources)
+
+    def run(queries: torch.Tensor) -> B.SearchResult:
+        q = queries.to(device=live.device, dtype=torch.float32)
+        Q = q.shape[0]
+        if not sources:                       # fully empty index
+            return B.SearchResult(
+                torch.full((Q, k), NEG, dtype=torch.float32, device=q.device),
+                torch.full((Q, k), -1, dtype=torch.int32, device=q.device),
+                {"kind": "stream", "candidates": 0, "reranked": 0, **extra},
+            )
+
+        parts_s, parts_i = [], []
+        agg = {"candidates": 0, "bytes_read": 0, "chunks": 0,
+               "merge_wire_bytes": 0}
+        for runner, base, _w in sources:
+            res = runner(q)
+            parts_s.append(res.scores.to(torch.float32))
+            parts_i.append(torch.where(res.ids >= 0, res.ids + base, -1))
+            for key in agg:
+                agg[key] += int(res.stats.get(key, 0))
+        s = torch.cat(parts_s, dim=1)
+        gids = torch.cat(parts_i, dim=1)
+
+        # tombstone (and filter) mask: dead rows lose their slot here
+        ok = (gids >= 0) & live[gids.clamp(0, live.shape[0] - 1).long()]
+        s = torch.where(ok, s, NEG)
+        gids = torch.where(ok, gids, -1).to(torch.int32)
+
+        stats = {"kind": "stream", **agg, **extra}
+        if rescore:
+            qm = merge_store.encode_queries(q)
+            s, gids = engine.topk_among(qm, merge_store, gids, k, metric)
+            stats.update(
+                reranked=total_width,
+                rerank_bits=int(merge_store.bits),
+                rerank_bytes=int(Q) * total_width * merge_store.row_bytes,
+            )
+            stats["bytes_read"] += stats["rerank_bytes"]
+        else:
+            k_eff = min(k, s.shape[1])
+            pos = stable_desc(s, k_eff)
+            s = torch.gather(s, 1, pos)
+            gids = torch.gather(gids, 1, pos)
+            if k_eff < k:
+                s = torch.nn.functional.pad(s, (0, k - k_eff), value=NEG)
+                gids = torch.nn.functional.pad(gids, (0, k - k_eff),
+                                               value=-1)
+            stats["reranked"] = 0
+        ext = engine.remap_ids(gids, id_map)
+        return B.SearchResult(s, ext, stats)
+
+    return run
 
 
 class Searcher:
@@ -148,12 +275,27 @@ class Searcher:
         self.batch_sizes = batch_sizes
         self.mesh = None
         self.rerank = _resolve_rerank(index, k, n, rerank)
+        if self.rerank is not None and sp.filter is not None:
+            # filter over-fetch (DESIGN.md §16): widen the candidate depth
+            # by the filter's selectivity so ~k allowed rows reach the
+            # rerank; fewer survivors still pad with (NEG, -1)
+            self.rerank = dataclasses.replace(
+                self.rerank,
+                depth=max(self.rerank.depth,
+                          overfetch(k, sp.filter.selectivity, n)),
+            )
         self._qdim = _query_dim(index)
         self._counts: collections.Counter = collections.Counter()
         self._extras = {"shards": 1, "tuned": False}
 
         rr = self.rerank
-        inner = index.plan(rr.depth if rr is not None else k, sp)
+        if rr is not None and rr.store is None:
+            # index-owned rerank (stream): the plan runs scan -> merge ->
+            # exact re-score itself; hand it k and the candidate depth
+            inner = index.plan(k, sp, rerank_depth=rr.depth)
+            rr = None
+        else:
+            inner = index.plan(rr.depth if rr is not None else k, sp)
         metric = index.metric
 
         def run(queries: torch.Tensor) -> B.SearchResult:

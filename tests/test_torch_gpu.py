@@ -731,3 +731,80 @@ def test_graph_and_ivf_on_the_card_equal_the_cpu(dev, f, metric):
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.equal(got.scores.cpu(), want.scores)
     assert got.stats == want.stats
+
+
+FILTER_SELS = (0.02, 0.25, 0.9)
+
+
+@pytest.mark.parametrize("f,metric", [("flat,lpq8@global_minmax", "ip"),
+                                      ("flat,lpq4@global_minmax", "l2"),
+                                      ("pq16+lpq", "ip"),
+                                      ("pq16x4,lpq8", "l2"),
+                                      ("ivf16,lpq8@global_minmax", "ip"),
+                                      ("hnsw8,lpq8@global_minmax", "ip"),
+                                      ("graph8,lpq8@global_minmax", "l2")])
+def test_filtered_search_on_the_card_equals_the_cpu(dev, f, metric):
+    """A filtered Searcher on the card (B2 / B3 / B4 / B5 with the filter
+    bitmap as their mask, ivf's masked coarse probe, the walks' masked
+    cut) returns the CPU's ids, scores and stats, bit for bit, at every
+    bucket and selectivity, on one index (built on the CPU, loaded on the
+    card)."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, load_index, make_index
+
+    g = torch.Generator().manual_seed(11)
+    corpus = torch.randn(1500, 32, generator=g)
+    queries = torch.randn(45, 32, generator=g)
+    cpu = make_index(f, corpus, metric=metric, device="cpu", kmeans_iters=4,
+                     ef_construction=40)
+    buf = io.BytesIO()
+    cpu.save(buf)
+    card = load_index(io.BytesIO(buf.getvalue()), device=dev)
+    for sel in FILTER_SELS:
+        allow = np.random.default_rng(int(sel * 100)).random(1500) < sel
+        sp = SearchParams(nprobe=4, ef_search=40,
+                          filter=Filter.from_mask(allow))
+        got, want = (i.searcher(10, sp, batch_sizes=(1, 8, 32))(queries)
+                     for i in (card, cpu))
+        assert torch.equal(got.ids.cpu(), want.ids)
+        assert torch.equal(got.scores.cpu(), want.scores)
+        # the engine's chunk and byte counts follow the scan each device
+        # runs (a kernel's tiles, the plain scan's chunks); the filter's own
+        # stats do not
+        for key in ("filter_selectivity", "filter_lists_skipped", "kind"):
+            assert got.stats.get(key) == want.stats.get(key), key
+        ids = want.ids.numpy()
+        assert allow[ids[ids >= 0]].all()
+
+
+@pytest.mark.parametrize("f", ["stream(flat,lpq8@global_minmax)",
+                               "stream(flat,lpq4@global_absmax)+r32"])
+def test_stream_lifecycle_on_the_card_equals_the_cpu(dev, f):
+    """One write sequence (upserts that replace rows and add ids, deletes,
+    seals, auto compaction, full compaction) on the card and on the CPU:
+    equal segments, external ids, live bitmaps, counters and epoch, and a
+    filtered Searcher's results equal at every bucket: bit for bit where
+    the plan passes one integer source through, else (the merge re-scores
+    in fp32 on each device) scores within rtol 1e-5 of the row scale and
+    ids equal outside near-ties (``repro_torch.testing.lifecycles_equal``,
+    which ``chip_smoke.py`` phase 9(a) runs at a larger size)."""
+    import numpy as np
+
+    from repro_torch.knn import make_index
+    from repro_torch.testing import lifecycles_equal, stream_lifecycle
+
+    rng = np.random.default_rng(12)
+    corpus = rng.standard_normal((3000, 32)).astype(np.float32)
+    queries = rng.standard_normal((45, 32)).astype(np.float32)
+    allow = rng.random(4500) < 0.3
+    runs = [stream_lifecycle(make_index, f, corpus, queries, allow,
+                             (1, 8, 32, 4), bulk=1500,
+                             searcher_kw={"batch_sizes": (1, 8, 32)},
+                             device=d, seal_threshold=256, max_segments=4)
+            for d in (dev, "cpu")]
+    diff, _exact, _same = lifecycles_equal(*runs, allow, 1e-5)
+    assert diff is None, diff

@@ -253,15 +253,16 @@ def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     arrays, meta = load_state(path)
     with pytest.raises(NotImplementedError, match="A11"):
         H.HNSWIndex.from_state(arrays, {**meta, "rg_regions": 4}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A10"):
-        make_index("stream(hnsw8,lpq8)", corpus, device="cpu")
+    st = make_index("stream(hnsw8,lpq8)", corpus[:300], device="cpu",
+                    **BUILD)
+    assert st.kind == "stream" and st.manifest.segments[0].index.kind == "hnsw"
     with pytest.raises(NotImplementedError, match="A14"):
         port.placement(2)
     with pytest.raises(NotImplementedError, match="A14"):
         port.plan(K, mesh=object())
     with pytest.raises(NotImplementedError, match="A14"):
         port.searcher(K, shards=object())
-    with pytest.raises(NotImplementedError, match="filter is not ported"):
+    with pytest.raises(ValueError, match="SearchParams.filter must be"):
         port.searcher(K, SearchParams(filter=object()))
 
 

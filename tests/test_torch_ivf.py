@@ -324,9 +324,9 @@ def test_unported_parts_raise_naming_their_roadmap_item(built, data):
         port.plan(K, mesh=object())
     with pytest.raises(NotImplementedError, match="A14"):
         port.searcher(K, shards=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="SearchParams.filter must be"):
         port.searcher(K, SearchParams(filter=object()))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="SearchParams.filter must be"):
         port.plan(K, SearchParams(filter=object()))
 
 
