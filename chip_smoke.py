@@ -61,17 +61,17 @@ Phases (each prints its lines; any failure exits non-zero):
               and packed-int4 arms at 4,000 x 64, built on the card and on
               the CPU from the same levels: adjacency and entry equal, and a
               bucketed Searcher's ids and scores equal at ef_search 40 and
-              80 (fp32 hnsw8: recall@10 within 0.01); (b) the paper's arm
+              80 (fp32 hnsw8: recall@10 within 0.01); (c) the paper's arm
               hnsw32,lpq8@gaussian:3 and hnsw32 (ef_construction 300, batch
-              256) at product-like 20,000 x 256, 128 queries: recall@100 at
-              ef_search 300 and 800 within max(0.02, the reference's spread)
-              of the reference's mean (REF_HNSW); (c) the same arms at
-              GRAPH_N x 256 as one run of the main path (counters set to 0
-              before, read after): build seconds, memory against the
-              reference's formula, recall@100, QPS and p50 at 256-query
-              requests and the mixed 1/8/32 stream, then one request's walk
-              steps, iterations a query, B1 launches (1 int8, 0 fp32) and
-              kernels a step (torch.profiler, at ef_search 300)
+              256) at product-like GRAPH_N (20,000) x 256 as one run of the
+              main path (counters set to 0 before, read after): build
+              seconds, memory against the reference's formula, recall@100,
+              QPS and p50 at 256-query requests and the mixed 1/8/32
+              stream, then one request's walk steps, iterations a query, B1
+              launches (1 int8, 0 fp32) and kernels a step (torch.profiler,
+              at ef_search 300); (b) on (c)'s builds, 128 queries:
+              recall@100 at ef_search 300 and 800 within max(0.02, the
+              reference's spread) of the reference's mean (REF_HNSW)
   8. index  the NGT-style graph index and the ivf kind: (a) graph8 int8 ip
               (augmented to d+1) / l2 / angular and packed-int4 arms and
               ivf32 int8 ip / l2 and int4 arms at 4,000 x 64, built on the
@@ -127,11 +127,36 @@ Phases (each prints its lines; any failure exits non-zero):
               the churned snapshot against the fresh build, recall@100
               against an exact scan of live_items(), one filtered request,
               and compact(full=True) bit-equal to a from-scratch build
+ 10. cascade / regions  the cascade kind and per-region Eq. 1 constants:
+              (a) at the reference conformance's 384 x 32, its arms
+              cascade(flat,lpq4|r32), cascade(pq16x4|lpq8|r32),
+              ivf8,lpq8,regions, hnsw8,lpq8,regions and
+              graph16,lpq4,regions built on the card and on the CPU from
+              one set of draws: codes and region constants equal, integer
+              head scans, stages and walks bit-equal, fp32 stages and
+              regional re-scores within rtol 1e-5, a bucketed Searcher
+              unfiltered and filtered at 0.02 / 0.25 / 0.9; one write
+              sequence on stream(cascade(flat,lpq8|r32)) equal on both;
+              cascade(flat|r32) at budgets (n,) equal to the exact flat
+              scan; (b) recall at 20,000 rows within max(0.02, the
+              reference's spread) of the reference's mean (REF_CASCADE):
+              the two cascades at bench_cascade's budgets (recall@10),
+              ivf128 / graph24 ,lpq8@global_minmax,regions (SIFT-like) and
+              hnsw32,lpq8@gaussian:3,regions (product-like); (c) one run
+              of the main path on phase 9's product-like 4,000,000 x 256
+              rows (the cascades at their budgets beside
+              flat,lpq8@gaussian:3 and flat,lpq4, k=10: recall@10, memory
+              ratio, QPS, p50, stage rows, model bytes a query,
+              bench_cascade's gate logged) and SIFT-like 1,000,000 x 128
+              (ivf1024 and graph24 ,lpq8@global_minmax,regions: build
+              seconds by part, memory against the reference's formula,
+              recall@100, QPS, p50), then every kernel scan it launched
+              held against its plain version
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
-the score-matrix ops, the HNSW path, the graph / ivf path and phase 9(b)
-and (c)), then the
+the score-matrix ops, the HNSW path, the graph / ivf path, phase 9(b)
+and (c) and phase 10(c)), then the
 card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1564,10 +1589,12 @@ GRAPH_EF = (300, 800)
 #: phase 7(c)'s product-like rows.  The build is the reference's host-side,
 #: point-by-point commit (src/repro/knn/hnsw.py:149-204), which the port
 #: copies, beside a walk of some 50 small launches a step: one 100,000-row
-#: int8 build took 250-264 s on the H100 (scripts/hnsw_probe.py), so two
-#: arms at 100,000 rows would take the script to about 780 s, past half
-#: its 1200 s limit; at 50,000 rows it stays inside that half
-GRAPH_N = 50_000
+#: int8 build took 250-264 s on the H100 (scripts/hnsw_probe.py), one
+#: 50,000-row build 110-120 s and one 20,000-row build 43-45 s.  At
+#: 50,000 rows phase 7 took 472 of the script's 1,011 s; 20,000 rows make
+#: room for phase 10 inside the 1200 s limit.  7(b) checks its recall on
+#: 7(c)'s builds, so GRAPH_N is also REF_HNSW's size
+GRAPH_N = 20_000
 
 #: the reference's HNSW recall@100 at n=20000 x 256 product-like, 128
 #: queries, ef_construction 300, batch 256: (mean, spread = max - min) over
@@ -1670,19 +1697,24 @@ def graph_exact() -> None:
     need(ok, f"hnsw8: card recall {rec['cuda']:.4f} vs CPU {rec['cpu']:.4f}")
 
 
-def graph_recall() -> None:
-    """7(b): the paper's arm and its fp32 pair at n=20000 x 256
-    product-like, 128 queries: recall@100 against the fp32 flat arm at each
-    ef_search within max(0.02, the reference's spread) of the reference's
-    mean (REF_HNSW)."""
+def graph_recall(built: dict) -> None:
+    """7(b): the paper's arm and its fp32 pair as 7(c) built them
+    (``built``: factory -> index, the build the reference's script makes at
+    n=20000 x 256 product-like), 128 queries: recall@100 against the fp32
+    flat arm at each ef_search within max(0.02, the reference's spread) of
+    the reference's mean (REF_HNSW)."""
+    import torch
+
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
     from repro_torch.knn import SearchParams, make_index
 
     corpus, queries, metric = synthetic.load("product", 20000, 128)
+    need(torch.equal(built["hnsw32"].store.data, corpus),
+         "7(b): 7(c)'s fp32 build holds other rows than REF_HNSW's corpus")
     gt = make_index("flat", corpus, metric=metric).search(queries, 100).ids
     for f in GRAPH_ARMS:
-        idx = make_index(f, corpus, metric=metric, **GRAPH_BUILD)
+        idx = built[f]
         for ef in GRAPH_EF:
             s = idx.searcher(100, SearchParams(ef_search=ef))
             rec = recall_at_k(gt, s(queries).ids)
@@ -1737,7 +1769,7 @@ def graph_path() -> dict:
     256-query requests and for the mixed 1/8/32 stream at each ef_search.
     Then, per arm and ef_search, one 256-query request's walk: layer-0
     steps, iterations a query, B1 launches, and (at the first ef_search,
-    under torch.profiler) kernels a step."""
+    under torch.profiler) kernels a step.  Last, 7(b) on these builds."""
     import torch
 
     from repro_torch import kernels
@@ -1795,6 +1827,7 @@ def graph_path() -> dict:
                 f"steps{kern}, {b1} B1 launches")
             need(b1 == (1 if idx.quantized else 0),
                  f"{f}: {b1} B1 launches in one request")
+    graph_recall(built)
     del built, corpus, queries, gt
     torch.cuda.empty_cache()
     return {"quantize": run["quantize"]}
@@ -2775,6 +2808,517 @@ def stream_path(err: dict, corpus, queries) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: the scoring cascade and per-region Eq. 1 constants
+# --------------------------------------------------------------------------
+
+#: phase 10(a): the reference's conformance arms and overrides
+#: (tests/test_conformance.py:44-53), built on the card and on the CPU
+#: from one set of draws (repro_torch.testing.build_draws)
+CASCADE_EXACT = {
+    "cascade(flat,lpq4|r32)": {},
+    "cascade(pq16x4|lpq8|r32)": {"kmeans_iters": 4},
+    "ivf8,lpq8,regions": {"kmeans_iters": 4},
+    "hnsw8,lpq8,regions": {"ef_construction": 40, "batch_size": 128},
+    "graph16,lpq4,regions": {"n_seeds": 16},
+}
+CASCADE_STREAM = "stream(cascade(flat,lpq8|r32))"
+#: phase 10(b)-(c): benchmarks/bench_cascade.py's cascades at its budgets
+#: (ARMS_FULL, built with its kmeans_iters=4), and the single-stage arms
+#: beside them (its gate: a cascade reaches the first one's recall@10 at no
+#: more than the second one's bytes a query)
+CASCADE_ARMS = {"cascade(pq16x4|lpq8|r32)": (768, 96),
+                "cascade(flat,lpq4|r32)": (64,)}
+CASCADE_BUILD = {"kmeans_iters": 4}
+CASCADE_BESIDE = ("flat,lpq8@gaussian:3", "flat,lpq4")
+#: phase 10(b): (dataset, factory, k, build overrides, knob, values) at
+#: n=20000, 128 queries
+REGION_RECALL = (
+    ("product", "cascade(pq16x4|lpq8|r32)", 10, CASCADE_BUILD, "budgets",
+     ((768, 96),)),
+    ("product", "cascade(flat,lpq4|r32)", 10, CASCADE_BUILD, "budgets",
+     ((64,),)),
+    ("sift", "ivf128,lpq8@global_minmax,regions", 100, {}, "nprobe", (8, 32)),
+    ("sift", "graph24,lpq8@global_minmax,regions", 100, {}, "ef_search",
+     (300,)),
+    ("product", "hnsw32,lpq8@gaussian:3,regions", 100, GRAPH_BUILD,
+     "ef_search", (300,)),
+)
+#: the reference's recall of REGION_RECALL (recall@10 for the cascades,
+#: recall@100 otherwise): (mean, spread = max - min) over three seeds of
+#: data and draws, measured on the CPU by scripts/cascade_reference_recall.py
+REF_CASCADE = {
+    ("product", "cascade(pq16x4|lpq8|r32)", (768, 96)): (0.4208, 0.0117),
+    ("product", "cascade(flat,lpq4|r32)", (64,)): (0.9888, 0.0023),
+    ("sift", "ivf128,lpq8@global_minmax,regions", 8): (0.2983, 0.0110),
+    ("sift", "ivf128,lpq8@global_minmax,regions", 32): (0.6206, 0.0196),
+    ("sift", "graph24,lpq8@global_minmax,regions", 300): (0.7382, 0.0109),
+    ("product", "hnsw32,lpq8@gaussian:3,regions", 300): (0.9020, 0.0045),
+}
+#: phase 10(c): the SIFT-like regions arms (beside 8(c)'s INDEX_*_ARMS)
+REGION_IVF = "ivf1024,lpq8@global_minmax,regions"
+REGION_GRAPH = "graph24,lpq8@global_minmax,regions"
+#: phase 10's kernels: the lpq4 head (B3), the int8 arm beside it (B2
+#: int8), the ivf probe and the graph's entry probe (B2 fp32) and every Eq.
+#: 1 encode (B1)
+CASCADE_KERNELS = ("quantize", "fused_topk_int8", "fused_topk_fp32",
+                   "fused_topk4")
+
+
+def _store_codes(idx) -> list:
+    """Every store an index scans or gathers: a cascade's head and stages,
+    a regions build's store and regional store."""
+    if idx.kind == "cascade":
+        stores = [idx.head.store, *idx.stage_stores]
+    else:
+        stores = [idx.store]
+        if getattr(idx, "region_store", None) is not None:
+            stores.append(idx.region_store)
+    return [s.codes if hasattr(s, "codes") else s.data for s in stores]
+
+
+def cascade_exact() -> None:
+    """10(a): each arm of CASCADE_EXACT at the reference conformance's
+    size (tests/test_conformance.py: 384 x 32, ip; 256 queries), built on
+    the card
+    and on the CPU from one set of draws: every store's codes and the
+    region constants equal; a cascade's head scan at its fetch depth and
+    each refinement stage on the same candidates bit-equal where integer
+    (ids and scores), fp32 stages within rtol 1e-5 of the row scale; a
+    regional walk's integer beam (HNSW, graph) bit-equal before its
+    re-score; a bucketed Searcher unfiltered and filtered at FILTER_SELS
+    within rtol 1e-5 (ids equal outside near-ties).  Then one write
+    sequence on CASCADE_STREAM (each sealed segment a cascade; bulk 192
+    rows, seal_threshold 128) on both:
+    segments, ids, live bitmaps, counters and epoch equal, results within
+    rtol 1e-5.  Last, cascade(flat|r32) at budgets (n,) against the exact
+    flat scan on each device, within rtol 1e-5."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, as_spec, make_index
+    from repro_torch.knn.registry import get_impl
+    from repro_torch.testing import (build_draws, fp32_near_equal,
+                                     lifecycles_equal, stream_lifecycle)
+
+    n, d, k = 384, 32, 10
+    rng = np.random.default_rng(10)
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((256, d)).astype(np.float32)
+
+    def requests(idx, sp):
+        s = idx.searcher(k, sp, batch_sizes=BUCKETS)
+        out, start = [], 0
+        for b in (1, 8, 32, 215):
+            out.append(s(queries[start:start + b]))
+            start += b
+        return (np.concatenate([r.scores.cpu().numpy() for r in out]),
+                np.concatenate([r.ids.cpu().numpy() for r in out]))
+
+    def same(got, want, integer, what):
+        (gs, gi), (ws, wi) = ((s.cpu().numpy(), i.cpu().numpy())
+                              for s, i in (got, want))
+        if integer:
+            need(np.array_equal(gi, wi) and np.array_equal(gs, ws),
+                 f"{what}: the card's integer results differ from the CPU's")
+        else:
+            need(fp32_near_equal(gs, gi, ws, wi, 1e-5)[0],
+                 f"{what}: the card's fp32 results differ from the CPU's "
+                 "beyond rtol 1e-5")
+
+    for f, over in CASCADE_EXACT.items():
+        t0 = time.perf_counter()
+        spec = as_spec(f, metric="ip")
+        cpu = get_impl(spec.kind).build(corpus, spec, device="cpu", **over)
+        spec, kw = build_draws(f, "ip", cpu, corpus)
+        card = get_impl(spec.kind).build(corpus, spec, device="cuda", **kw,
+                                         **over)
+        need(all(torch.equal(a.cpu(), b) for a, b in
+                 zip(_store_codes(card), _store_codes(cpu))),
+             f"{f}: the card's codes differ from the CPU's")
+        checks = []
+        if spec.kind == "cascade":
+            budgets = cpu.resolve_budgets(k, None, None)
+            qt = torch.from_numpy(queries)
+            hc = card.head.search(qt, budgets[0])
+            hw = cpu.head.search(qt, budgets[0])
+            head_int = card.head.store.bits < 32 and getattr(
+                card.head.store, "lpq_tables", True)
+            same((hc.scores, hc.ids), (hw.scores, hw.ids), head_int,
+                 f"{f} head at k={budgets[0]}")
+            checks.append(f"head ({'bit-equal' if head_int else 'fp32'}) at "
+                          f"k={budgets[0]}")
+            ids = hw.ids
+            outs = tuple(budgets[1:]) + (k,)
+            for i, (a, b, out_k) in enumerate(zip(card.stage_stores,
+                                                  cpu.stage_stores, outs)):
+                gc = engine.refine_among(qt, a, ids, out_k, "ip")
+                gw = engine.refine_among(qt, b, ids, out_k, "ip")
+                same(gc[:2], gw[:2], b.bits < 32, f"{f} stage {i}")
+                checks.append(f"stage {cpu.stage_specs[i]} "
+                              f"({'bit-equal' if b.bits < 32 else 'fp32'})")
+                ids = gw[1]
+        else:
+            for name in ("assign", "lo", "hi", "zero", "sigmas"):
+                need(torch.equal(getattr(card.regions, name).cpu(),
+                                 getattr(cpu.regions, name)),
+                     f"{f}: region {name} differs")
+            checks.append(f"{cpu.regions.n_regions} regions' constants")
+            if spec.kind != "ivf":
+                sp = SearchParams(ef_search=40)
+                beam = [requests(dataclasses.replace(i, regions=None), sp)
+                        for i in (card, cpu)]
+                need(all(np.array_equal(a, b) for a, b in zip(*beam)),
+                     f"{f}: the integer walk differs before the re-score")
+                checks.append("integer walk (bit-equal)")
+        for sel in (None, *FILTER_SELS):
+            filt = (None if sel is None
+                    else Filter.from_mask(allow_mask(n, sel, 2)))
+            sp = SearchParams(nprobe=4, ef_search=40, filter=filt)
+            (gs, gi), (ws, wi) = requests(card, sp), requests(cpu, sp)
+            need(fp32_near_equal(gs, gi, ws, wi, 1e-5)[0],
+                 f"{f} filter {sel}: the card's Searcher differs from the "
+                 "CPU's beyond rtol 1e-5")
+        log(f"[cascade] {f} ip {n}x{d}: built on the card and the CPU from "
+            f"one set of draws: codes, {', '.join(checks)} equal; Searcher "
+            f"within rtol 1e-5 unfiltered and at {FILTER_SELS}, requests of "
+            f"1, 8, 32 and 215 ({time.perf_counter() - t0:.2f} s)")
+
+    t0 = time.perf_counter()
+    allow = allow_mask(600, 0.25, 1)
+    runs = [stream_lifecycle(make_index, CASCADE_STREAM, corpus, queries,
+                             allow, (1, 8, 32, 215), bulk=192, k=k,
+                             searcher_kw={"batch_sizes": BUCKETS},
+                             metric="ip", device=dev, seal_threshold=128,
+                             max_segments=4)
+            for dev in ("cuda", "cpu")]
+    diff, _exact, eq = lifecycles_equal(*runs, allow, 1e-5,
+                                        integer_sources=False)
+    need(diff is None, f"{CASCADE_STREAM}: the card's write sequence differs "
+         f"from the CPU's: {diff}")
+    c = runs[0][-1][1]
+    log(f"[cascade] {CASCADE_STREAM} ip: one write sequence (seal_threshold "
+        f"128, {c['seals']} seals, {c['compactions']} compactions) on the "
+        f"card and the CPU: segments (cascades), ids, live bitmaps, counters "
+        f"and epoch equal at 8 checkpoints, filtered Searcher within rtol "
+        f"1e-5 ({eq} scores bit-equal; {time.perf_counter() - t0:.2f} s)")
+
+    qt = torch.from_numpy(queries)
+    for dev in ("cuda", "cpu"):
+        exact = make_index("flat", corpus, device=dev).search(qt, k)
+        casc = make_index("cascade(flat|r32)", corpus, device=dev).search(
+            qt, k, SearchParams(budgets=(n,)))
+        need(fp32_near_equal(casc.scores.cpu().numpy(),
+                             casc.ids.cpu().numpy(),
+                             exact.scores.cpu().numpy(),
+                             exact.ids.cpu().numpy(), 1e-5)[0],
+             f"cascade(flat|r32) at budgets ({n},) on {dev} differs from the "
+             "exact flat scan")
+    log(f"[cascade] cascade(flat|r32) at budgets ({n},): equal to the exact "
+        f"flat scan within rtol 1e-5 on the card and on the CPU")
+
+
+def cascade_recall() -> None:
+    """10(b): REGION_RECALL at n=20000, 128 queries: recall (@10 for the
+    cascades, @100 otherwise) against the fp32 flat arm within max(0.02,
+    the reference's spread) of the reference's mean (REF_CASCADE)."""
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.knn import SearchParams, make_index
+
+    data = {}
+    for name, f, kk, over, knob, values in REGION_RECALL:
+        if name not in data:
+            corpus, queries, metric = synthetic.load(name, 20000, 128)
+            gt = make_index("flat", corpus, metric=metric).search(
+                queries, 100).ids
+            data[name] = corpus, queries, metric, gt
+        corpus, queries, metric, gt = data[name]
+        t0 = time.perf_counter()
+        idx = make_index(f, corpus, metric=metric, **over)
+        build_s = time.perf_counter() - t0
+        for v in values:
+            res = idx.search(queries, kk, SearchParams(**{knob: v}))
+            rec = recall_at_k(gt[:, :kk], res.ids)
+            want, spread = REF_CASCADE[name, f, v]
+            tol = max(0.02, spread)
+            ok = abs(rec - want) <= tol
+            log(f"[cascade] {name} 20000x{corpus.shape[1]} {metric} {f} "
+                f"{knob} {v}: recall@{kk} {rec:.4f} (reference mean {want}, "
+                f"spread {spread}, |diff| <= {tol}: {ok}; build "
+                f"{build_s:.2f} s) | {smi()}")
+            need(ok, f"recall for {name} {f} {knob} {v}: {rec:.4f} vs {want} "
+                 f"+- {tol}")
+        del idx
+
+
+def bytes_per_query(idx, budgets) -> int:
+    """benchmarks/bench_cascade.py:66-78's model bytes one query touches:
+    a scan reads every stored row, a cascade adds one gathered row a
+    surviving candidate a refinement stage."""
+    if idx.kind == "cascade":
+        return bytes_per_query(idx.head, None) + sum(
+            int(b) * st.row_bytes for b, st in zip(budgets, idx.stage_stores))
+    return int(idx.store.n) * int(idx.store.row_bytes)
+
+
+def cascade_parts(f, idx, q, budgets, k) -> None:
+    """One 256-query request of a cascade by stage: the head's plan at
+    budgets[0], then each refinement stage (``engine.refine_among``) on
+    the head's candidates; CUDA-event medians of 5, after the counts of
+    10(c) were read."""
+    from repro_torch import engine
+    from repro_torch.knn import SearchParams
+
+    head = idx.head.plan(budgets[0], SearchParams())
+    parts = {f"head {idx.head.kind} k={budgets[0]}": time_ms(lambda: head(q),
+                                                              5)}
+    ids = head(q).ids
+    for spec, st, out_k in zip(idx.stage_specs, idx.stage_stores,
+                               tuple(budgets[1:]) + (k,)):
+        parts[f"{spec} {ids.shape[1]} -> {out_k}"] = time_ms(
+            lambda st=st, ids=ids, out_k=out_k: engine.refine_among(
+                q, st, ids, out_k, idx.metric), 5)
+        ids = engine.refine_among(q, st, ids, out_k, idx.metric)[1]
+    log(f"[cascade] {f}: one 256-query request's parts (CUDA events, median "
+        f"of 5): " + ", ".join(f"{a} {b:.3f} ms" for a, b in parts.items())
+        + f" | {smi()}")
+
+
+def regional_parts(f, idx, q, nprobe) -> None:
+    """One 256-query request of a regional ivf by part: the coarse probe
+    (B2 fp32 over the centroids) and the regional fine scoring (candidate
+    gather, per-row dequantization, fp32 scores and top-k, in
+    ``IVF.fine_block_rows`` query blocks); CUDA-event medians of 5."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.engine import CodeStore
+    from repro_torch.knn import ivf as IVF
+
+    cents = CodeStore.dense(idx.centroids)
+    probe = lambda: engine.topk(q, cents, nprobe, idx.metric)[1]
+    cand = idx.lists[probe().long()].reshape(q.shape[0], -1)
+    rows = IVF.fine_block_rows(idx.store, cand.shape[1], regional=True)
+    rg = idx.regions
+
+    def fine():
+        for s in range(0, q.shape[0], rows):
+            engine.topk_among_regional(q[s:s + rows], idx.store, rg.scale,
+                                       rg.zero, rg.assign, cand[s:s + rows],
+                                       100, idx.metric)
+
+    torch.cuda.reset_peak_memory_stats()
+    fine_ms = time_ms(fine, 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[cascade] {f} nprobe {nprobe}: one 256-query request's parts (CUDA "
+        f"events, median of 5): probe {time_ms(probe, 5):.3f} ms, regional "
+        f"fine scoring {fine_ms:.3f} ms ({-(-q.shape[0] // rows)} blocks of "
+        f"{rows} queries, {cand.shape[1]} candidates a query; peak device "
+        f"memory {peak:.2f} GiB) | {smi()}")
+
+
+def regions_memory(idx, n: int, d: int) -> int:
+    """The reference's memory formulas for a regions build: the kind's own
+    (``ivf_memory`` / ``graph_memory``) plus the assignment (4 bytes a
+    row) and three [R, d] f32 constant stacks, and for the graph kind its
+    regional store (n x d int8 codes and 3 d f32 nominal constants)."""
+    rg = idx.regions
+    extra = 4 * n + 3 * rg.n_regions * d * 4
+    if idx.kind == "ivf":
+        return ivf_memory(idx, n, d) + extra
+    return graph_memory(idx, n, d) + extra + n * d + 3 * d * 4
+
+
+def cascade_path(err: dict, pc, pq) -> dict:
+    """10(c): the exact fp32 ground truths first, outside the counts;
+    then one run of the path (counters set to 0 before, read after) on
+    phase 9's product-like 4,000,000 x 256 corpus (ip) and on the SIFT-like
+    1,000,000 x 128 rows of phase 8 (synthetic.load's seed, l2): the two
+    cascades at their budgets beside flat,lpq8@gaussian:3 and
+    flat,lpq4 at k=10 (recall@10, memory ratio, QPS and p50 at 256-query
+    requests and the mixed 1/8/32 stream, each stage row of one request,
+    the model bytes a query, and bench_cascade's gate, logged); then
+    REGION_IVF at nprobe 16 and 64 and REGION_GRAPH at ef_search 300
+    (build seconds by part, memory against the reference's formula,
+    recall@100, QPS, p50).  After the counts are read: every kernel scan
+    of the run and of the ground truths against its plain version at every
+    bucket (B3 under the lpq4 head and beside it, B2 int8 beside it, B2
+    fp32 for the ivf probe, the graph's entry probe and both ground
+    truths); B1's store
+    codes (the heads, stages, the arms beside them and the regional graph's
+    global store) against the plain quantize; 1,024 rows of the regional
+    graph's self-join."""
+    import types
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.preserve import recall_at_k
+    from repro_torch.data import synthetic
+    from repro_torch.engine import CodeStore
+    from repro_torch.kernels import fused_topk as F
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref as R
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.knn import ivf as IVF
+    from repro_torch.core import quant as Qz
+
+    card = smi()
+    k = 10
+    n, d = pc.shape
+    # the oracles run before the counted run (their scans are held
+    # against the plain version with the path's, after it)
+    t0 = time.perf_counter()
+    flat = make_index("flat", pc, metric="ip")
+    gt = flat.search(pq, k).ids
+    sc, sq, sm = synthetic.load("sift", 1_000_000, 1000)
+    sn, sd = sc.shape
+    sflat = make_index("flat", sc, metric=sm)
+    sgt = sflat.search(sq, 100).ids
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    holds = [("product flat (ground truth)", flat, pq, k),
+             ("sift flat (ground truth)", sflat, sq, 100)]
+    cells, b1, cascades = {}, [], {}
+    kernels.reset_launch_counts()
+
+    def serve_arm(f, idx, sp):
+        s = idx.searcher(k, sp)
+        ids, qps, p50, _ = serve(idx, pq, k, (256,), s)
+        need(ids.shape == (pq.shape[0], k) and bool(torch.all(ids >= 0)),
+             f"{f}: bad ids")
+        _, mqps, mp50, _ = serve(idx, pq[:205], k, (1, 8, 32), s)
+        return recall_at_k(gt, ids), qps, p50, mqps, mp50, s(pq[:256]).stats
+
+    for f in (*CASCADE_BESIDE, *CASCADE_ARMS):
+        budgets = CASCADE_ARMS.get(f)
+        t0 = time.perf_counter()
+        idx = make_index(f, pc, metric="ip",
+                         **(CASCADE_BUILD if budgets else {}))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sp = SearchParams(budgets=budgets)
+        rec, qps, p50, mqps, mp50, stats = serve_arm(f, idx, sp)
+        ratio = idx.memory_bytes() / (n * d * 4)
+        per_q = bytes_per_query(idx, budgets)
+        cells[f] = (rec, per_q)
+        stages = ""
+        if budgets:
+            stages = "; stages (label, candidates, bytes, bits) of one " \
+                f"256-query request: {list(stats['stages'])}"
+            head = idx.head
+            if isinstance(head.store, CodeStore) and head.store.quantized:
+                holds.append((f"{f} head", head, pq, budgets[0]))
+                b1.append((f"{f} head", head.store))
+            b1 += [(f"{f} stage {s}", st)
+                   for s, st in zip(idx.stage_specs, idx.stage_stores)
+                   if st.quantized]
+            cascades[f] = idx
+        else:
+            holds.append((f, idx, pq, k))
+            b1.append((f, idx.store))
+        log(f"[cascade] product {n}x{d} ip {f}"
+            f"{f' budgets {budgets}' if budgets else ''} k={k}: recall@10 "
+            f"{rec:.4f} mem {ratio:.4f} QPS {qps:.1f} p50 {p50:.2f} ms "
+            f"(256-query requests); mixed 1/8/32: QPS {mqps:.1f} p50 "
+            f"{mp50:.2f} ms; {per_q} model bytes a query; build "
+            f"{build_s:.2f} s{stages} | {card}")
+        del idx
+    floor_arm, ceil_arm = CASCADE_BESIDE
+    floor, ceiling = cells[floor_arm][0], cells[ceil_arm][1]
+    passing = [f for f in CASCADE_ARMS if cells[f][0] >= floor
+               and cells[f][1] <= ceiling]
+    log(f"[cascade] bench_cascade's gate (logged, not gated): recall@10 >= "
+        f"{floor:.4f} ({floor_arm}) at <= {ceiling} bytes a query "
+        f"({ceil_arm}): passing {passing or 'none'} "
+        f"({', '.join(f'{f}: {cells[f][0]:.4f}, {cells[f][1]}' for f in CASCADE_ARMS)})")
+
+    for f, knob, values in ((REGION_IVF, "nprobe", INDEX_NPROBE),
+                            (REGION_GRAPH, "ef_search", (INDEX_EF,))):
+        t0 = time.perf_counter()
+        idx = make_index(f, sc, metric=sm)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        mem = idx.memory_bytes()
+        need(mem == regions_memory(idx, sn, sd), f"{f}: memory {mem} is not "
+             f"the reference's formula's {regions_memory(idx, sn, sd)}")
+        parts = ", ".join(f"{a} {b:.2f} s" for a, b in idx.build_parts.items())
+        log(f"[cascade] sift {sn}x{sd} {sm} {f}: build {build_s:.2f} s "
+            f"({parts}), {idx.regions.n_regions} regions, memory {mem} bytes "
+            f"= {mem / (sn * sd * 4):.4f} of fp32 flat | {card}")
+        for v in values:
+            s = idx.searcher(100, SearchParams(**{knob: v}))
+            ids, qps, p50, _ = serve(idx, sq, 100, (256,), s)
+            need(ids.shape == (1000, 100) and bool(torch.all(ids >= 0)),
+                 f"{f}: bad ids")
+            _, mqps, mp50, _ = serve(idx, sq[:205], 100, (1, 8, 32), s)
+            extra = ""
+            if idx.kind == "ivf":
+                width = min(v, idx.nlist) * idx.max_list
+                extra = (f"; {IVF.fine_block_rows(idx.store, width, True)} "
+                         "queries a regional fine-scoring block")
+            log(f"[cascade] sift {f} {knob} {v}: recall@100 "
+                f"{recall_at_k(sgt, ids):.4f} QPS {qps:.1f} p50 {p50:.2f} ms "
+                f"(256-query requests); mixed 1/8/32: QPS {mqps:.1f} p50 "
+                f"{mp50:.2f} ms{extra} | {card}")
+        if idx.kind == "ivf":
+            probe = (f"{f} probe", CodeStore.dense(idx.centroids),
+                     max(INDEX_NPROBE))
+            rivf = idx
+        else:
+            probe = (f"{f} entry probe", CodeStore.dense(idx.seeds),
+                     min(8, idx.seeds.shape[0]))
+            graph = idx
+        what, store, depth = probe
+        holds.append((what, types.SimpleNamespace(store=store, metric=sm), sq,
+                      depth))
+    run = kernels.launch_counts()
+    log(f"[cascade] kernel launches on this run of the cascade / regions "
+        f"path: {run} (the SIFT rows and both ground truths, before the "
+        f"counted run: {gt_s:.2f} s)")
+    for name in CASCADE_KERNELS:
+        need(run[name] > 0, f"kernel {name} was never launched on the "
+             "cascade / regions path")
+
+    # where one 256-query request's time goes (CUDA events, median of 5)
+    for f, idx in cascades.items():
+        cascade_parts(f, idx, pq[:256], CASCADE_ARMS[f], k)
+    for p in INDEX_NPROBE:
+        regional_parts(REGION_IVF, rivf, sq[:256], p)
+
+    # every kernel scan of this run against its plain version
+    for what, idx, queries, depth in holds:
+        check_scan(what, idx, queries, depth, err)
+    for what, store in b1 + [(f"{REGION_GRAPH} store", graph.store)]:
+        p = store.params
+        x = sc if store.d == sd else pc
+        plain = CodeStore.from_codes(
+            R.quantize_ref(x, p.lo, p.hi, p.zero, bits=p.bits), p,
+            pack=store.packed).data
+        need(torch.equal(plain, store.data),
+             f"{what}: codes differ from the plain quantize")
+    log(f"[cascade] B1: {', '.join(w for w, _ in b1)} and the {REGION_GRAPH} "
+        "store codes equal to the plain quantize")
+    store = graph.store
+    codes = store.data[:JOIN_CHECK_ROWS]
+    q = store.encode_queries(Qz.dequantize(codes[:, : store.d], store.params))
+    half = max(graph.degree // 2, 1)
+    got = K.fused_topk(q, store.data, half + 1, "l2")
+    want = F.fused_topk_plain(q, store.data, k=half + 1, metric="l2")
+    hold("fused_topk_int8", got, want, q, store.data, half + 1, "l2", None,
+         f"{REGION_GRAPH} self-join {JOIN_CHECK_ROWS} rows", err)
+    log(f"[cascade] {REGION_GRAPH}: {JOIN_CHECK_ROWS} self-join rows equal "
+        "to the plain version, ids and scores")
+    del holds, cascades, graph, rivf, idx, flat, sflat, sc, sq, sgt, gt
+    torch.cuda.empty_cache()
+    return {name: run[name] for name in CASCADE_KERNELS}
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -2852,7 +3396,6 @@ def main() -> int:
         retrieval_recall()
         mark("phases 4-6")
         graph_exact()
-        graph_recall()
         for name, c in graph_path().items():
             counts[name] += c
         mark("phase 7")
@@ -2872,11 +3415,18 @@ def main() -> int:
                 counts[name] += c
                 phase9[name] += c
             mark(f"phase {part}")
-        del pc, pq
         log(f"[phase9] kernel launches on phase 9's runs: {phase9}")
         for name in MAIN_KERNELS:
             need(phase9[name] > 0, f"kernel {name} was never launched on "
                  "phase 9's runs")
+        cascade_exact()
+        mark("phase 10(a)")
+        cascade_recall()
+        mark("phase 10(b)")
+        for name, c in cascade_path(err, pc, pq).items():
+            counts[name] += c
+        del pc, pq
+        mark("phase 10(c)")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

@@ -2,10 +2,12 @@
 
 The reference's ``CodeStore.state()`` / ``PQStore.state()`` (and the
 ``rr_`` rerank prefix), an HNSW graph's layers, levels and entry, a graph
-index's adjacency and seeds, an IVF index's centroids and lists, a
-stream index's segments (each an inner index's npz blob), tombstones,
-memtable, live stats and key, or a reference-saved npz, holds nothing
-JAX-specific: numpy arrays plus a
+index's adjacency and seeds, an IVF index's centroids and lists (each
+with its ``rg_`` per-region constants and ``rgs_`` regional store when
+built with ``regions``), a cascade's head (a nested npz) and ``cs<i>_``
+stage stores, a stream index's segments (each an inner index's npz
+blob), tombstones, memtable, live stats and key, or a reference-saved
+npz, holds nothing JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
 and Eq. 1 constants).  These helpers
 turn them into the port's objects so both packages can run on the same
@@ -73,7 +75,9 @@ def hnsw_from_reference_state(arrays: dict[str, np.ndarray],
 
     ``arrays`` hold ``levels``, ``layer_<l>`` and the store (plus ``rr_``)
     arrays; ``meta`` holds ``metric``, ``m``, ``entry``, ``n_layers`` and the
-    store records, as ``HNSWIndex.save`` writes them.
+    store records, as ``HNSWIndex.save`` writes them.  A regions build
+    adds the ``rg_`` constants and statistics, the ``rgs_`` regional store
+    and ``rg_cents`` (meta ``rg_regions``, ``rgs_store``).
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return HNSWIndex.from_state(arrays, meta, device=device)
@@ -86,7 +90,9 @@ def graph_from_reference_state(arrays: dict[str, np.ndarray],
     ``arrays`` hold ``adj``, ``seeds``, ``seed_ids`` and the store (plus
     ``rr_``) arrays; ``meta`` holds ``metric``, ``degree``,
     ``internal_metric``, ``aug`` and the store records, as
-    ``GraphIndex.save`` writes them.
+    ``GraphIndex.save`` writes them.  A regions build adds the ``rg_``
+    constants and statistics and the ``rgs_`` regional store (meta
+    ``rg_regions``, ``rgs_store``).
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return GraphIndex.from_state(arrays, meta, device=device)
@@ -98,10 +104,27 @@ def ivf_from_reference_state(arrays: dict[str, np.ndarray],
 
     ``arrays`` hold ``centroids``, ``lists`` and the store (plus ``rr_``)
     arrays; ``meta`` holds ``metric``, ``nlist``, ``max_list`` and the
-    store records, as ``IVFIndex.save`` writes them.
+    store records, as ``IVFIndex.save`` writes them.  A regions build adds
+    the ``rg_`` constants and statistics (meta ``rg_regions``); its store
+    holds the regional codes.
     """
     arrays = {k: np.asarray(v) for k, v in arrays.items()}
     return IVFIndex.from_state(arrays, meta, device=device)
+
+
+def cascade_from_reference_state(arrays: dict[str, np.ndarray],
+                                 meta: dict[str, Any], device):
+    """A reference cascade's (arrays, meta) -> the port's ``CascadeIndex``.
+
+    ``arrays`` hold ``cs_blob`` (the head index's own npz, loaded through
+    its kind's port) and each refinement stage's store under ``cs<i>_``;
+    ``meta`` holds ``metric``, ``stages``, ``head_kind`` and the stage
+    store records, as ``CascadeIndex.save`` writes them.
+    """
+    from repro_torch.cascade import CascadeIndex
+
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    return CascadeIndex.from_state(arrays, meta, device=device)
 
 
 def stream_from_reference_state(arrays: dict[str, np.ndarray],

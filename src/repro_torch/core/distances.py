@@ -157,3 +157,10 @@ def scores_among(q: torch.Tensor, rows: torch.Tensor, metric: Metric,
         xx = torch.sum(xf * xf, dim=-1)
         return -(qq + xx - 2.0 * _bmm(qf, xf))
     return _bmm(_unit(qf), _unit(xf))
+
+
+def pairwise_distance(a: torch.Tensor, b: torch.Tensor, metric: Metric,
+                      quantized: bool = False) -> torch.Tensor:
+    """Single-pair convenience wrapper: the larger-is-closer score of two
+    [d] vectors (a 0-dim tensor)."""
+    return scores(a[None, :], b[None, :], metric, quantized)[0, 0]

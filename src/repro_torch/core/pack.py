@@ -40,3 +40,10 @@ def unpack_uint4(packed: torch.Tensor) -> torch.Tensor:
     hi = (packed >> 4) & 0x0F
     out = torch.stack([lo, hi], dim=-1)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def qip_scores_packed(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """int4 MIP scores: unpack the corpus, then the exact int32 dot, [Q, N]."""
+    from repro_torch.core.distances import int_matmul
+
+    return int_matmul(q_codes, unpack_int4(packed))

@@ -135,6 +135,13 @@ def dequantize(q: torch.Tensor, params: QuantParams) -> torch.Tensor:
     return q.to(torch.float32) * params.scale + params.zero
 
 
+def quantization_error(x: torch.Tensor, params: QuantParams) -> torch.Tensor:
+    """Mean-squared reconstruction error (not the paper's objective: order
+    preservation, not MSE, is what drives recall)."""
+    return torch.mean((dequantize(quantize(x, params), params)
+                       - x.to(torch.float32)) ** 2)
+
+
 # --------------------------------------------------------------------------
 # Convenience one-call API used by the graph utilities.
 # --------------------------------------------------------------------------

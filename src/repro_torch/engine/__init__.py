@@ -10,10 +10,13 @@ from repro_torch.engine.scorer import (  # noqa: F401
     merge_topk,
     pad_rows,
     quantize_pq_lut,
+    refine_among,
+    regional_stats,
     remap_ids,
     rerank_among,
     search_stats,
     topk,
     topk_among,
+    topk_among_regional,
 )
 from repro_torch.engine.store import PQ_CODE_BITS, CodeStore, PQStore  # noqa: F401

@@ -4,6 +4,9 @@
 ``topk`` / ``topk_among`` / ``make_score_set`` / ``make_batch_score_set``
 own metric x bits dispatch, chunking, invalid-id masking and streaming
 top-k; index classes hold structure and delegate every score here.
+``refine_among`` (a cascade stage) and ``topk_among_regional`` (per-region
+Eq. 1 constants, dequantized rows) are candidate top-k in plain torch,
+as in the reference, where no TPU kernel takes them either.
 
 Dispatch (metric x storage), by the store's device:
 
@@ -370,3 +373,88 @@ def rerank_among(queries, store: CodeStore, cand_ids, k: int, metric: str,
         "rerank_bytes": int(cand_ids.shape[0]) * depth * store.row_bytes,
     }
     return s, i, stats
+
+
+# --------------------------------------------------------------------------
+# cascade stages: budgeted refinement and per-region constant lookup
+# --------------------------------------------------------------------------
+
+def refine_among(queries, store: CodeStore, cand_ids, out_k: int,
+                 metric: str, mask=None):
+    """One cascade refinement stage: re-score the surviving candidates at
+    this store's precision and keep the best ``out_k``.
+
+    The rerank tail's body (``topk_among``), so a cascade's final fp32
+    stage equals the ``+r32`` tail at the same depth; the stats are the
+    stage's: ``candidates`` (the incoming list width), the gathered
+    payload ``bytes_read`` and the code width ``bits``."""
+    q = store.encode_queries(queries)
+    s, i = topk_among(q, store, cand_ids, out_k, metric, mask)
+    depth = int(cand_ids.shape[1])
+    stats = {
+        "candidates": depth,
+        "bytes_read": int(cand_ids.shape[0]) * depth * store.row_bytes,
+        "bits": int(store.bits),
+    }
+    return s, i, stats
+
+
+def topk_among_regional(queries, store: CodeStore, region_scale, region_zero,
+                        assign, cand_ids, k: int, metric: str, mask=None):
+    """Candidate top-k with per-region Eq. 1 constant lookup.
+
+    Codes quantized under different regions' constants are not comparable
+    as integers, so fp32 ``queries`` score *dequantized* rows: each
+    gathered candidate's region (``assign`` [N]) picks its own
+    ``region_scale`` / ``region_zero`` rows ([R, d]), and the code maps
+    back to fp32 as ``codes * scale + zero`` (a product, then a sum, as
+    the reference) before the metric.  Empty slots, the optional row
+    ``mask``, the (NEG, -1) pads, ``base`` rebasing and the slot-order tie
+    break are ``topk_among``'s."""
+    L = cand_ids.shape[1]
+    k_eff = min(k, L)
+    dev = store.device
+    cand_ids = cand_ids.to(dev)
+    ok = cand_ids >= 0
+    safe = torch.where(ok, cand_ids, 0).long()
+    if mask is not None:
+        ok = ok & mask.to(device=dev, dtype=torch.bool)[safe]
+    reg = assign[safe].long()                            # [Q, L]
+    x = store.take(safe).to(torch.float32)               # [Q, L, d]
+    x.mul_(region_scale[reg])
+    x.add_(region_zero[reg])
+    q = queries.to(device=dev, dtype=torch.float32)
+    s = D.scores_among(q, x, metric, quantized=False)
+    del x
+    s = torch.where(ok, s.to(torch.float32), NEG)
+    pos = stable_desc(s, k_eff)
+    s = torch.gather(s, 1, pos)
+    i = torch.where(s > NEG, torch.gather(cand_ids, 1, pos),
+                    -1).to(torch.int32)
+    if k_eff < k:
+        s = torch.nn.functional.pad(s, (0, k - k_eff), value=NEG)
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=-1)
+    if store.base:
+        i = torch.where(i >= 0, i + store.base, -1)
+    return s, i
+
+
+#: bytes one element of a regional gather holds at its peak: the int8
+#: code, its fp32 copy, the gathered scale and zero, and the metric's
+#: fp32 temporary (``topk_among_regional``)
+REGIONAL_ELT_BYTES = 1 + 4 * 4
+
+
+def regional_stats(store: CodeStore, cand_ids) -> dict[str, Any]:
+    """Stats delta of one ``topk_among_regional`` call: the gathered code
+    payload plus the per-row constant lookup (scale + zero, fp32 [d])."""
+    depth = int(cand_ids.shape[1])
+    const_bytes = 2 * 4 * int(store.d)
+    return {
+        "candidates": depth,
+        "bytes_read": int(cand_ids.shape[0]) * depth * (store.row_bytes
+                                                         + const_bytes),
+        "bits": int(store.bits),
+        "packed": bool(store.packed),
+        "regional": True,
+    }

@@ -1,6 +1,6 @@
-"""Index kinds behind one API (port of ``repro.knn``; ``flat``, ``graph``,
-``hnsw``, ``ivf``, ``pq`` and the ``stream`` wrapper so far), and the
-graph-construction utilities."""
+"""Index kinds behind one API (port of ``repro.knn``: ``flat``, ``graph``,
+``hnsw``, ``ivf``, ``pq``, the ``stream`` wrapper and the ``cascade``
+kind), and the graph-construction utilities."""
 
 from repro_torch.knn.base import SearchParams, SearchResult  # noqa: F401
 from repro_torch.knn.graph_utils import knn_graph, radius_graph  # noqa: F401

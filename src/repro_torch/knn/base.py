@@ -23,8 +23,8 @@ class SearchParams:
     """Union of every index kind's search-time knobs (see the reference):
     ``chunk`` bounds the exhaustive scan's working set; ``ef_search`` is
     the hnsw / graph beam width; ``nprobe`` is the ivf lists probed;
-    ``budgets`` belongs to the cascade kind, not ported yet; ``filter`` is
-    a ``repro_torch.filter.Filter`` over the index's external ids (or
+    ``budgets`` are a cascade's per-stage fetch depths; ``filter`` is a
+    ``repro_torch.filter.Filter`` over the index's external ids (or
     None)."""
 
     chunk: int = 16384

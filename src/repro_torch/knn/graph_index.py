@@ -30,10 +30,19 @@ on the store's device.  The private ``_given`` argument takes them from
 elsewhere (the reference's, or another device's), and then the integer
 arms build the same graph.
 
+Per-region constants (``graph16,lpq4,regions``): the seeds' neighbourhoods
+are the regions.  Rows are assigned to the nearest seed in *user* space
+(the seeds' first d coordinates), one Eq. 1 constant set a seed is fitted
+on the user-space corpus (``cascade.RegionQuant``, or ``_given["regions"]``)
+and a second, regional store holds the user-space corpus under them.  The
+walk is unchanged; its ef survivors are re-scored under each row's own
+constants in the user's metric, at width d (``engine.topk_among_regional``),
+before the cut to k.
+
 A ``SearchParams.filter`` leaves the walk alone, widens ef to
-``overfetch(k, selectivity, n)`` and masks the cut from ef to k.  Not
-ported yet: per-region constants (``regions``, ROADMAP queue A11) and
-placement / mesh plans (A14); each raises naming its item.
+``overfetch(k, selectivity, n)`` and masks the cut from ef to k (or the
+regional re-score).  Not ported yet: placement / mesh plans (ROADMAP
+queue A14), which raise naming their item.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import engine
+from repro_torch.cascade.regions import RegionQuant
 from repro_torch.core import distances as D
 from repro_torch.core import quant as Qz
 from repro_torch.device import resolve_device, to_tensor
@@ -61,8 +71,6 @@ from repro_torch.knn.spec import (
     resolve_build_spec,
 )
 
-_REGIONS = ("per-region Eq. 1 constants ('regions') are not ported yet: "
-            "ROADMAP queue A11 (cascade/)")
 _MESH = ("graph placement (replicated walks over a mesh) is not ported "
          "yet: ROADMAP queue A14 (dist/)")
 
@@ -132,7 +140,12 @@ class GraphIndex:
     # walk uses; aug marks the extra corpus column
     internal_metric: str = "l2"
     aug: bool = False
-    #: build seconds by part (self_join, assembly, seeds); not saved
+    # per-seed constants ('graph24,lpq8,regions'), fitted in user space,
+    # and the user-space corpus encoded under them
+    regions: Optional[RegionQuant] = None
+    region_store: Optional[engine.CodeStore] = None
+    #: build seconds by part (self_join, assembly, seeds, regions); not
+    #: saved
     build_parts: dict = dataclasses.field(default_factory=dict,
                                           compare=False)
 
@@ -177,15 +190,15 @@ class GraphIndex:
         """Build on ``device`` (default: the GPU).  ``key`` is an int seed
         for the seed k-means (default 0).  ``_given`` may hold
         ``centroids`` ([n_seeds, d(+1)] f32, replacing the k-means),
-        ``extra`` ([N] f32, the ip augmentation column) and ``params`` (Eq.
-        1 constants of the index's own, possibly augmented, space)."""
+        ``extra`` ([N] f32, the ip augmentation column), ``params`` (Eq.
+        1 constants of the index's own, possibly augmented, space) and, for
+        a regions build, ``regions`` (a ``RegionQuant`` over the user-space
+        corpus)."""
         spec, p = resolve_build_spec(
             "graph", spec, metric=metric,
             quant=quant_spec_from_kwargs(quantized, bits, scheme, sigmas),
             degree=degree, n_seeds=n_seeds,
         )
-        if spec.params.get("regions"):
-            raise NotImplementedError(_REGIONS)
         degree = int(p["degree"])
         n_seeds = int(p["n_seeds"])
         metric = spec.metric
@@ -234,16 +247,40 @@ class GraphIndex:
         cents = to_tensor(cents, device=dev, dtype=torch.float32)
         seed_ids = torch.argmax(D.l2_scores(cents, corpus),
                                 dim=-1).to(torch.int32)
+        t4 = _clock(dev)
+
+        regions = region_store = None
+        if spec.params.get("regions"):
+            # the seeds' neighbourhoods double as the regions, fitted in
+            # user space
+            regions = given.get("regions")
+            if regions is None:
+                seeds_user = cents[:, : user_corpus.shape[1]]
+                r_assign = torch.argmax(D.l2_scores(user_corpus, seeds_user),
+                                        dim=-1)
+                regions = RegionQuant.fit(
+                    user_corpus, r_assign, int(cents.shape[0]),
+                    bits=spec.quant.bits, scheme=spec.quant.scheme,
+                    sigmas=spec.quant.sigmas, device=dev)
+            regions = regions.to(dev)
+            # nominal global constants, kept for persistence only
+            region_store = engine.CodeStore.from_codes(
+                regions.encode(user_corpus),
+                spec.quant.learn(user_corpus).to(dev),
+                pack=spec.quant.effective_packed)
 
         idx = GraphIndex(
             metric=metric, degree=degree, store=store, adj=adj, seeds=cents,
             seed_ids=seed_ids, internal_metric=internal_metric, aug=aug,
             rerank_store=build_rerank_store(spec, user_corpus),
+            regions=regions, region_store=region_store,
         )
-        t4 = _clock(dev)
-        idx.build_seconds = t4 - t0
+        t5 = _clock(dev)
+        idx.build_seconds = t5 - t0
         idx.build_parts = {"self_join": t2 - t1, "assembly": t3 - t2,
                            "seeds": t4 - t3}
+        if regions is not None:
+            idx.build_parts["regions"] = t5 - t4
         return idx
 
     # -- query ------------------------------------------------------------
@@ -273,9 +310,11 @@ class GraphIndex:
                                                 self.internal_metric)
         n_entry = min(8, self.seeds.shape[0])
         seed_store = engine.CodeStore.dense(self.seeds)
+        rg = self.regions
 
         def run(queries) -> B.SearchResult:
             qf = to_tensor(queries, device=self.device, dtype=torch.float32)
+            qu = qf                             # user space, for regions
             nq = qf.shape[0]
             if self.aug:
                 qf = torch.nn.functional.pad(qf, (0, 1))
@@ -291,7 +330,18 @@ class GraphIndex:
                      **engine.search_stats(
                          self.store, candidates=cand_bound, chunks=1,
                          rows_read=nq * cand_bound), **fstats}
-            scores, ids = G.filtered_cut(scores, ids, k, fmask)
+            if rg is None:
+                scores, ids = G.filtered_cut(scores, ids, k, fmask)
+                return B.SearchResult(scores, ids, stats)
+            # re-score the walked candidates under each row's own seed's
+            # constants, in the user's metric and space (the walk's
+            # internal scores only order them)
+            rs = engine.regional_stats(self.region_store, ids)
+            scores, ids = engine.topk_among_regional(
+                qu, self.region_store, rg.scale, rg.zero, rg.assign, ids, k,
+                self.metric, mask=fmask)
+            stats.update(regional=True, regional_candidates=rs["candidates"],
+                         bytes_read=stats["bytes_read"] + rs["bytes_read"])
             return B.SearchResult(scores, ids, stats)
 
         return run
@@ -316,10 +366,25 @@ class GraphIndex:
         total = self.store.memory_bytes() + graph + seeds
         if self.rerank_store is not None:
             total += self.rerank_store.memory_bytes()
+        if self.regions is not None:
+            total += self.regions.memory_bytes()
+            total += self.region_store.memory_bytes()
         return total
 
     def region_drift(self, live_corpus):
-        raise NotImplementedError(_REGIONS)
+        """Per-seed calibration drift of a live corpus against the fitted
+        constants ([n_seeds] float64; +inf marks an empty neighbourhood).
+        Live rows are assigned to the nearest seed in user space, the
+        build's own rule, so the build corpus drifts exactly 0."""
+        if self.regions is None:
+            raise ValueError(
+                "region_drift needs a per-region build — construct the "
+                "index with an '...,regions' factory (e.g. 'graph,lpq8,regions')"
+            )
+        live = to_tensor(live_corpus, device=self.device, dtype=torch.float32)
+        seeds_user = self.seeds[:, : self.region_store.d]
+        return self.regions.drift_report(
+            live, torch.argmax(D.l2_scores(live, seeds_user), dim=-1))
 
     # -- disk round-trip ---------------------------------------------------
     def save(self, path) -> None:
@@ -328,6 +393,11 @@ class GraphIndex:
             rr_a, rr_m = self.rerank_store.state(prefix="rr_")
             arrays.update(rr_a)
             meta.update(rr_m)
+        if self.regions is not None:
+            rg_a, rg_m = self.regions.state(prefix="rg_")
+            rs_a, rs_m = self.region_store.state(prefix="rgs_")
+            arrays.update({**rg_a, **rs_a})
+            meta.update({**rg_m, **rs_m})
         B.save_state(
             path,
             {"adj": self.adj, "seeds": self.seeds,
@@ -341,9 +411,8 @@ class GraphIndex:
     @staticmethod
     def from_state(arrays, meta, device=None) -> "GraphIndex":
         """Rebuild from (arrays, meta) as ``save`` writes them."""
-        if "rg_regions" in meta:
-            raise NotImplementedError(_REGIONS)
         dev = resolve_device(device)
+        regional = "rg_regions" in meta
 
         def t(name, dtype):
             return to_tensor(arrays[name], device=dev, dtype=dtype).contiguous()
@@ -358,6 +427,10 @@ class GraphIndex:
             rerank_store=(engine.CodeStore.from_state(arrays, meta,
                                                       prefix="rr_", device=dev)
                           if "rr_store" in meta else None),
+            regions=(RegionQuant.from_state(arrays, meta, prefix="rg_",
+                                            device=dev) if regional else None),
+            region_store=(engine.CodeStore.from_state(
+                arrays, meta, prefix="rgs_", device=dev) if regional else None),
         )
 
     @staticmethod

@@ -17,10 +17,18 @@ same levels on every device, though not the reference's.  Given the same
 levels (the private ``_levels`` argument), the integer arms build the
 reference's adjacency and entry exactly.
 
+Per-region constants (``hnsw32,lpq8,regions``): round(sqrt(n)) k-means
+cells, at most 64, over the corpus (``knn.ivf.kmeans`` seeded by ``key +
+1``, or the private ``_given["region_centroids"]``), one Eq. 1 constant
+set a cell (``cascade.RegionQuant``, or ``_given["regions"]``), and a
+second, regional store.  The walk runs on the global store as before; the
+beam's ef survivors are re-scored under each row's own cell's constants
+(``engine.topk_among_regional``) before the cut to k.
+
 A ``SearchParams.filter`` leaves the walk alone, widens ef to
-``overfetch(k, selectivity, n)`` and masks the cut from ef to k.  Not
-ported yet: per-region constants (``regions``, ROADMAP queue A11) and
-placement / mesh plans (A14); each raises naming its item.
+``overfetch(k, selectivity, n)`` and masks the cut from ef to k (or the
+regional re-score).  Not ported yet: placement / mesh plans (ROADMAP
+queue A14), which raise naming their item.
 """
 
 from __future__ import annotations
@@ -28,17 +36,19 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import engine
+from repro_torch.cascade.regions import RegionQuant
 from repro_torch.core import quant as Qz
 from repro_torch.device import resolve_device, to_tensor
 from repro_torch.filter import overfetch
 from repro_torch.knn import base as B
 from repro_torch.knn import graph as G
+from repro_torch.knn import ivf as IVF
 from repro_torch.knn import registry
 from repro_torch.knn.spec import (
     IndexSpec,
@@ -46,9 +56,6 @@ from repro_torch.knn.spec import (
     quant_spec_from_kwargs,
     resolve_build_spec,
 )
-
-_REGIONS = ("per-region Eq. 1 constants ('regions') are not ported yet: "
-            "ROADMAP queue A11 (cascade/)")
 
 
 def _prune(ids: np.ndarray, scores: np.ndarray, cap: int) -> np.ndarray:
@@ -79,6 +86,11 @@ class HNSWIndex:
     entry: int
     build_seconds: float = 0.0
     rerank_store: Optional[engine.CodeStore] = None
+    # per-region constants ('hnsw32,lpq8,regions'): the cells' constants,
+    # the corpus encoded under them, and the cells' k-means centres
+    regions: Optional[RegionQuant] = None
+    region_store: Optional[engine.CodeStore] = None
+    region_cents: Optional[torch.Tensor] = None
 
     # -- views --------------------------------------------------------------
     @property
@@ -123,16 +135,18 @@ class HNSWIndex:
         params: Optional[Qz.QuantParams] = None,
         device=None,
         _levels: Optional[np.ndarray] = None,
+        _given: Optional[dict[str, Any]] = None,
     ) -> "HNSWIndex":
         """Build on ``device`` (default: the GPU).  ``key`` is an int seed
-        for the levels (default 0); ``_levels`` ([N] int) replaces them."""
+        for the levels (default 0); ``_levels`` ([N] int) replaces them.
+        For a regions build ``_given`` may hold ``region_centroids`` and
+        ``regions`` (a ``RegionQuant``), which replace the cells' k-means
+        and the region fit."""
         spec, p = resolve_build_spec(
             "hnsw", spec, metric=metric,
             quant=quant_spec_from_kwargs(quantized, bits, scheme, sigmas, params),
             m=m, ef_construction=ef_construction, batch_size=batch_size,
         )
-        if spec.params.get("regions"):
-            raise NotImplementedError(_REGIONS)
         m = int(p["m"])
         ef_construction = int(p["ef_construction"])
         batch_size = int(p["batch_size"])
@@ -230,11 +244,36 @@ class HNSWIndex:
                     mirror[l][torch.from_numpy(r).to(dev)] = (
                         torch.from_numpy(adj[l][r]).to(dev))
 
+        regions = region_store = region_cents = None
+        if spec.params.get("regions"):
+            # neighbourhoods: about sqrt(n) k-means cells over the corpus,
+            # drawn from their own seed so the levels stay as they were
+            given = dict(_given or {})
+            n_regions = max(1, min(64, int(round(math.sqrt(n)))))
+            region_cents = given.get("region_centroids")
+            if region_cents is None:
+                region_cents = IVF.kmeans(corpus, n_regions,
+                                          (0 if key is None else key) + 1)
+            region_cents = to_tensor(region_cents, device=dev,
+                                     dtype=torch.float32)
+            regions = given.get("regions")
+            if regions is None:
+                regions = RegionQuant.fit(
+                    corpus, IVF._assign(corpus, region_cents), n_regions,
+                    bits=spec.quant.bits, scheme=spec.quant.scheme,
+                    sigmas=spec.quant.sigmas, device=dev)
+            regions = regions.to(dev)
+            region_store = engine.CodeStore.from_codes(
+                regions.encode(corpus), store.params,
+                pack=spec.quant.effective_packed)
+
         idx = HNSWIndex(
             metric=metric, m=m, store=store,
             layers=mirror,                   # equal to adj: every row is fresh
             levels=levels, entry=entry,
             rerank_store=build_rerank_store(spec, corpus),
+            regions=regions, region_store=region_store,
+            region_cents=region_cents,
         )
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -266,6 +305,8 @@ class HNSWIndex:
             ef = max(ef, overfetch(k, sp.filter.selectivity, self.n))
         score_set = engine.make_batch_score_set(self.store, self.metric)
 
+        rg = self.regions
+
         def run(queries) -> B.SearchResult:
             q = self.prepare_queries(queries)
             nq = q.shape[0]
@@ -286,7 +327,18 @@ class HNSWIndex:
                          self.store, candidates=cand_bound,
                          chunks=len(self.layers),
                          rows_read=nq * cand_bound), **fstats}
-            scores, ids = G.filtered_cut(scores, ids, k, fmask)
+            if rg is None:
+                scores, ids = G.filtered_cut(scores, ids, k, fmask)
+                return B.SearchResult(scores, ids, stats)
+            # re-score the beam's survivors under each row's own cell's
+            # constants before the cut to k (the filter rides its mask)
+            rs = engine.regional_stats(self.region_store, ids)
+            scores, ids = engine.topk_among_regional(
+                to_tensor(queries, device=self.device, dtype=torch.float32),
+                self.region_store, rg.scale, rg.zero, rg.assign, ids, k,
+                self.metric, mask=fmask)
+            stats.update(regional=True, regional_candidates=rs["candidates"],
+                         bytes_read=stats["bytes_read"] + rs["bytes_read"])
             return B.SearchResult(scores, ids, stats)
 
         return run
@@ -310,10 +362,24 @@ class HNSWIndex:
         total = self.store.memory_bytes() + graph
         if self.rerank_store is not None:
             total += self.rerank_store.memory_bytes()
+        if self.regions is not None:
+            total += self.regions.memory_bytes()
+            total += self.region_store.memory_bytes()
+            total += int(self.region_cents.numel()) * 4
         return total
 
     def region_drift(self, live_corpus):
-        raise NotImplementedError(_REGIONS)
+        """Per-cell calibration drift of a live corpus against the fitted
+        constants ([R] float64; +inf marks an empty cell).  Live rows are
+        assigned by the build's cell centres."""
+        if self.regions is None:
+            raise ValueError(
+                "region_drift needs a per-region build — construct the "
+                "index with an '...,regions' factory (e.g. 'hnsw,lpq8,regions')"
+            )
+        live = to_tensor(live_corpus, device=self.device, dtype=torch.float32)
+        return self.regions.drift_report(
+            live, IVF._assign(live, self.region_cents))
 
     # -- disk round-trip ---------------------------------------------------
     def save(self, path) -> None:
@@ -322,6 +388,12 @@ class HNSWIndex:
             rr_a, rr_m = self.rerank_store.state(prefix="rr_")
             s_arrays = {**s_arrays, **rr_a}
             s_meta = {**s_meta, **rr_m}
+        if self.regions is not None:
+            rg_a, rg_m = self.regions.state(prefix="rg_")
+            rs_a, rs_m = self.region_store.state(prefix="rgs_")
+            s_arrays = {**s_arrays, **rg_a, **rs_a,
+                        "rg_cents": self.region_cents}
+            s_meta = {**s_meta, **rg_m, **rs_m}
         arrays = {"levels": self.levels, **s_arrays}
         for l, adj in enumerate(self.layers):
             arrays[f"layer_{l}"] = adj
@@ -335,9 +407,8 @@ class HNSWIndex:
     @staticmethod
     def from_state(arrays, meta, device=None) -> "HNSWIndex":
         """Rebuild from (arrays, meta) as ``save`` writes them."""
-        if "rg_regions" in meta:
-            raise NotImplementedError(_REGIONS)
         dev = resolve_device(device)
+        regional = "rg_regions" in meta
         return HNSWIndex(
             metric=meta["metric"], m=int(meta["m"]),
             store=engine.CodeStore.from_state(arrays, meta, device=dev),
@@ -350,6 +421,13 @@ class HNSWIndex:
             rerank_store=(engine.CodeStore.from_state(arrays, meta,
                                                       prefix="rr_", device=dev)
                           if "rr_store" in meta else None),
+            regions=(RegionQuant.from_state(arrays, meta, prefix="rg_",
+                                            device=dev) if regional else None),
+            region_store=(engine.CodeStore.from_state(
+                arrays, meta, prefix="rgs_", device=dev) if regional else None),
+            region_cents=(to_tensor(arrays["rg_cents"], device=dev,
+                                    dtype=torch.float32).contiguous()
+                          if regional else None),
         )
 
     @staticmethod

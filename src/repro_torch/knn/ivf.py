@@ -21,11 +21,16 @@ reference's, or another device's), and then the build's lists are the
 reference's.
 
 Registered as kind ``"ivf"``; factory strings ``"ivf256"``,
-``"ivf256,lpq8"``, ``"ivf256,lpq4"`` (packed int4).  A
+``"ivf256,lpq8"``, ``"ivf256,lpq4"`` (packed int4), and
+``"ivf256,lpq8,regions"``: one Eq. 1 constant set per list
+(``cascade.RegionQuant``, fitted on the host CPU), each row encoded under
+its own list's constants, and fine scoring through
+``engine.topk_among_regional`` (fp32 queries against dequantized rows),
+in query blocks sized for its fp32 temporaries.  A
 ``SearchParams.filter`` masks the fine scoring by row and the coarse
 probe by list (a list with no allowed member is never probed).  Not
-ported yet: per-list constants (``regions``, ROADMAP queue A11) and the
-list-placed mesh plan (A14); each raises naming its item.
+ported yet: the list-placed mesh plan (ROADMAP queue A14), which raises
+naming its item.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import engine
+from repro_torch.cascade.regions import RegionQuant
 from repro_torch.core import distances as D
 from repro_torch.core import quant as Qz
 from repro_torch.device import resolve_device, to_tensor
@@ -50,8 +56,6 @@ from repro_torch.knn.spec import (
     resolve_build_spec,
 )
 
-_REGIONS = ("per-list Eq. 1 constants ('regions') are not ported yet: "
-            "ROADMAP queue A11 (cascade/)")
 _MESH = ("the list-placed (mesh) ivf plan is not ported yet: ROADMAP "
          "queue A14 (dist/)")
 
@@ -102,12 +106,18 @@ def kmeans(x: torch.Tensor, n_clusters: int, key: int = 0,
     return cents
 
 
-def fine_block_rows(store: engine.CodeStore, width: int) -> int:
+def fine_block_rows(store: engine.CodeStore, width: int,
+                    regional: bool = False) -> int:
     """Queries a block of fine scoring takes: ``FINE_BYTES`` over what one
     query gathers, its ``width`` candidate rows at full width, each byte
-    with room for a float64 copy (the exact integer dot on CUDA)."""
-    elt = 4 if not store.quantized else 1
-    return max(1, FINE_BYTES // max(1, width * store.d_eff * (elt + 8)))
+    with room for a float64 copy (the exact integer dot on CUDA); a
+    regional block holds ``engine.scorer.REGIONAL_ELT_BYTES`` an element
+    instead (the fp32 dequantized rows and the gathered constants)."""
+    if regional:
+        per = engine.scorer.REGIONAL_ELT_BYTES
+    else:
+        per = (4 if not store.quantized else 1) + 8
+    return max(1, FINE_BYTES // max(1, width * store.d_eff * per))
 
 
 def bucket_lists(assign: np.ndarray, nlist: int) -> np.ndarray:
@@ -135,8 +145,12 @@ class IVFIndex:
     lists: torch.Tensor                  # [nlist, max_list] int32, -1 pad
     store: engine.CodeStore              # corpus payload at any precision
     rerank_store: Optional[engine.CodeStore] = None
-    #: build seconds by part (kmeans with the assignment, lists, store);
-    #: not saved
+    #: per-list Eq. 1 constants (``...,regions``): the store's codes are
+    #: regional and only ``topk_among_regional`` scores them; None is the
+    #: global single-constant path
+    regions: Optional[RegionQuant] = None
+    #: build seconds by part (kmeans with the assignment, lists, the region
+    #: fit, store); not saved
     build_parts: dict = dataclasses.field(default_factory=dict,
                                           compare=False)
 
@@ -181,15 +195,15 @@ class IVFIndex:
     ) -> "IVFIndex":
         """Build on ``device`` (default: the GPU).  ``key`` is an int seed
         for k-means (default 0); ``_given`` may hold ``centroids``
-        ([nlist, d] f32), which replace the k-means."""
+        ([nlist, d] f32), which replace the k-means, and for a regions
+        build ``regions`` (a ``RegionQuant``), which replaces the region
+        fit."""
         spec, p = resolve_build_spec(
             "ivf", spec, metric=metric,
             quant=quant_spec_from_kwargs(quantized, bits, scheme, sigmas,
                                          params),
             nlist=nlist, kmeans_iters=kmeans_iters,
         )
-        if p.get("regions"):
-            raise NotImplementedError(_REGIONS)
         nlist = int(p["nlist"])
         kmeans_iters = int(p["kmeans_iters"])
         given = dict(_given or {})
@@ -207,20 +221,41 @@ class IVFIndex:
         # bucket ids into fixed-width lists (host-side; build is offline)
         lists = bucket_lists(assign, nlist)
         t2 = time.perf_counter()
-        store = (
-            engine.CodeStore.dense(corpus)
-            if spec.quant is None
-            else spec.quant.build_store(corpus)
-        )
+        regions = None
+        if p.get("regions"):
+            # per-list constants, each row encoded under its own list's
+            # fit (the spec guarantees an lpq fragment here)
+            regions = given.get("regions")
+            if regions is None:
+                regions = RegionQuant.fit(
+                    corpus, assign, nlist, bits=spec.quant.bits,
+                    scheme=spec.quant.scheme, sigmas=spec.quant.sigmas,
+                    device=dev)
+            regions = regions.to(dev)
+        t3 = time.perf_counter()
+        if regions is not None:
+            # the store keeps nominal global constants for persistence;
+            # its codes are regional, and only the regional path scores
+            # them
+            store = engine.CodeStore.from_codes(
+                regions.encode(corpus), spec.quant.learn(corpus).to(dev),
+                pack=spec.quant.effective_packed)
+        elif spec.quant is None:
+            store = engine.CodeStore.dense(corpus)
+        else:
+            store = spec.quant.build_store(corpus)
         idx = IVFIndex(
             metric=spec.metric, nlist=nlist, max_list=lists.shape[1],
             centroids=cents, lists=torch.from_numpy(lists).to(dev),
             store=store, rerank_store=build_rerank_store(spec, corpus),
+            regions=regions,
         )
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        idx.build_parts.update(kmeans=t1 - t0, lists=t2 - t1,
-                               store=time.perf_counter() - t2)
+        idx.build_parts.update(kmeans=t1 - t0, lists=t2 - t1)
+        if regions is not None:
+            idx.build_parts["regions"] = t3 - t2
+        idx.build_parts["store"] = time.perf_counter() - t3
         return idx
 
     # -- query ------------------------------------------------------------
@@ -244,7 +279,8 @@ class IVFIndex:
         nprobe = min(sp.nprobe, self.nlist)
         cent_store = engine.CodeStore.dense(self.centroids)
         width = nprobe * self.max_list
-        rows = fine_block_rows(self.store, width)
+        rg = self.regions
+        rows = fine_block_rows(self.store, width, regional=rg is not None)
         # filter (DESIGN.md §16): a row mask for the fine-scoring fence,
         # and a list mask that keeps lists with no allowed member out of
         # the coarse probe, so their probe slots go to lists that can
@@ -253,7 +289,6 @@ class IVFIndex:
 
         def run(queries) -> B.SearchResult:
             qf = to_tensor(queries, device=self.device, dtype=torch.float32)
-            qq = self.prepare_queries(qf)
             nq = qf.shape[0]
             # 1) coarse: engine top-k over the fp32 centroid table, in the
             #    user's metric
@@ -267,19 +302,30 @@ class IVFIndex:
             if lmask is not None:
                 cand = torch.where(probe[..., None] >= 0, cand, -1)
             cand = cand.reshape(nq, -1)
-            # 3) fine scoring + top-k through the engine, in query blocks
-            parts = [engine.topk_among(qq[s:s + rows], self.store,
-                                       cand[s:s + rows], k, self.metric,
-                                       mask=fmask)
-                     for s in range(0, nq, rows)]
+            # 3) fine scoring + top-k through the engine, in query blocks.
+            #    A regional build dequantizes each row under its own list's
+            #    constants: codes of different lists are different integer
+            #    spaces
+            if rg is None:
+                qq = self.prepare_queries(qf)
+                parts = [engine.topk_among(qq[s:s + rows], self.store,
+                                           cand[s:s + rows], k, self.metric,
+                                           mask=fmask)
+                         for s in range(0, nq, rows)]
+                stats = {"kind": "ivf", "nprobe": nprobe,
+                         **engine.search_stats(self.store, candidates=width,
+                                               chunks=nprobe,
+                                               rows_read=nq * width)}
+            else:
+                parts = [engine.topk_among_regional(
+                    qf[s:s + rows], self.store, rg.scale, rg.zero, rg.assign,
+                    cand[s:s + rows], k, self.metric, mask=fmask)
+                    for s in range(0, nq, rows)]
+                stats = {"kind": "ivf", "nprobe": nprobe, "chunks": nprobe,
+                         **engine.regional_stats(self.store, cand)}
             scores = torch.cat([s for s, _ in parts])
             ids = torch.cat([i for _, i in parts])
-            stats = {"kind": "ivf", "nprobe": nprobe,
-                     **engine.search_stats(self.store, candidates=width,
-                                           chunks=nprobe,
-                                           rows_read=nq * width),
-                     **fstats}
-            return B.SearchResult(scores, ids, stats)
+            return B.SearchResult(scores, ids, {**stats, **fstats})
 
         return run
 
@@ -317,10 +363,21 @@ class IVFIndex:
         base += int(self.centroids.numel()) * 4 + int(self.lists.numel()) * 4
         if self.rerank_store is not None:
             base += self.rerank_store.memory_bytes()
+        if self.regions is not None:
+            base += self.regions.memory_bytes()
         return base
 
     def region_drift(self, live_corpus):
-        raise NotImplementedError(_REGIONS)
+        """Per-list calibration drift of a live corpus against the fitted
+        per-list constants ([nlist] float64; +inf marks an empty list on
+        either side).  Live rows are assigned by the build's centroids."""
+        if self.regions is None:
+            raise ValueError(
+                "region_drift needs a per-region build — construct the "
+                "index with an '...,regions' factory (e.g. 'ivf64,lpq8,regions')"
+            )
+        live = to_tensor(live_corpus, device=self.device, dtype=torch.float32)
+        return self.regions.drift_report(live, _assign(live, self.centroids))
 
     # -- disk round-trip ---------------------------------------------------
     def save(self, path) -> None:
@@ -329,6 +386,10 @@ class IVFIndex:
             rr_a, rr_m = self.rerank_store.state(prefix="rr_")
             arrays.update(rr_a)
             meta.update(rr_m)
+        if self.regions is not None:
+            rg_a, rg_m = self.regions.state(prefix="rg_")
+            arrays.update(rg_a)
+            meta.update(rg_m)
         B.save_state(
             path,
             {"centroids": self.centroids, "lists": self.lists, **arrays},
@@ -340,8 +401,6 @@ class IVFIndex:
     @staticmethod
     def from_state(arrays, meta, device=None) -> "IVFIndex":
         """Rebuild from (arrays, meta) as ``save`` writes them."""
-        if "rg_regions" in meta:
-            raise NotImplementedError(_REGIONS)
         dev = resolve_device(device)
         return IVFIndex(
             metric=meta["metric"], nlist=int(meta["nlist"]),
@@ -354,6 +413,9 @@ class IVFIndex:
             rerank_store=(engine.CodeStore.from_state(arrays, meta,
                                                       prefix="rr_", device=dev)
                           if "rr_store" in meta else None),
+            regions=(RegionQuant.from_state(arrays, meta, prefix="rg_",
+                                            device=dev)
+                     if "rg_regions" in meta else None),
         )
 
     @staticmethod

@@ -20,7 +20,7 @@ are not ported yet (ROADMAP queue A14).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -100,10 +100,13 @@ class PQIndex:
         key: int | None = None,
         kmeans_iters: int = 8,
         device=None,
+        _given: Optional[dict[str, Any]] = None,
     ) -> "PQIndex":
         """Build on ``device`` (default: the GPU).  ``key`` is an int seed
         for the k-means inits (default 0); subspace j seeds its own
-        generator from (key, j)."""
+        generator from (key, j).  ``_given`` may hold ``codebooks`` ([m,
+        2^bits, d/m] f32, from another build or device), which replace the
+        k-means."""
         spec, p = resolve_build_spec(
             "pq", spec, metric=metric,
             m=m, bits=bits, lpq_tables=lpq_tables, kmeans_iters=kmeans_iters,
@@ -139,11 +142,16 @@ class PQIndex:
             )
         n_codewords = 2 ** bits
 
+        given = (_given or {}).get("codebooks")
         books, codes = [], []
         for j in range(m):
             sj = sub[:, j].contiguous()
-            cb = kmeans(sj, min(n_codewords, n), seed * 1_000_003 + j,
-                        iters=kmeans_iters)
+            if given is not None:
+                cb = to_tensor(given[j], device=corpus.device,
+                               dtype=torch.float32)
+            else:
+                cb = kmeans(sj, min(n_codewords, n), seed * 1_000_003 + j,
+                            iters=kmeans_iters)
             if cb.shape[0] < n_codewords:   # tiny corpora: pad codebook
                 cb = torch.nn.functional.pad(
                     cb, (0, 0, 0, n_codewords - cb.shape[0]))

@@ -1,11 +1,10 @@
 """kind -> implementation registry and the ``make_index`` / ``load_index``
 entry points (port of ``repro.knn.registry``).
 
-``flat``, ``graph``, ``hnsw``, ``ivf``, ``pq`` and ``stream`` are
-ported.  ``cascade``, the one other kind the grammar parses, raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  Entry points run on the card by default: ``device=None`` resolves to
-``cuda`` and raises when no CUDA device exists; pass ``device="cpu"`` to
-run on the CPU.
+Every kind the grammar parses is ported: ``cascade``, ``flat``,
+``graph``, ``hnsw``, ``ivf``, ``pq`` and ``stream``.  Entry points run on
+the card by default: ``device=None`` resolves to ``cuda`` and raises when
+no CUDA device exists; pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
@@ -16,12 +15,6 @@ from typing import Optional
 from repro_torch.knn.spec import IndexSpec, as_spec
 
 _REGISTRY: dict[str, type] = {}
-
-#: parsed kinds that are not ported yet -> the ROADMAP queue A item
-NOT_PORTED = {
-    "cascade": "queue A11 (cascade/)",
-}
-
 
 def register(kind: str):
     """Class decorator: register an Index implementation under ``kind``."""
@@ -35,6 +28,7 @@ def register(kind: str):
 
 
 def _ensure_registered() -> None:
+    from repro_torch.cascade import index  # noqa: F401  (kind "cascade")
     from repro_torch.knn import flat  # noqa: F401  (kind "flat")
     from repro_torch.knn import graph_index  # noqa: F401  (kind "graph")
     from repro_torch.knn import hnsw  # noqa: F401  (kind "hnsw")
@@ -50,11 +44,6 @@ def kinds() -> tuple[str, ...]:
 
 def get_impl(kind: str) -> type:
     _ensure_registered()
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"index kind {kind!r} is not ported to repro_torch yet: "
-            f"ROADMAP {NOT_PORTED[kind]}"
-        )
     if kind not in _REGISTRY:
         raise KeyError(f"no index registered for kind {kind!r}; have {kinds()}")
     return _REGISTRY[kind]

@@ -1,7 +1,7 @@
 """Unified index configuration: ``QuantSpec``, ``IndexSpec`` and the
 FAISS-style factory-string parser (port of ``repro.knn.spec``: the whole
 grammar is kept, so every factory string parses and round-trips as in the
-reference; kinds other than ``flat`` are parsed but not built yet).
+reference, and every kind it parses is built).
 
 The paper's central claim is that low-precision quantization is an
 *implementation-level* substitution — "it can be combined with existing

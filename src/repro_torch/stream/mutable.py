@@ -34,8 +34,10 @@ next key, a third the seed), so the same key gives the same seeds on every
 device, though not the reference's draws.  Statistics (``live_stats``,
 segment calibrations) are reduced on the host CPU whatever the device.
 
+Every kind but ``stream`` may be the inner kind, a cascade too
+(``stream(cascade(flat,lpq8|r32))``: each sealed segment is a cascade).
 Not ported yet: ``placement`` and a ``mesh=`` plan (ROADMAP queue A14),
-and a ``cascade`` inner kind (A11); each raises naming its item.
+which raise naming their item.
 """
 
 from __future__ import annotations
@@ -140,10 +142,6 @@ class MutableIndex:
         inner = parse_factory(inner_factory, metric=metric)
         if inner.kind == "stream":
             raise ValueError("stream cannot wrap stream")
-        if inner.kind == "cascade":
-            raise NotImplementedError(
-                "a cascade inner kind is not ported yet: ROADMAP queue A11 "
-                "(cascade/)")
         if inner.rerank_bits is not None:
             raise ValueError(
                 "per-segment rerank stores are redundant — the wrapper "

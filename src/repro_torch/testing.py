@@ -10,6 +10,9 @@ tests and ``chip_smoke.py`` so that one copy of each exists.
   * ``stream_lifecycle`` / ``lifecycles_equal``: one write sequence logged
     at eight checkpoints, and the comparison of two such logs (one device
     against another).
+  * ``build_draws``: the random draws and float reductions of a cascade
+    or regions arm built on the CPU, so that a build on the card starts
+    from the same inputs.
 
 Pure numpy on the host: results come in as numpy arrays.
 """
@@ -141,14 +144,17 @@ def stream_lifecycle(make: Callable, factory, corpus: np.ndarray,
 
 
 def lifecycles_equal(a: list, b: list, allow: np.ndarray,
-                     rtol: float = 1e-5) -> tuple[Optional[str], int, int]:
+                     rtol: float = 1e-5, integer_sources: bool = True
+                     ) -> tuple[Optional[str], int, int]:
     """Two ``stream_lifecycle`` logs of one sequence (say, card and CPU):
     segments, external ids, live bitmaps, counters and epoch equal at every
     checkpoint; no disallowed id; results bit-equal where one integer
     source passed through (``reranked`` 0), else (the merge re-scores in
-    fp32 on each device) ``fp32_near_equal`` at ``rtol``.  Returns (the
-    first difference, or None; checkpoints bit-equal; fp32 scores
-    bit-equal)."""
+    fp32 on each device) ``fp32_near_equal`` at ``rtol``.  With
+    ``integer_sources=False`` (an inner kind whose own results are fp32,
+    such as a cascade ending in ``r32``) a passed-through source is held
+    at ``rtol`` too.  Returns (the first difference, or None; checkpoints
+    bit-equal; fp32 scores bit-equal)."""
     exact = same = 0
     for j, ((sa, ca, ea, gs, gi, rr), (sb, cb, eb, ws, wi, _)) in \
             enumerate(zip(a, b)):
@@ -156,7 +162,7 @@ def lifecycles_equal(a: list, b: list, allow: np.ndarray,
             return f"checkpoint {j}: manifest, counters or epoch differ", 0, 0
         if not allow[gi[gi >= 0]].all():
             return f"checkpoint {j}: a disallowed id came back", 0, 0
-        if rr == 0:
+        if rr == 0 and integer_sources:
             if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
                 return f"checkpoint {j}: single-source results differ", 0, 0
             exact += 1
@@ -169,3 +175,61 @@ def lifecycles_equal(a: list, b: list, allow: np.ndarray,
     if len(a) != len(b):
         return "the logs differ in length", 0, 0
     return None, exact, same
+
+
+def build_draws(f: str, metric: str, idx, corpus: np.ndarray) -> tuple:
+    """The draws and float reductions of ``idx``, arm ``f`` as built on the
+    CPU: (spec, build keyword arguments) that make
+    ``get_impl(spec.kind).build`` on another device start from the same
+    inputs.
+
+    Each device would otherwise draw its own k-means inits (ivf lists,
+    graph seeds, HNSW cells, a PQ head's codebooks) and reduce its own Eq.
+    1 statistics (a few ulps apart, then a few codes).  The region fits
+    are not passed on: ``RegionQuant.fit`` reduces on the host whatever the
+    device, and the comparison holds one device's fit to the other's.
+    ``corpus`` gives the graph kind's ip augmentation column, which the
+    index does not keep."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.engine import CodeStore
+    from repro_torch.knn import as_spec
+    from repro_torch.knn.graph_index import mip_column
+
+    def params(store):
+        return (store.params if isinstance(store, CodeStore)
+                and store.quantized else None)
+
+    def given(i) -> dict:
+        """The kind's own ``_given``: its k-means or codebook draws."""
+        if i.kind == "pq":
+            return {"codebooks": i.store.codebooks}
+        if i.kind == "ivf":
+            return {"centroids": i.centroids}
+        if i.kind == "graph":
+            out = {"centroids": i.seeds, "params": params(i.store)}
+            if i.aug:
+                out["extra"] = mip_column(torch.from_numpy(
+                    np.ascontiguousarray(corpus, dtype=np.float32)))
+            return out
+        if i.kind == "hnsw" and i.region_cents is not None:
+            return {"region_centroids": i.region_cents}
+        return {}
+
+    spec = as_spec(f, metric=metric)
+    if spec.kind == "cascade":
+        draws = {"head_params": params(idx.head.store),
+                 "stage_params": tuple(params(s) for s in idx.stage_stores)}
+        if given(idx.head):
+            draws["head"] = given(idx.head)
+        return spec, {"_given": draws}
+    kw = {"_given": given(idx)}
+    if spec.kind == "hnsw":
+        kw["_levels"] = idx.levels
+    if spec.kind != "graph" and params(idx.store) is not None:
+        spec = dataclasses.replace(
+            spec, quant=spec.quant.with_params(params(idx.store)))
+    return spec, kw
+

@@ -12,7 +12,8 @@
     fp32), ids equal outside near-ties.
 
 The stream arms are built with writes after the bulk load, so they hold a
-memtable and more than one segment.
+memtable and more than one segment.  The cascade arms and the regions
+arms are the reference's own conformance factories.
 """
 
 import io
@@ -45,12 +46,25 @@ FACTORIES = {
     "graph16,lpq8@global_minmax": {"n_seeds": 16},
     "stream(flat,lpq4@global_absmax)+r32": {"seal_threshold": 128},
     "stream(pq16x4,lpq8)+r32": {"seal_threshold": 128, "kmeans_iters": 4},
+    # the cascade kind and per-region constants, with the reference's own
+    # conformance overrides (tests/test_conformance.py:44-53)
+    "cascade(flat,lpq4|r32)": {},
+    "cascade(pq16x4|lpq8|r32)": {"kmeans_iters": 4},
+    "stream(cascade(flat,lpq8|r32))": {"seal_threshold": 128},
+    "ivf8,lpq8,regions": {"kmeans_iters": 4},
+    "hnsw8,lpq8,regions": {"ef_construction": 40, "batch_size": 128},
+    "graph16,lpq4,regions": {"n_seeds": 16},
 }
 
-#: arms whose final scores are fp32 (held within rtol against the reference)
+#: arms whose final scores are fp32 (held within rtol against the
+#: reference): fp32 stores and LUTs, fp32 merges and final cascade stages,
+#: and regional re-scores (fp32 queries against dequantized rows)
 FP32_ARMS = {"flat", "flat,lpq4+r32", "pq16",
              "stream(flat,lpq4@global_absmax)+r32",
-             "stream(pq16x4,lpq8)+r32"}
+             "stream(pq16x4,lpq8)+r32",
+             "cascade(flat,lpq4|r32)", "cascade(pq16x4|lpq8|r32)",
+             "stream(cascade(flat,lpq8|r32))", "ivf8,lpq8,regions",
+             "hnsw8,lpq8,regions", "graph16,lpq4,regions"}
 
 #: survivors < k (0.02 of 384 leaves ~8 rows), a mid-band filter, and a
 #: nearly transparent one

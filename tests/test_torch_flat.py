@@ -178,13 +178,15 @@ def test_factory_grammar_rejects_what_the_reference_rejects(bad):
 
 def test_unported_kinds_and_options_raise_clearly(data):
     corpus, queries = data
-    assert kinds() == ("flat", "graph", "hnsw", "ivf", "pq", "stream")
+    assert kinds() == ("cascade", "flat", "graph", "hnsw", "ivf", "pq",
+                       "stream")
     st = make_index("stream(flat,lpq8)", corpus, device="cpu")
     assert st.kind == "stream" and st.n == N
     st = make_index("stream(ivf8,lpq4)+r32", corpus, device="cpu")
     assert st.kind == "stream" and st.rerank_bits == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A11"):
-        make_index("cascade(flat,lpq4|r32)", corpus, device="cpu")
+    casc = make_index("cascade(flat,lpq4|r32)", corpus, device="cpu")
+    assert casc.kind == "cascade" and casc.stages == "flat,lpq4|r32"
+    assert casc.search(queries, K).ids.shape == (queries.shape[0], K)
     idx = make_index("flat,lpq8", corpus, device="cpu")
     with pytest.raises(ValueError, match="SearchParams.filter must be"):
         idx.searcher(K, SearchParams(filter=object()))

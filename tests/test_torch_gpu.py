@@ -808,3 +808,76 @@ def test_stream_lifecycle_on_the_card_equals_the_cpu(dev, f):
             for d in (dev, "cpu")]
     diff, _exact, _same = lifecycles_equal(*runs, allow, 1e-5)
     assert diff is None, diff
+
+
+#: the cascade and regions arms (the reference's conformance factories,
+#: tests/test_conformance.py:44-53): factory -> build overrides
+CASCADE_REGION_ARMS = {
+    "cascade(flat,lpq4|r32)": {},
+    "cascade(pq16x4|lpq8|r32)": {"kmeans_iters": 4},
+    "cascade(ivf8,lpq8|lpq8|r8)": {"kmeans_iters": 4},
+    "ivf8,lpq8,regions": {"kmeans_iters": 4},
+    "hnsw8,lpq8,regions": {"ef_construction": 40, "batch_size": 128},
+    "graph16,lpq4,regions": {"n_seeds": 16},
+}
+
+
+@pytest.mark.parametrize("f", sorted(CASCADE_REGION_ARMS))
+def test_cascade_and_regions_on_the_card_equal_the_cpu(dev, f):
+    """A cascade or regions arm built on the card and on the CPU from the
+    same draws (``testing.build_draws`` reads them off the CPU build;
+    region constants are fitted on the host either way): every store's
+    codes and the region constants equal; a bucketed Searcher, unfiltered
+    and filtered, returns the same ids and scores, bit for bit where the
+    final stage is integer, within rtol 1e-5 of the row scale where it is
+    fp32 (``r32`` stages and regional re-scores, ids equal outside
+    near-ties)."""
+    import numpy as np
+
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams
+    from repro_torch.knn import as_spec
+    from repro_torch.knn.registry import get_impl
+    from repro_torch.testing import build_draws, fp32_near_equal
+
+    rng = np.random.default_rng(11)
+    corpus = rng.standard_normal((1500, 32)).astype(np.float32)
+    queries = rng.standard_normal((45, 32)).astype(np.float32)
+    over = CASCADE_REGION_ARMS[f]
+    spec = as_spec(f, metric="ip")
+    cpu = get_impl(spec.kind).build(corpus, spec, device="cpu", **over)
+    spec, kw = build_draws(f, "ip", cpu, corpus)
+    card = get_impl(spec.kind).build(corpus, spec, device=dev, **kw, **over)
+
+    def stores(i):
+        if spec.kind == "cascade":
+            return [i.head.store, *i.stage_stores]
+        return [i.store] + ([i.region_store] if spec.kind != "ivf" else [])
+
+    for a, b in zip(stores(card), stores(cpu)):
+        data = a.codes if hasattr(a, "codes") else a.data
+        want = b.codes if hasattr(b, "codes") else b.data
+        assert torch.equal(data.cpu(), want)
+    if spec.kind != "cascade":
+        for name in ("assign", "lo", "hi", "zero"):
+            assert torch.equal(getattr(card.regions, name).cpu(),
+                               getattr(cpu.regions, name))
+    integer = spec.kind == "cascade" and cpu.rerank_bits < 32
+    allow = np.random.default_rng(12).random(1500) < 0.25
+    for filt in (None, Filter.from_mask(allow)):
+        sp = SearchParams(nprobe=4, ef_search=40, filter=filt)
+        got, want = (i.searcher(10, sp, batch_sizes=(1, 8, 32))(queries)
+                     for i in (card, cpu))
+        gs, gi = got.scores.cpu().numpy(), got.ids.cpu().numpy()
+        ws, wi = want.scores.numpy(), want.ids.numpy()
+        if integer:
+            assert np.array_equal(gi, wi) and np.array_equal(gs, ws)
+        else:
+            assert fp32_near_equal(gs, gi, ws, wi, 1e-5)[0]
+        if spec.kind == "cascade":
+            # the head's bytes follow each device's scan (passes a query
+            # tile); labels, budgets, bits and the stages' gathers do not
+            a, b = got.stats["stages"], want.stats["stages"]
+            assert [(r[0], r[1], r[3]) for r in a] == \
+                [(r[0], r[1], r[3]) for r in b]
+            assert a[1:] == b[1:]

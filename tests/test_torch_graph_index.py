@@ -435,14 +435,19 @@ def test_port_saved_graph_searches_the_same_in_the_reference(built, data,
 def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     corpus, queries = data
     _, port, path = built["graph8,lpq8@gaussian:3"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_index("graph8,lpq8,regions", corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # per-seed constants (A11) now build, search and round-trip
+    rg = make_index("graph8,lpq8,regions", corpus, device="cpu")
+    assert rg.regions is not None and rg.region_store.d == corpus.shape[1]
+    res = rg.search(queries[:3], K, ef_search=40)
+    assert res.ids.shape == (3, K) and res.stats["regional"] is True
+    with pytest.raises(ValueError, match="regions"):
         port.region_drift(corpus)
-    arrays, meta = load_state(path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        GI.GraphIndex.from_state(arrays, {**meta, "rg_regions": 4},
-                                 device="cpu")
+    rg_path = path.parent / "regions.npz"
+    rg.save(rg_path)
+    arrays, meta = load_state(rg_path)
+    back = GI.GraphIndex.from_state(arrays, meta, device="cpu")
+    assert "rg_regions" in meta and back.regions is not None
+    assert torch.equal(back.search(queries[:3], K, ef_search=40).ids, res.ids)
     with pytest.raises(NotImplementedError, match="A14"):
         port.placement(2)
     with pytest.raises(NotImplementedError, match="A14"):

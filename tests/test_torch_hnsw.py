@@ -246,13 +246,19 @@ def test_own_build_recall_and_memory(built, data, recall_queries, f):
 def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     corpus, queries = data
     _, port, path = built["hnsw8,lpq8@gaussian:3"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_index("hnsw8,lpq8,regions", corpus, device="cpu", **BUILD)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # per-cell constants (A11) now build, search and round-trip
+    rg = make_index("hnsw8,lpq8,regions", corpus[:300], device="cpu", **BUILD)
+    assert rg.regions is not None and rg.regions.n_regions == 17
+    res = rg.search(queries[:3], K, ef_search=40)
+    assert res.ids.shape == (3, K) and res.stats["regional"] is True
+    with pytest.raises(ValueError, match="regions"):
         port.region_drift(corpus)
-    arrays, meta = load_state(path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        H.HNSWIndex.from_state(arrays, {**meta, "rg_regions": 4}, device="cpu")
+    rg_path = path.parent / "regions.npz"
+    rg.save(rg_path)
+    arrays, meta = load_state(rg_path)
+    back = H.HNSWIndex.from_state(arrays, meta, device="cpu")
+    assert "rg_regions" in meta and back.regions is not None
+    assert torch.equal(back.search(queries[:3], K, ef_search=40).ids, res.ids)
     st = make_index("stream(hnsw8,lpq8)", corpus[:300], device="cpu",
                     **BUILD)
     assert st.kind == "stream" and st.manifest.segments[0].index.kind == "hnsw"

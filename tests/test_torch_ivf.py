@@ -311,13 +311,19 @@ def test_port_saved_ivf_searches_the_same_in_the_reference(built, data,
 def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     corpus, _ = data
     _, port, path = built["ivf16,lpq8@gaussian:3"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_index("ivf16,lpq8,regions", corpus, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # per-list constants (A11) now build, search and round-trip
+    rg = make_index("ivf16,lpq8,regions", corpus, device="cpu")
+    assert rg.regions is not None and rg.regions.n_regions == 16
+    res = rg.search(corpus[:3], K, nprobe=4)
+    assert res.ids.shape == (3, K) and res.stats["regional"] is True
+    with pytest.raises(ValueError, match="regions"):
         port.region_drift(corpus)
-    arrays, meta = load_state(path)
-    with pytest.raises(NotImplementedError, match="A11"):
-        IV.IVFIndex.from_state(arrays, {**meta, "rg_regions": 4}, device="cpu")
+    rg_path = path.parent / "regions.npz"
+    rg.save(rg_path)
+    arrays, meta = load_state(rg_path)
+    back = IV.IVFIndex.from_state(arrays, meta, device="cpu")
+    assert "rg_regions" in meta and back.regions is not None
+    assert torch.equal(back.search(corpus[:3], K, nprobe=4).ids, res.ids)
     with pytest.raises(NotImplementedError, match="A14"):
         port.placement(2)
     with pytest.raises(NotImplementedError, match="A14"):

@@ -316,7 +316,8 @@ def test_errors_raise_like_the_reference(data):
 def test_pq_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, data,
                                                         tmp_path):
     corpus, queries = data[D]
-    assert kinds() == ("flat", "graph", "hnsw", "ivf", "pq", "stream")
+    assert kinds() == ("cascade", "flat", "graph", "hnsw", "ivf", "pq",
+                       "stream")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_index("pq8+lpq", corpus)
