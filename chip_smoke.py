@@ -89,14 +89,16 @@ Phases (each prints its lines; any failure exits non-zero):
               graph24,lpq8@global_minmax, graph24 (ef_search 300),
               ivf1024,lpq8@global_minmax and ivf1024 (nprobe 16 and 64) at
               SIFT-like 1,000,000 x 128, and graph24,lpq8@gaussian:3 at
-              product-like 1,000,000 x 256 (its walk at width 257), as one
+              product-like 250,000 x 256 (its walk at width 257; 10^6 rows
+              until the runtime phase 11 needed the room: the build's
+              self-join is quadratic in N), as one
               run of the main path (counters set to 0 before, read after):
               build seconds and their parts, memory against the
               reference's formula, recall@100, QPS and p50 at 256-query
               requests and the mixed 1/8/32 stream; then each graph arm's
               steps and kernels a step (torch.profiler), each ivf arm's
               bytes a fine-scoring block gathers, and 1,024 rows of the
-              width-257 self-join (B2 int8, Q = 1,024 of N = 10^6) held
+              width-257 self-join (B2 int8, Q = 1,024 of N = 250,000) held
               bit-equal to the plain version
   9. filter / stream  filtered search through every kind and the stream
               kind: (a) at 4,000 x 64, every ported kind (flat, int8, int4
@@ -152,11 +154,33 @@ Phases (each prints its lines; any failure exits non-zero):
               seconds by part, memory against the reference's formula,
               recall@100, QPS, p50), then every kernel scan it launched
               held against its plain version
+ 11. tune / runtime  (a) the autotuner (``repro_torch.tune``) at the
+              main path's widths and phase 4's n bucket (4,000,000 rows,
+              Q=256, k=100: B2 int8 ip d=256 and l2 d=128, B3 ip d=256,
+              B4 pq32, B5 pq64x4, the angular scan d=100), every candidate
+              layout held bit-equal to its plain version before it is
+              timed, each entry logged, the table written to JSON and read
+              back with the same hash; then (b) and (c) as one run of the
+              path (counters set to 0 before, read after): (b) phase 9's
+              product-like rows through flat,lpq8@gaussian:3, flat,lpq4,
+              pq32+lpq and pq64x4+lpq Searchers planned with the table
+              and without: ids and scores bit-equal, stats["tuned"] and
+              bytes read as each plan's table says, B2-B5 launched by
+              both, p50 in turns (untuned, tuned, tuned, untuned), and an
+              index saved with the table adopting it on load; (c) a
+              result-cache repeat that hits bit-identical and launches
+              nothing, the LUT cache on an eager pq32+lpq search, a
+              maintenance thread compacting stream(flat,lpq8@gaussian:3)
+              at 250,000 x 256 while requests are served (waiting on its
+              swap event), a forced full compaction bit-equal to a
+              from-scratch build on live_items(), an admission burst
+              under an injected clock, the telemetry summary and the
+              runtime stamp
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
 the score-matrix ops, the HNSW path, the graph / ivf path, phase 9(b)
-and (c) and phase 10(c)), then the
+and (c), phase 10(c) and phase 11(b)-(c)), then the
 card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -174,10 +198,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
-PEAK_INT8 = 1.979e15        # dense int8 tensor-core ops/s
-PEAK_FP32 = 67e12           # fp32 CUDA-core FLOP/s
-PEAK_INT32 = 67e12          # int32 CUDA-core adds/s (the ADC gather-sum)
+if (SRC / "repro_torch").is_dir():       # main() refuses to run without it
+    sys.path.insert(0, str(SRC))
+    # the H100's published peaks, which the tuner's cost model shares
+    from repro_torch.tune.space import (  # noqa: E402
+        PEAK_BYTES,
+        PEAK_FP32,
+        PEAK_INT8,
+        PEAK_INT32,
+    )
 
 REPS = 20                   # timed kernel calls (median)
 PLAIN_REPS = 5              # timed plain-version and library calls (median)
@@ -1880,6 +1909,12 @@ INDEX_EF = 300
 INDEX_NPROBE = (16, 64)
 INDEX_N = 1_000_000
 PRODUCT_GRAPH = "graph24,lpq8@gaussian:3"
+#: the product-like graph's rows.  Its build is an exact self-join (O(N^2))
+#: on B2 int8's byte-copy path at width 257: at 10^6 rows it took 109 of the
+#: script's seconds, so this earlier path runs at a smaller depth (width,
+#: build parts, request and the self-join check unchanged) to make room
+#: for phase 11 inside the 1200 s limit
+PRODUCT_GRAPH_N = 250_000
 #: self-join rows of the product-like graph held against the plain version
 JOIN_CHECK_ROWS = 1024
 
@@ -2068,7 +2103,8 @@ def index_path(err: dict) -> dict:
     requests and for the mixed 1/8/32 stream.  Then each graph arm's walk
     (layer-0 steps, kernels a step under torch.profiler), each IVF arm's
     bytes a fine-scoring block gathers, and 1,024 rows of the product-like
-    self-join held against the plain version."""
+    self-join held against the plain version.  The product-like graph runs
+    at PRODUCT_GRAPH_N rows (its self-join is quadratic in N)."""
     import torch
 
     from repro_torch import kernels
@@ -2131,7 +2167,8 @@ def index_path(err: dict) -> dict:
         for p in INDEX_NPROBE:
             report(f, idx, SearchParams(nprobe=p), f"nprobe {p}")
         built[f] = idx
-    pc, pq, pm = synthetic.load("product", n, 256)
+    pn = PRODUCT_GRAPH_N
+    pc, pq, pm = synthetic.load("product", pn, 256)
     t0 = time.perf_counter()
     prod = make_index(PRODUCT_GRAPH, pc, metric=pm)
     torch.cuda.synchronize()
@@ -2143,7 +2180,7 @@ def index_path(err: dict) -> dict:
     need(res.ids.shape == (256, k) and bool(torch.all(res.ids >= 0)),
          f"{PRODUCT_GRAPH}: bad ids")
     parts = ", ".join(f"{a} {b:.2f} s" for a, b in prod.build_parts.items())
-    log(f"[index] product {n}x{pc.shape[1]} {pm} {PRODUCT_GRAPH} (walk width "
+    log(f"[index] product {pn}x{pc.shape[1]} {pm} {PRODUCT_GRAPH} (walk width "
         f"{prod.store.d}): build {build_s:.2f} s ({parts}), memory "
         f"{prod.memory_bytes()} bytes; one 256-query request at ef_search "
         f"{INDEX_EF}: {req_ms:.2f} ms (first, unwarmed) | {card}")
@@ -2184,7 +2221,7 @@ def index_path(err: dict) -> dict:
     hold("fused_topk_int8", got, want, q, store.data, half + 1, "l2", None,
          f"product self-join {JOIN_CHECK_ROWS} rows d={store.d}", err)
     log(f"[index] {PRODUCT_GRAPH}: {JOIN_CHECK_ROWS} self-join rows (Q="
-        f"{JOIN_CHECK_ROWS}, N={n}, d={store.d}, k={half + 1}, l2) equal to "
+        f"{JOIN_CHECK_ROWS}, N={pn}, d={store.d}, k={half + 1}, l2) equal to "
         "the plain version, ids and scores")
     del built, prod, corpus, queries, gt, pc, pq
     torch.cuda.empty_cache()
@@ -3319,6 +3356,340 @@ def cascade_path(err: dict, pc, pq) -> dict:
     return {name: run[name] for name in CASCADE_KERNELS}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the autotuner, tuned serving and the runtime subsystem
+# --------------------------------------------------------------------------
+
+#: phase 11(b): the main path's product arms, each served by a Searcher
+#: planned with the tuning table and one planned without, and the kernel
+#: each must launch on both
+TUNED_ARMS = {"flat,lpq8@gaussian:3": "fused_topk_int8",
+              "flat,lpq4": "fused_topk4", "pq32+lpq": "fused_adc",
+              "pq64x4+lpq": "fused_adc4"}
+#: 256-query requests a turn (untuned, tuned, tuned, untuned)
+TUNED_REQS = 8
+#: rows of the index 11(b) saves and reloads (adoption is about its meta)
+TUNED_SAVE_N = 100_000
+#: phase 11(c): the stream kind under a maintenance thread: its bulk rows,
+#: upsert rounds (one sealed segment each) and the segment bound
+MAINT_ARM = "stream(flat,lpq8@gaussian:3)"
+MAINT_N = 250_000
+MAINT_ROUND = 8192
+MAINT_ROUNDS = 4
+#: 11(c)'s admission burst under an injected clock: (queries, queue depth,
+#: seconds advanced first) and the CPU run's decisions for it
+ADMIT_BURST = ((4, 0, 0.0), (2, 2, 0.0), (4, 0, 0.0), (1, 4, 0.0),
+               (16, 0, 0.0), (8, 0, 1.0))
+ADMIT_EXPECT = (("admit", "ok", 4.0), ("degrade", "queue", 0.5),
+                ("degrade", "budget", 1.0), ("shed", "queue", 0.0),
+                ("shed", "budget", 0.0), ("admit", "ok", 8.0))
+
+
+def tune_path():
+    """11(a): ``autotune`` at the main path's widths and phase 4's n bucket
+    (the autotuner's default workloads: 4,000,000 rows, Q=256, k=100), every
+    candidate held bit-equal to its plain version before it is timed (the
+    tuner raises otherwise); each entry logged with the card; the table
+    written to JSON and read back with the same hash."""
+    import torch
+
+    from repro_torch.tune import TuneTable
+    from repro_torch.tune import autotuner as AT
+
+    card = smi()
+    t0 = time.perf_counter()
+    try:
+        table = AT.autotune(verbose=True)
+    except AssertionError as e:
+        raise SmokeFailure(f"autotune: {e}") from None
+    torch.cuda.synchronize()
+    log(f"[tune] {len(table.entries)} workloads tuned in "
+        f"{time.perf_counter() - t0:.1f} s, every candidate bit-equal to "
+        f"the plain version | {card}")
+    need(table.stamp["backend"] == "cuda"
+         and table.stamp["device_kind"] == torch.cuda.get_device_name(0),
+         f"table stamped {table.stamp}")
+    need(len(table.entries) == len(AT.default_workloads()),
+         f"{len(table.entries)} entries")
+    for key, cfg in sorted(table.entries.items()):
+        log(f"[tune] {key}: {cfg.impl} bq={cfg.bq} bn={cfg.bn} "
+            f"chunk={cfg.chunk}: {cfg.measured_us:.1f} us, default "
+            f"{cfg.default_us:.1f} us ({cfg.default_us / cfg.measured_us:.3f}"
+            f"x) | {card}")
+    path = ROOT / "build" / "phase11_TUNE.json"
+    path.parent.mkdir(exist_ok=True)
+    table.to_json(path)
+    back = TuneTable.from_json(path)
+    need(back.table_hash() == table.table_hash()
+         and back.to_dict() == table.to_dict(),
+         "the table read back from JSON differs")
+    log(f"[tune] wrote {path.relative_to(ROOT)}, read back with hash "
+        f"{back.table_hash()}")
+    return table
+
+
+def _p50_turns(searchers: dict, q, reps: int) -> dict:
+    """p50 ms of ``reps`` requests a turn, in turns untuned, tuned, tuned,
+    untuned (each searcher warmed first)."""
+    import torch
+
+    lat = {name: [] for name in searchers}
+    for s in searchers.values():
+        s(q)
+    torch.cuda.synchronize()
+    for name in ("untuned", "tuned", "tuned", "untuned"):
+        for _ in range(reps):
+            t = time.perf_counter()
+            searchers[name](q)
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t) * 1e3)
+    return {name: statistics.median(v) for name, v in lat.items()}
+
+
+def tuned_serving(table, pc, pq) -> dict:
+    """11(b): phase 9's product-like rows through each TUNED_ARMS arm, one
+    Searcher planned with the table installed and one without: ids and
+    scores bit-equal, stats["tuned"] and the bytes a request reads follow
+    the plan's table, the arm's kernel launched by both, p50 in turns.
+    Then an index saved with the table installed adopts it on load.
+    Returns the built arms (11(c) serves two of them)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.knn import load_index, make_index
+    from repro_torch.tune import table as T
+
+    card = smi()
+    n, k = pc.shape[0], 100
+    q = pq[:256]
+    built = {}
+    for f, kname in TUNED_ARMS.items():
+        t0 = time.perf_counter()
+        idx = make_index(f, pc, metric="ip")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        T.clear()
+        untuned = idx.searcher(k)
+        T.install(table)
+        tuned = idx.searcher(k)
+        T.clear()                       # plans keep their snapshots
+        need(tuned.tune_table is table and untuned.tune_table is None,
+             f"{f}: plan-time snapshots")
+        got = {}
+        for name, s in (("untuned", untuned), ("tuned", tuned)):
+            before = kernels.launch_counts()[kname]
+            got[name] = s(q)
+            torch.cuda.synchronize()
+            need(kernels.launch_counts()[kname] > before,
+                 f"{f}: the {name} plan did not launch {kname}")
+        a, b = got["untuned"], got["tuned"]
+        need(torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores),
+             f"{f}: tuned results differ from untuned")
+        need(b.stats["tuned"] is True and a.stats["tuned"] is False,
+             f"{f}: stats tuned {a.stats['tuned']} / {b.stats['tuned']}")
+        store = idx.store
+        if kname.startswith("fused_adc"):
+            key = ("fused_adc", "ip", store.bits, 256, n, store.m)
+        else:
+            key = ("packed" if store.packed else "fused_topk", "ip",
+                   store.bits, 256, n, store.d)
+        cfg = table.get(*key)
+        need(cfg is not None and cfg.impl == "fused",
+             f"{f}: no kernel entry for {key}")
+        want = n * store.row_bytes * -(-256 // cfg.bq)
+        need(b.stats["bytes_read"] == want,
+             f"{f}: tuned bytes_read {b.stats['bytes_read']} != {want} "
+             f"(bq={cfg.bq})")
+        p50 = _p50_turns({"untuned": untuned, "tuned": tuned}, q, TUNED_REQS)
+        log(f"[tuned] product {n}x{pc.shape[1]} ip {f} (build {build_s:.2f} "
+            f"s): entry bq={cfg.bq} bn={cfg.bn}; ids and scores bit-equal to "
+            f"the untuned plan; bytes a request {a.stats['bytes_read']} "
+            f"untuned, {b.stats['bytes_read']} tuned; p50 of 256-query "
+            f"requests (turns untuned, tuned, tuned, untuned; "
+            f"{2 * TUNED_REQS} each): untuned {p50['untuned']:.3f} ms, tuned "
+            f"{p50['tuned']:.3f} ms | {card}")
+        built[f] = idx
+
+    # a saved index carries the table; a load adopts it, stamp-checked
+    path = ROOT / "build" / "phase11_idx.npz"
+    small = make_index("flat,lpq8@gaussian:3", pc[:TUNED_SAVE_N], metric="ip")
+    T.install(table)
+    small.save(path)
+    T.clear()
+    adopted = T.COUNTERS["tune_adopted"]
+    again = load_index(path)
+    need(T.active() is not None
+         and T.active().table_hash() == table.table_hash()
+         and T.COUNTERS["tune_adopted"] == adopted + 1,
+         "the reloaded index did not adopt the table")
+    r0, r1 = small.search(q, k), again.search(q, k)
+    need(torch.equal(r0.ids, r1.ids) and torch.equal(r0.scores, r1.scores)
+         and r1.stats["tuned"] is True, "the reloaded index serves otherwise")
+    T.clear()
+    path.unlink()
+    log(f"[tuned] {TUNED_SAVE_N}-row index saved with the table installed, "
+        f"reloaded: adopted (hash {table.table_hash()}), results equal")
+    return built
+
+
+def runtime_path(built, pc, pq) -> None:
+    """11(c): the result cache (a repeat hits, bit-identical, launching no
+    kernel), the LUT cache on an eager pq32+lpq search, a maintenance thread
+    compacting MAINT_ARM while this thread serves (waiting on its swap
+    event), a forced full compaction bit-equal to a from-scratch build on
+    live_items(), an admission burst under an injected clock, and the
+    phase's telemetry summary and runtime stamp."""
+    import numpy as np
+    import torch
+
+    from repro_torch import engine, kernels
+    from repro_torch.knn import make_index
+    from repro_torch.runtime import (AdmissionController, CachedSearcher,
+                                     LUTCache, MaintenanceScheduler,
+                                     Telemetry, TTLLRUCache)
+    from repro_torch.runtime import profile as rtprofile
+
+    card = smi()
+    k = 100
+    q = pq[:256]
+    dev = q.device
+    tel = Telemetry(meta={"runtime": rtprofile.stamp()})
+
+    # result tier
+    cs = CachedSearcher(built["flat,lpq8@gaussian:3"].searcher(k),
+                        TTLLRUCache(capacity=8))
+    tr = tel.request("cache-miss")
+    with tr.span("execute", device=dev):
+        miss = cs(q)
+    tr.finish()
+    before = kernels.launch_counts()
+    tr = tel.request("cache-hit")
+    with tr.span("execute", device=dev):
+        hit = cs(q)
+    tr.finish()
+    need(hit.stats["cache"] == "hit" and miss.stats["cache"] == "miss",
+         "result cache: no hit on the repeat")
+    need(torch.equal(hit.ids, miss.ids) and torch.equal(hit.scores,
+                                                        miss.scores),
+         "result cache: the hit differs from the miss")
+    need(kernels.launch_counts() == before, "result cache: the hit launched "
+         f"kernels ({before} -> {kernels.launch_counts()})")
+    log(f"[runtime] result cache: repeat of a 256-query request hit, "
+        f"bit-identical, no kernel launched; {cs.cache.stats()}")
+
+    # LUT tier on the eager (one-shot) PQ path
+    pq32 = built["pq32+lpq"]
+    base = pq32.search(q, k)
+    lut_cache = LUTCache(capacity=4)
+    engine.set_lut_cache(lut_cache)
+    try:
+        r1, r2 = pq32.search(q, k), pq32.search(q, k)
+    finally:
+        engine.set_lut_cache(None)
+    need(lut_cache.counters["misses"] == 1 and lut_cache.counters["hits"] == 1,
+         f"LUT cache counters {dict(lut_cache.counters)}")
+    for r in (r1, r2):
+        need(torch.equal(r.ids, base.ids) and torch.equal(r.scores,
+                                                          base.scores),
+             "LUT cache: a cached search differs")
+    log(f"[runtime] LUT cache: eager pq32+lpq search hit on the repeat, "
+        f"results equal; {lut_cache.stats()}")
+
+    # maintenance thread beside the request path
+    rows = pc[:MAINT_N]
+    extra = pc[MAINT_N:MAINT_N + MAINT_ROUND * MAINT_ROUNDS]
+    t0 = time.perf_counter()
+    idx = make_index(MAINT_ARM, rows, metric="ip", seal_threshold=MAINT_ROUND,
+                     max_segments=2, auto_compact=False)
+    for r in range(MAINT_ROUNDS):
+        ids = np.arange(MAINT_N + r * MAINT_ROUND, MAINT_N + (r + 1) * MAINT_ROUND)
+        idx.upsert(ids, extra[r * MAINT_ROUND:(r + 1) * MAINT_ROUND])
+    idx.delete(np.arange(0, 1000, 7))
+    torch.cuda.synchronize()
+    seg0 = idx.stats()["segments"]
+    need(idx.compactor.should_compact(idx.manifest.segments),
+         f"{MAINT_ARM}: {seg0} segments need no compaction")
+    log(f"[runtime] {MAINT_ARM} {MAINT_N}x{rows.shape[1]} + {MAINT_ROUNDS} x "
+        f"{MAINT_ROUND} upserts: {seg0} segments, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    served = waits = 0
+    t0 = time.perf_counter()
+    with MaintenanceScheduler(idx, interval_s=0.01, telemetry=tel) as sched:
+        while idx.compactor.should_compact(idx.manifest.segments):
+            tr = tel.request(f"maint-{served}")
+            with tr.span("execute", device=dev):
+                res = idx.searcher(k)(q)
+            tr.finish()
+            need(res.ids.shape == (256, k) and bool(torch.all(res.ids >= 0)),
+                 f"{MAINT_ARM}: bad ids while compacting")
+            served += 1
+            if sched.swapped.wait(timeout=10.0):
+                sched.swapped.clear()
+            waits += 1
+            need(waits < 60, f"{MAINT_ARM}: no compaction reached the "
+                 f"segment bound ({sched.counters})")
+    need(sched.counters["maintenance_swaps"] >= 1
+         and sched.counters["maintenance_errors"] == 0,
+         f"maintenance: {dict(sched.counters)} {sched.last_error}")
+    log(f"[runtime] maintenance thread: {sched.counters['maintenance_swaps']} "
+        f"swaps in {time.perf_counter() - t0:.2f} s while {served} "
+        f"256-query requests were served; {seg0} -> "
+        f"{idx.stats()['segments']} segments")
+    t0 = time.perf_counter()
+    out = sched.run_once(force_full=True)
+    torch.cuda.synchronize()
+    need(out["swapped"] and idx.stats()["segments"] == 1,
+         f"forced full compaction: {out}")
+    ext_ids, vecs = idx.live_items()
+    scratch = make_index(MAINT_ARM[len("stream("):-1], vecs, metric="ip")
+    got, want = idx.search(q, k), scratch.search(q, k)
+    mapped = torch.as_tensor(ext_ids, device=dev)[want.ids.long()]
+    need(torch.equal(got.ids.long(), mapped)
+         and torch.equal(got.scores, want.scores),
+         "forced full compaction differs from a from-scratch build")
+    log(f"[runtime] forced full compaction ({time.perf_counter() - t0:.2f} "
+        f"s): one segment of {idx.n} live rows, ids and scores bit-equal to "
+        f"a from-scratch {MAINT_ARM[len('stream('):-1]} on live_items()")
+    del idx, scratch
+
+    # admission burst under an injected clock
+    now = [0.0]
+    ctrl = AdmissionController(rate_qps=10.0, burst=8.0, max_queue=4,
+                               degrade_queue=2, clock=lambda: now[0],
+                               counters=tel.counters)
+    decisions = []
+    for nq, depth, dt in ADMIT_BURST:
+        now[0] += dt
+        d = ctrl.admit(nq, queue_depth=depth)
+        decisions.append((d.action, d.reason, d.tokens))
+    need(tuple(decisions) == ADMIT_EXPECT, f"admission: {decisions}")
+    log(f"[runtime] admission burst: {decisions} (as the CPU run)")
+    log(f"[runtime] telemetry summary: {json.dumps(tel.summary())}")
+    log(f"[runtime] counters: {json.dumps(dict(tel.counters))}")
+    log(f"[runtime] stamp: {json.dumps(rtprofile.stamp())} | {card}")
+
+
+#: phase 11's kernels: the main path's int scans and the encode
+PHASE11_KERNELS = ("quantize", "fused_topk_int8", "fused_topk4", "fused_adc",
+                   "fused_adc4")
+
+
+def phase11(pc, pq) -> dict:
+    """11: (a) tune outside the counts; then (b) and (c) as one run of the
+    path, the counters set to 0 before and read after."""
+    from repro_torch import kernels
+
+    table = tune_path()
+    kernels.reset_launch_counts()
+    built = tuned_serving(table, pc, pq)
+    runtime_path(built, pc, pq)
+    run = kernels.launch_counts()
+    log(f"[phase11] kernel launches on phase 11's run: {run}")
+    for name in PHASE11_KERNELS:
+        need(run[name] > 0, f"kernel {name} was never launched on phase 11")
+    return run
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -3350,7 +3721,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     import torch
 
     if not torch.cuda.is_available():
@@ -3425,8 +3795,11 @@ def main() -> int:
         mark("phase 10(b)")
         for name, c in cascade_path(err, pc, pq).items():
             counts[name] += c
-        del pc, pq
         mark("phase 10(c)")
+        for name, c in phase11(pc, pq).items():
+            counts[name] = counts.get(name, 0) + c
+        del pc, pq
+        mark("phase 11")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

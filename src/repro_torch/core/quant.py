@@ -62,6 +62,12 @@ class QuantParams:
             return torch.int16
         return torch.int32
 
+    @property
+    def acc_dtype(self) -> torch.dtype:
+        """The accumulation type of code products: int32, exact for int8 x
+        int8 over any d the kernels take (every scan accumulates in it)."""
+        return torch.int32
+
     def to(self, device) -> "QuantParams":
         return dataclasses.replace(
             self, lo=self.lo.to(device), hi=self.hi.to(device),

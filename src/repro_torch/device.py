@@ -3,7 +3,8 @@
 Entry points run on the card unless the caller asks for the CPU: ``None``
 resolves to ``"cuda"`` and raises a clear error when no CUDA device
 exists — it never falls back to the CPU silently.  Only an explicit
-``device="cpu"`` runs there (the tests pass it).
+``device="cpu"`` runs there (the tests pass it), or an applied runtime
+profile whose platform is "cpu" (``runtime.profile.apply``).
 """
 
 from __future__ import annotations
@@ -13,8 +14,13 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raising if absent); anything else as given."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` -> the applied runtime profile's platform, else ``cuda``
+    (raising if absent); anything else as given."""
+    if device is None:
+        from repro_torch.runtime import profile as rtprofile
+
+        device = rtprofile.platform_device() or "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the port runs on the GPU by "

@@ -4,6 +4,8 @@ query hot path every index calls."""
 from repro_torch.engine.scorer import (  # noqa: F401
     NEG,
     build_pq_lut,
+    get_lut_cache,
+    lut_cache_bypassed,
     chunked_topk,
     make_batch_score_set,
     make_score_set,
@@ -15,6 +17,7 @@ from repro_torch.engine.scorer import (  # noqa: F401
     remap_ids,
     rerank_among,
     search_stats,
+    set_lut_cache,
     topk,
     topk_among,
     topk_among_regional,

@@ -25,10 +25,25 @@ plain scan, whose stats equal the reference's scan branch exactly.  An
 fp32-LUT PQ store takes the streaming gather-sum ADC scan on every device,
 as in the reference, where no TPU kernel takes it either.  Nothing catches
 a kernel failure to fall back to the scan.
+
+Tuning tables (``repro_torch.tune``): ``topk`` consults the active table
+where the reference does.  A matching entry sets the kernel's launch
+layout (``bq`` / ``bn``) or, where the scan runs, its chunk; on a miss
+today's layouts and the caller's chunk apply.  ``stats["tuned"]`` records
+which happened, and ``bytes_read`` counts one corpus read for every block
+of the chosen ``bq``.  The table never turns a CUDA ip / l2 store away
+from its kernel.
+
+``set_lut_cache`` installs a ``runtime.LUTCache``: one-shot PQ searches
+then take a repeated batch's ADC table from it; a bucketed Searcher's runs
+stand aside (``lut_cache_bypassed``), as the reference's compiled buckets
+do.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable
 
 import torch
@@ -40,6 +55,7 @@ from repro_torch.kernels import adc as _adc
 from repro_torch.kernels import fused_topk as _fused
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import NEG, stable_desc
+from repro_torch.tune import table as T
 
 ScoreSet = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -167,6 +183,16 @@ def _scan_topk(q, store: CodeStore, k: int, metric: str, chunk: int,
                         mask=mask)
 
 
+def _tuned(cfg, chunk: int):
+    """(bq, bn, chunk) under a tuning entry: a fused entry's kernel layout
+    (None: the layout's own), a scan entry's chunk (else the caller's)."""
+    if cfg is None:
+        return None, None, chunk
+    if cfg.impl == "fused":
+        return cfg.bq, cfg.bn, chunk
+    return None, None, max(8, cfg.chunk or chunk)
+
+
 def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
          chunk: int = 16384, prepared: bool = False, mask=None):
     """Exact top-k of the whole store: (scores [Q, k] f32, ids, stats).
@@ -175,22 +201,25 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
     ``queries`` are already in the store's code space (a ``PQStore`` takes
     raw queries either way: its LUT is their code space).  ``chunk`` sizes
     the scan's chunks.  An optional [n] ``mask`` (True = allowed) rides the
-    id-masking fence on every path.  ``stats["tuned"]`` is always False:
-    the tuning tables are not ported.
+    id-masking fence on every path.  ``stats["tuned"]`` is True where the
+    active tuning table had an entry for this workload (module docstring).
     """
     if isinstance(store, PQStore):
         return _topk_pq_stats(queries, store, k, metric, chunk, mask)
     q = (queries.to(store.device) if prepared
          else store.encode_queries(queries))
     k_eff = min(k, store.n)
+    kernel = "packed" if store.packed else "fused_topk"
+    cfg = T.lookup(kernel if metric in ("ip", "l2") else "scan", metric,
+                   store.bits, q.shape[0], store.n, q.shape[1])
+    bq, bn, chunk = _tuned(cfg, chunk)
     if store.device.type == "cuda" and metric in ("ip", "l2"):
         s, i = K.fused_topk(q, store.data, k_eff, metric,
-                            packed=store.packed, mask=mask)
+                            packed=store.packed, mask=mask, bq=bq, bn=bn)
         chunks = -(-store.n // (_fused.BN if q.dtype == torch.float32
                                 else _fused.I8_BM))
         # pass 1 re-streams the corpus once per query block
-        bq = K.fused_query_tile(k_eff, q.shape[0],
-                                fp32=q.dtype == torch.float32)
+        bq = bq or K.fused_query_tile(q.shape[0], k=k_eff, bits=store.bits)
         passes = max(1, -(-q.shape[0] // bq))
     else:
         s, i = _scan_topk(q, store, k_eff, metric, chunk, mask)
@@ -204,7 +233,7 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
         i = torch.where(i >= 0, i + store.base, -1)
     stats = search_stats(store, candidates=store.n, chunks=chunks,
                          rows_read=store.n * passes)
-    stats["tuned"] = False
+    stats["tuned"] = cfg is not None
     return s, i, stats
 
 
@@ -262,27 +291,66 @@ def _pq_fused(store: PQStore, metric: str) -> bool:
             and metric in ("ip", "l2"))
 
 
+#: the process-wide PQ LUT cache (``runtime.cache.LUTCache``, or None)
+_LUT_CACHE = None
+#: per-thread count of open ``lut_cache_bypassed`` blocks
+_BYPASS = threading.local()
+
+
+def set_lut_cache(cache) -> None:
+    """Install (or, with None, remove) the process-wide PQ LUT cache."""
+    global _LUT_CACHE
+    _LUT_CACHE = cache
+
+
+def get_lut_cache():
+    return _LUT_CACHE
+
+
+@contextlib.contextmanager
+def lut_cache_bypassed():
+    """While the block runs this thread's PQ searches build their tables
+    afresh: a bucketed Searcher's runs (the reference's compiled buckets,
+    whose queries are tracers, never reach its cache)."""
+    _BYPASS.depth = getattr(_BYPASS, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _BYPASS.depth -= 1
+
+
 def _topk_pq(queries, store: PQStore, k: int, metric: str, chunk: int,
-             mask=None):
+             mask=None, cfg=None):
     """Asymmetric distance computation over the code matrix: the per-query
-    LUT, then ``_topk_pq_from_lut``."""
-    lut = _prepare_pq_lut(queries, store, metric)
-    return _topk_pq_from_lut(lut, store, k, metric, chunk, mask=mask)
+    LUT (from the LUT cache where one is installed and this thread is not
+    in a bucketed run), then ``_topk_pq_from_lut``."""
+    cache = _LUT_CACHE
+    if cache is not None and not getattr(_BYPASS, "depth", 0):
+        key = cache.key_for(queries, store.codebooks, metric,
+                            store.lpq_tables)
+        lut = cache.get_or_build(
+            key, lambda: _prepare_pq_lut(queries, store, metric))
+    else:
+        lut = _prepare_pq_lut(queries, store, metric)
+    return _topk_pq_from_lut(lut, store, k, metric, chunk, mask=mask,
+                             cfg=cfg)
 
 
 def _topk_pq_from_lut(lut, store: PQStore, k: int, metric: str, chunk: int,
-                      mask=None):
+                      mask=None, cfg=None):
     """Top-k of the whole code matrix given the [Q, M, K] LUT: the fused
     kernel (``_pq_fused``: int8 LUT resident in shared memory, 4-bit codes
     split in registers, int32 sums, running top-k — the [Q, N] ADC matrix
     never exists) or the streaming scan (``_stream_topk`` over code chunks
     with a gather-sum tile, unpacking 4-bit codes chunk by chunk).  Both
-    give the same result, bit for bit, on an int8 LUT."""
+    give the same result, bit for bit, on an int8 LUT.  A tuning entry
+    ``cfg`` sets the kernel's layout, or the scan's chunk."""
     n = store.n
     k_eff = min(k, n)
+    bq, bn, chunk = _tuned(cfg, chunk)
     if _pq_fused(store, metric):
         return K.fused_adc_topk(lut, store.codes, k_eff, packed=store.packed,
-                                mask=mask)
+                                mask=mask, bq=bq, bn=bn)
     ilut = lut.to(torch.int32) if store.lpq_tables else lut
 
     def tile_scores(lt, tile_codes):                    # [c, Mb] -> [Q, c]
@@ -305,13 +373,15 @@ def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
             "table in this module's docstring)"
         )
     Q = queries.shape[0]
-    s, i = _topk_pq(queries, store, k, metric, chunk, mask=mask)
+    cfg = T.lookup("fused_adc", metric, store.bits, Q, store.n, store.m)
+    s, i = _topk_pq(queries, store, k, metric, chunk, mask=mask, cfg=cfg)
     if s.shape[1] < k:                   # uniform [Q, k] contract: -1 pads
         s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG)
         i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)
+    bq, bn, chunk = _tuned(cfg, chunk)
     if _pq_fused(store, metric):
         lay = _adc.adc_layout(min(k, store.n), store.row_bytes, store.bits, Q,
-                              store.n)
+                              store.n, bq, bn)
         n_chunks = -(-store.n // lay.tile)
         # the fused grid re-streams the code matrix once per query block
         # (the LUTs are what stay resident, not the codes)
@@ -321,7 +391,7 @@ def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
         passes = 1
     stats = search_stats(store, candidates=store.n, chunks=n_chunks,
                          rows_read=store.n * passes)
-    stats["tuned"] = False
+    stats["tuned"] = cfg is not None
     return s, i, stats
 
 

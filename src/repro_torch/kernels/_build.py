@@ -64,6 +64,9 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: guards the wrappers' launch counters: a maintenance thread launches
+#: beside the request path, and ``+=`` on a dict item is not atomic
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -132,6 +135,12 @@ def lib(name: str) -> ctypes.CDLL:
                 getattr(so, fn).restype = restype
             _LIBS[name] = so
         return _LIBS[name]
+
+
+def count(launches: dict[str, int], name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's counter."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def check(rc: int, what: str) -> None:

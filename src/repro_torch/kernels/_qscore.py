@@ -75,5 +75,5 @@ def launch(what: str, launches: dict, *, packed: bool, l2: bool,
         None if q1 is None else q1.data_ptr(), x.data_ptr(), out.data_ptr(),
         Q, N, width, torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(rc, what)
-    launches[what] += 1
+    _build.count(launches, what)
     return out

@@ -168,31 +168,34 @@ def w_blocks_per_sm(bq: int, subsets: int, cap: int, code_bytes: int,
     return max(1, min(fit, 18 // (bq // 4 * subsets + 1)))
 
 
-def w_query_layout(k: int, code_bytes: int):
+def w_query_layout(k: int, code_bytes: int, bq: int | None = None):
     """(queries a block, warps a query group, lists in global memory, LUTs
     in global memory) of the word kernel: among the tiles of ``W_TILES``
-    that the ring can serve (a warp's next stage at most ``W_STAGES`` steps
-    ahead) and shared memory holds, the most resident consumer warps an SM
-    up to ``W_ENOUGH_WARPS``, then lists in shared memory, then the wider
-    query tile (fewer reads of the codes through L2); the LUTs in global
-    memory only where no group's LUTs fit (past M = 192)."""
+    (those of ``bq`` queries, where the caller fixes it) that the ring can
+    serve (a warp's next stage at most ``W_STAGES`` steps ahead) and
+    shared memory holds, the most resident consumer warps an SM up to
+    ``W_ENOUGH_WARPS``, then lists in shared memory, then the wider query
+    tile (fewer reads of the codes through L2); the LUTs in global memory
+    only where no group's LUTs fit (past M = 192)."""
     cap, nch = _fused.i8_cap(k), w_chunks(code_bytes)
+    tiles = [(b, t) for b, t in W_TILES if bq is None or b == bq]
     for lutg in (False, True):
         best = None
         for gbuf in (False, True):
-            for bq, t in W_TILES:
+            for b, t in tiles:
                 if ((t - 1) * nch >= W_STAGES
-                        or w_smem_bytes(bq, t, cap, code_bytes, gbuf,
+                        or w_smem_bytes(b, t, cap, code_bytes, gbuf,
                                         lutg) > SMEM_MAX):
                     continue
-                warps = bq // 4 * t * w_blocks_per_sm(bq, t, cap, code_bytes,
-                                                      gbuf, lutg)
-                key = (min(warps, W_ENOUGH_WARPS), not gbuf, bq)
+                warps = b // 4 * t * w_blocks_per_sm(b, t, cap, code_bytes,
+                                                     gbuf, lutg)
+                key = (min(warps, W_ENOUGH_WARPS), not gbuf, b)
                 if best is None or key > best[0]:
-                    best = key, (bq, t, gbuf, lutg)
+                    best = key, (b, t, gbuf, lutg)
         if best is not None:
             return best[1]
-    raise AssertionError("unreachable: LUTs in global memory always fit")
+    raise ValueError(f"fused_adc: layout bq={bq} is no word-kernel block "
+                     f"(one of {sorted({b for b, _ in W_TILES})})")
 
 
 def a4_qrow(mb: int) -> int:
@@ -244,8 +247,25 @@ def a4_query_layout(q: int, k: int, mb: int):
     return None
 
 
-def adc_layout(k: int, code_bytes: int, kbits: int, q: int,
-               n: int) -> AdcLayout:
+#: query rows a block holds, by kernel (the instances ``rt_fused_adc``
+#: launches): the gather kernel's 1, 2 or 4, the word kernel's ``W_TILES``,
+#: B5's MMA kernel's 1, 2 or 4 warps of 8 queries
+GATHER_BQ = (1, 2, 4)
+WORD_BQ = tuple(sorted({b for b, _ in W_TILES}))
+A4_BQ = (8, 16, 32)
+
+
+def block_rows(kbits: int, q: int) -> tuple[int, ...]:
+    """The query rows a block can hold for a batch of q: the gather
+    kernel's up to 4 queries, else the word kernel's (B4) or the MMA
+    kernel's and, for rows too wide for it, the gather kernel's 4 (B5)."""
+    if q <= 4:
+        return GATHER_BQ
+    return WORD_BQ if kbits == 8 else (4, *A4_BQ)
+
+
+def adc_layout(k: int, code_bytes: int, kbits: int, q: int, n: int,
+               bq: int | None = None, bn: int | None = None) -> AdcLayout:
     """The whole launch layout of one fused ADC scan; the wrapper's one
     place that decides it (the CUDA source takes it as arguments).  From 5
     queries on, B4 runs the word kernel (``w_query_layout``) and B5 the
@@ -253,33 +273,62 @@ def adc_layout(k: int, code_bytes: int, kbits: int, q: int,
     memory.  Batches of at most 4 queries take the gather kernel at 1, 2
     or 4 queries a block (a word of 4 queries or an MMA tile of 8 would
     waste most of its work), as do B5's rows past that width (4 queries a
-    block, LUTs read from global memory)."""
+    block, LUTs read from global memory).
+
+    ``bq`` (query rows a block) and ``bn`` (corpus rows a split) override
+    the choice within that kernel: a tuning table's entry.  An override
+    the CUDA source would refuse raises ``ValueError``."""
+    if bq is not None and bq not in block_rows(kbits, q):
+        raise ValueError(f"fused_adc: layout bq={bq} is no block for "
+                         f"{q} queries (one of {block_rows(kbits, q)})")
     mbuf = 0 if _fused.merge_in_shared(k) else q * _fused._pow2(k + _fused.NT)
+
+    def wave(per_sm: int, qblocks: int, tile: int) -> int:
+        # one wave: as many blocks as are resident at once
+        if bn is not None:
+            return _fused.split_count(n, bn, tile)
+        return max(1, min(per_sm * _fused._SMS // qblocks,
+                          -(-n // max(_fused._MIN_SPLIT_ROWS, 2 * k)), 65535))
+
     if kbits == 8 and q > 4:
-        bq, t, gbuf, lutg = w_query_layout(k, code_bytes)
+        bq, t, gbuf, lutg = w_query_layout(k, code_bytes, bq)
         cap = _fused.i8_cap(k)
         qblocks = -(-q // bq)
-        per_sm = w_blocks_per_sm(bq, t, cap, code_bytes, gbuf, lutg)
-        splits = max(1, min(per_sm * _fused._SMS // qblocks,
-                            -(-n // max(_fused._MIN_SPLIT_ROWS, 2 * k)), 65535))
+        splits = wave(w_blocks_per_sm(bq, t, cap, code_bytes, gbuf, lutg),
+                      qblocks, W_BM)
         return AdcLayout(bq, lutg, cap, splits,
                          qblocks * splits * bq * t * cap if gbuf else 0, mbuf,
                          word=True, subsets=t)
     a4 = a4_query_layout(q, k, code_bytes) if kbits == 4 and q > 4 else None
-    if a4 is not None:
-        (bq, gbuf), cap = a4, _fused.i8_cap(k)
+    if a4 is not None and bq != 4:
+        cap = _fused.i8_cap(k)
+        if bq is None:
+            bq, gbuf = a4
+        else:
+            gbuf = _fused._fixed_block(
+                bq, A4_BQ, lambda g: a4_smem_bytes(bq, cap, g, code_bytes))
         qblocks = -(-q // bq)
-        # one wave: as many blocks as are resident at once
-        splits = max(1, min(a4_blocks_per_sm(bq, cap, gbuf, code_bytes)
-                            * _fused._SMS // qblocks,
-                            -(-n // max(_fused._MIN_SPLIT_ROWS, 2 * k)), 65535))
+        splits = wave(a4_blocks_per_sm(bq, cap, gbuf, code_bytes), qblocks,
+                      A4_BM)
         return AdcLayout(bq, False, cap, splits,
                          qblocks * splits * bq * cap if gbuf else 0, mbuf)
-    for bq, gbuf, lutg in _gather_modes(q):
-        cap = adc_cap(k, bq)
-        if smem_bytes(bq, cap, code_bytes, kbits, gbuf, lutg) <= SMEM_MAX:
+    if kbits == 4 and q > 4 and bq not in (None, 4):
+        raise ValueError(f"fused_adc: layout bq={bq}: rows of {code_bytes} "
+                         "bytes take the gather kernel (bq 4)")
+    modes = (list(_gather_modes(q)) if bq is None else
+             [(bq, g, False) for g in (False, True) if q <= 4]
+             + ([(4, False, True), (4, True, True)] if bq == 4 else []))
+    for b, gbuf, lutg in modes:
+        cap = adc_cap(k, b)
+        if smem_bytes(b, cap, code_bytes, kbits, gbuf, lutg) <= SMEM_MAX:
             break
-    splits = n_splits(q, n, bq, k)
+    else:
+        raise ValueError(f"fused_adc: layout bq={bq}: no gather-kernel "
+                         f"block of {bq} queries fits rows of {code_bytes} "
+                         "bytes in shared memory")
+    bq = b
+    splits = (n_splits(q, n, bq, k) if bn is None
+              else _fused.split_count(n, bn, tile_rows(bq)))
     return AdcLayout(bq, lutg, cap, splits,
                      -(-q // bq) * splits * bq * cap if gbuf else 0, mbuf,
                      gather=True)
@@ -336,7 +385,8 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_adc: {msg}")
 
 
-def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
+def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int,
+            bq: int | None, bn: int | None):
     dev = codes.device
     Q, N, mb = lut0.shape[0], codes.shape[0], codes.shape[1]
     _check(1 <= k <= N, f"k={k} outside [1, N={N}]")
@@ -357,7 +407,7 @@ def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    lay = adc_layout(k, mb, kbits, Q, N)
+    lay = adc_layout(k, mb, kbits, Q, N, bq, bn)
     part = torch.empty(Q * lay.parts * k, dtype=torch.int64, device=dev)
     gbuf = (torch.empty(lay.gbuf_keys, dtype=torch.int64, device=dev)
             if lay.gbuf_keys else None)
@@ -372,27 +422,33 @@ def _launch(name: str, kbits: int, lut0, lut1, codes, mask, k: int):
         out_s.data_ptr(), out_i.data_ptr(), Q, N, mb, k, lay.splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_adc")
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     return out_s, out_i
 
 
 def fused_adc_cuda(lut2d: torch.Tensor, codes: torch.Tensor, *, k: int,
-                   n_codewords: int = 256, mask: torch.Tensor | None = None):
-    """B4: [Q, M*K] int8 LUT x [N, M] uint8 codes -> top-k, streaming."""
+                   n_codewords: int = 256, mask: torch.Tensor | None = None,
+                   bq: int | None = None, bn: int | None = None):
+    """B4: [Q, M*K] int8 LUT x [N, M] uint8 codes -> top-k, streaming.
+    ``bq`` / ``bn`` override the launch layout (``adc_layout``); the plain
+    version has none."""
     if codes.device.type == "cpu":
         return fused_adc_plain(lut2d, codes, k=k, n_codewords=n_codewords,
                                mask=mask)
     _check(codes.device.type == "cuda", f"unsupported device {codes.device}")
     _check(n_codewords == 256, "the B4 kernels take 256-codeword codebooks "
            f"(16 codewords go packed through B5), got {n_codewords}")
-    return _launch("fused_adc", 8, lut2d, None, codes, mask, k)
+    return _launch("fused_adc", 8, lut2d, None, codes, mask, k, bq, bn)
 
 
 def fused_adc4_cuda(lut_even: torch.Tensor, lut_odd: torch.Tensor,
                     packed: torch.Tensor, *, k: int,
-                    mask: torch.Tensor | None = None):
-    """B5: [Q, (M/2)*16] int8 LUT halves x [N, M/2] packed codes -> top-k."""
+                    mask: torch.Tensor | None = None, bq: int | None = None,
+                    bn: int | None = None):
+    """B5: [Q, (M/2)*16] int8 LUT halves x [N, M/2] packed codes -> top-k,
+    with B4's layout overrides."""
     if packed.device.type == "cpu":
         return fused_adc4_plain(lut_even, lut_odd, packed, k=k, mask=mask)
     _check(packed.device.type == "cuda", f"unsupported device {packed.device}")
-    return _launch("fused_adc4", 4, lut_even, lut_odd, packed, mask, k)
+    return _launch("fused_adc4", 4, lut_even, lut_odd, packed, mask, k, bq,
+                   bn)

@@ -211,24 +211,85 @@ def _split_count(qblocks: int, n: int, k: int, target: int) -> int:
     return max(1, min(s, -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
 
 
-def layout(kind: int, q: int, n: int, k: int, d: int = 0) -> Layout:
+#: query rows a block of each scan holds (the ``switch`` over ``bq`` in
+#: ``launch_f32_bq`` / ``launch_i8_bq``): the fp32 scan's 32 / 8 / 1 (4 x 8,
+#: 1 x 8 and 1 x 1 accumulators a thread), the int scans' 4, 2 or 1 warps
+#: of 8 queries
+F32_BQ = (1, 8, 32)
+I8_BQ = (8, 16, 32)
+
+
+def block_rows(kind: int) -> tuple[int, ...]:
+    """The query rows a block of ``kind``'s scan can hold."""
+    return F32_BQ if kind == KIND_F32 else I8_BQ
+
+
+def split_count(n: int, bn: int, tile: int) -> int:
+    """Corpus splits when each streams ``bn`` rows: ceil(n / bn), where
+    ``bn`` is at least one pass-1 tile or the whole corpus (no split is
+    empty) and the count fits the grid's y dimension."""
+    if bn < min(tile, n):
+        raise ValueError(f"layout: bn={bn} is below the kernel's tile of "
+                         f"{tile} rows")
+    splits = max(1, -(-n // bn))
+    if splits > 65535:
+        raise ValueError(f"layout: bn={bn} gives {splits} splits of {n} rows "
+                         "(at most 65535)")
+    return splits
+
+
+def _fixed_block(bq: int, allowed, smem) -> bool:
+    """Lists in global memory for a block of ``bq`` queries fixed by the
+    caller: in shared memory where they fit (``smem(gbuf)``), else in
+    global memory; ``ValueError`` where ``bq`` is no block of the kernel
+    or even the global-memory form exceeds shared memory."""
+    if bq not in allowed:
+        raise ValueError(f"layout: bq={bq} is no block of this kernel "
+                         f"(one of {allowed})")
+    if smem(True) > SMEM_MAX:
+        raise ValueError(f"layout: a block of bq={bq} needs {smem(True)} "
+                         f"bytes of shared memory (at most {SMEM_MAX})")
+    return smem(False) > SMEM_MAX
+
+
+def layout(kind: int, q: int, n: int, k: int, d: int = 0,
+           bq: int | None = None, bn: int | None = None) -> Layout:
     """The whole launch layout of one fused scan; the wrapper's one place
     that decides it (the CUDA source takes it as arguments).  ``d`` (the
     row width in bytes: d int8 codes, d/2 packed-int4 bytes) matters to
-    the int scans only, whose queries stay in shared memory."""
+    the int scans only, whose queries stay in shared memory.
+
+    ``bq`` (query rows a block) and ``bn`` (corpus rows a split) override
+    the layout's own choice: a tuning table's entry.  An override the CUDA
+    source would refuse raises ``ValueError``."""
     if kind == KIND_F32:
-        (bq, gbuf), cap = f32_query_tile(k, q), f32_cap(k)
+        cap = f32_cap(k)
+        if bq is None:
+            bq, gbuf = f32_query_tile(k, q)
+        else:
+            gbuf = _fixed_block(bq, F32_BQ,
+                                lambda g: f32_smem_bytes(bq, cap, g))
         lists, per_sm = f32_lists(bq), f32_blocks_per_sm(bq, cap, gbuf)
+        tile = f32_tile(bq)[0]
     else:
         assert d > 0, "the int layout needs the row width d"
         i4 = kind == KIND_I4
-        (bq, gbuf), cap = i8_query_layout(q, k, d, i4), i8_cap(k)
+        cap = i8_cap(k)
+        if bq is None:
+            bq, gbuf = i8_query_layout(q, k, d, i4)
+        else:
+            gbuf = _fixed_block(bq, I8_BQ,
+                                lambda g: i8_smem_bytes(bq, cap, g, d, i4))
         lists, per_sm = bq, i8_blocks_per_sm(bq, cap, gbuf, d, i4)
+        tile = I8_BM
     qblocks = -(-q // bq)
-    # one wave: as many blocks as are resident at once, never a partial
-    # second wave
-    splits = max(1, min(per_sm * _SMS // qblocks,
-                        -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
+    if bn is None:
+        # one wave: as many blocks as are resident at once, never a
+        # partial second wave
+        splits = max(1, min(per_sm * _SMS // qblocks,
+                            -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
+    else:
+        splits = split_count(n, bn, tile)
     gbuf = qblocks * splits * lists * cap if gbuf else 0
     mbuf = 0 if merge_in_shared(k) else q * _pow2(k + NT)
     return Layout(bq, cap, splits, gbuf, mbuf)
@@ -272,7 +333,7 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _launch(name: str, kind: int, metric: str, q0, q1, x, mask, k: int,
-            width: int):
+            width: int, bq: int | None, bn: int | None):
     _check(metric in ("ip", "l2"), f"metric must be ip or l2, got {metric!r}")
     dev = x.device
     Q, N = q0.shape[0], x.shape[0]
@@ -288,7 +349,7 @@ def _launch(name: str, kind: int, metric: str, q0, q1, x, mask, k: int,
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    lay = layout(kind, Q, N, k, width)
+    lay = layout(kind, Q, N, k, width, bq, bn)
     part = torch.empty(Q * lay.splits * k, dtype=torch.int64, device=dev)
     gbuf = (torch.empty(lay.gbuf_keys, dtype=torch.int64, device=dev)
             if lay.gbuf_keys else None)
@@ -303,13 +364,16 @@ def _launch(name: str, kind: int, metric: str, q0, q1, x, mask, k: int,
         out_s.data_ptr(), out_i.data_ptr(), Q, N, width, k, lay.splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_topk")
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     return out_s, out_i
 
 
 def fused_topk_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int, metric: str,
-                    mask: torch.Tensor | None = None):
-    """B2: [Q, d] x [N, d] (both int8 or both fp32) -> top-k, streaming."""
+                    mask: torch.Tensor | None = None, bq: int | None = None,
+                    bn: int | None = None):
+    """B2: [Q, d] x [N, d] (both int8 or both fp32) -> top-k, streaming.
+    ``bq`` / ``bn`` override the launch layout (``layout``); the plain
+    version has none."""
     if x.device.type == "cpu":
         return fused_topk_plain(q, x, k=k, metric=metric, mask=mask)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -322,13 +386,16 @@ def fused_topk_cuda(q: torch.Tensor, x: torch.Tensor, *, k: int, metric: str,
     else:
         raise ValueError(f"fused_topk: dtypes {q.dtype} x {x.dtype} "
                          "(both int8 or both float32)")
-    return _launch(name, kind, metric, q, None, x, mask, k, x.shape[1])
+    return _launch(name, kind, metric, q, None, x, mask, k, x.shape[1], bq,
+                   bn)
 
 
 def fused_topk4_cuda(q_even: torch.Tensor, q_odd: torch.Tensor,
                      packed: torch.Tensor, *, k: int, metric: str,
-                     mask: torch.Tensor | None = None):
-    """B3: [Q, d/2] int8 (x2) vs [N, d/2] uint8 packed int4 -> top-k."""
+                     mask: torch.Tensor | None = None, bq: int | None = None,
+                     bn: int | None = None):
+    """B3: [Q, d/2] int8 (x2) vs [N, d/2] uint8 packed int4 -> top-k, with
+    B2's layout overrides."""
     if packed.device.type == "cpu":
         return fused_topk4_plain(q_even, q_odd, packed, k=k, metric=metric,
                                  mask=mask)
@@ -341,4 +408,4 @@ def fused_topk4_cuda(q_even: torch.Tensor, q_odd: torch.Tensor,
            f"shapes {tuple(q_even.shape)}, {tuple(q_odd.shape)} x "
            f"{tuple(packed.shape)}")
     return _launch("fused_topk4", KIND_I4, metric, q_even, q_odd, packed,
-                   mask, k, packed.shape[1])
+                   mask, k, packed.shape[1], bq, bn)

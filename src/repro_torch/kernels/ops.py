@@ -11,7 +11,10 @@ padded to tile multiples here; what stays is the reference's interface:
 ``k = min(k, N)``, the even/odd query split for packed int4 codes
 (``repro/kernels/ops.py:155``), the odd-M zero LUT slice and the even/odd
 LUT split for packed 4-bit PQ codes (``repro/kernels/ops.py:319-335``),
-and the optional [N] mask.
+and the optional [N] mask.  ``fused_topk`` / ``fused_adc_topk`` take a
+tuning table's layout (``bq`` query rows a block, ``bn`` corpus rows a
+split); ``fused_query_tile`` / ``fused_adc_query_tile`` answer table-first,
+with the fallback rows registered here (today's layouts) behind them.
 """
 
 from __future__ import annotations
@@ -24,8 +27,19 @@ from repro_torch.kernels import packed as _packed
 from repro_torch.kernels import ql2 as _ql2
 from repro_torch.kernels import qmip as _qmip
 from repro_torch.kernels import quantize as _quantize
+from repro_torch.tune import table as _tune
 
 split_nibble_queries = _packed.split_nibble_queries
+
+# -- registered fallback rows: the dispatch floor (tuned table > these rows).
+# bq is the block of a full batch; bn None keeps each layout's one-wave rule
+_tune.register_fallback("fused_topk", _tune.TuneConfig(
+    "fused", bq=_fused.I8_BQ[-1], chunk=16384))
+_tune.register_fallback("packed", _tune.TuneConfig(
+    "fused", bq=_fused.I8_BQ[-1], chunk=16384))
+_tune.register_fallback("fused_adc", _tune.TuneConfig(
+    "fused", bq=_adc.BQ, chunk=16384))
+_tune.register_fallback("scan", _tune.TuneConfig("scan", chunk=16384))
 
 
 def qmip(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
@@ -54,12 +68,41 @@ def ql24(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return _packed.ql24_cuda(qe, qo, packed.contiguous())
 
 
-def fused_query_tile(k: int = 100, q: int = 16, fp32: bool = False) -> int:
+def fused_query_tile(q: int | None = None, n: int | None = None,
+                     d: int | None = None, *, metric: str = "ip",
+                     bits: int = 8, packed: bool = False, k: int = 100) -> int:
     """Query rows per fused-kernel block — the corpus re-stream granularity
-    the engine's ``bytes_read`` accounting derives from (the int scans:
-    the batch's tile, before a wide k or row narrows it)."""
-    return (_fused.f32_query_tile(k, q)[0] if fp32
+    the engine's ``bytes_read`` accounting derives from.
+
+    With a workload shape the installed TuneTable answers first (the
+    entry's ``bq``); else, with a batch size, the batch's tile before a
+    wide k or row narrows it (fp32: ``bits=32``); with neither, the family's
+    registered fallback row."""
+    kernel = "packed" if packed else "fused_topk"
+    if q is not None and n is not None and d is not None:
+        cfg = _tune.lookup(kernel, metric, bits, q, n, d)
+        if cfg is not None and cfg.bq is not None:
+            return cfg.bq
+    if q is None:
+        return _tune.fallback(kernel).bq
+    return (_fused.f32_query_tile(k, q)[0] if bits == 32
             else _fused.i8_query_tile(q))
+
+
+def fused_adc_query_tile(q: int | None = None, n: int | None = None,
+                         m: int | None = None, *, metric: str = "ip",
+                         bits: int = 8, k: int = 100) -> int:
+    """Query rows per fused-ADC block (each holds its queries' LUTs):
+    table-first, then ``adc_layout``'s choice for the batch, then the
+    registered fallback row."""
+    if q is not None and n is not None and m is not None:
+        cfg = _tune.lookup("fused_adc", metric, bits, q, n, m)
+        if cfg is not None and cfg.bq is not None:
+            return cfg.bq
+    if q is None or m is None:
+        return _tune.fallback("fused_adc").bq
+    code_bytes = -(-m // 2) if bits == 4 else m
+    return _adc.query_tile(k, code_bytes, bits, q)
 
 
 def fused_topk(
@@ -70,13 +113,16 @@ def fused_topk(
     *,
     packed: bool = False,
     mask: torch.Tensor | None = None,
+    bq: int | None = None,
+    bn: int | None = None,
 ):
     """Streaming fused score + top-k: ([Q, k] f32 scores, [Q, k] i32 ids).
 
     ``metric`` is ``ip`` or ``l2`` (angular takes the engine's scan).  With
     ``packed=True``, ``x`` is [N, d/2] uint8 int4 codes and ``q`` full-width
     [Q, d] int4-valued int8.  An optional [N] ``mask`` (nonzero = allowed)
-    joins the pad fence: filtered rows die like pad rows.
+    joins the pad fence: filtered rows die like pad rows.  ``bq`` / ``bn``
+    override the kernel's launch layout (``kernels/fused_topk.layout``).
     """
     assert metric in ("ip", "l2"), metric
     k = min(k, x.shape[0])
@@ -84,9 +130,9 @@ def fused_topk(
     if packed:
         qe, qo = _packed.split_nibble_queries(q)
         return _fused.fused_topk4_cuda(qe, qo, x.contiguous(), k=k,
-                                       metric=metric, mask=mask)
+                                       metric=metric, mask=mask, bq=bq, bn=bn)
     return _fused.fused_topk_cuda(q.contiguous(), x.contiguous(), k=k,
-                                  metric=metric, mask=mask)
+                                  metric=metric, mask=mask, bq=bq, bn=bn)
 
 
 def fused_adc_topk(
@@ -96,6 +142,8 @@ def fused_adc_topk(
     *,
     packed: bool = False,
     mask: torch.Tensor | None = None,
+    bq: int | None = None,
+    bn: int | None = None,
 ):
     """Streaming fused ADC + top-k: ([Q, k] f32 scores, [Q, k] i32 ids).
 
@@ -104,7 +152,8 @@ def fused_adc_topk(
     [N, ceil(M/2)] uint8 two nibbles per byte (an odd logical M was padded
     with a zero-code column at pack time; the LUT grows a matching zero
     subspace slice here, so the pad contributes nothing).  An optional
-    [N] ``mask`` (nonzero = allowed) joins the pad fence.
+    [N] ``mask`` (nonzero = allowed) joins the pad fence.  ``bq`` / ``bn``
+    override the kernel's launch layout (``kernels/adc.adc_layout``).
     """
     Q, m, n_codewords = lut.shape
     k = min(k, codes.shape[0])
@@ -115,9 +164,11 @@ def fused_adc_topk(
             lut = torch.nn.functional.pad(lut, (0, 0, 0, 2 * codes.shape[1] - m))
         le = lut[:, 0::2, :].reshape(Q, -1).contiguous()
         lo = lut[:, 1::2, :].reshape(Q, -1).contiguous()
-        return _adc.fused_adc4_cuda(le, lo, codes, k=k, mask=mask)
+        return _adc.fused_adc4_cuda(le, lo, codes, k=k, mask=mask, bq=bq,
+                                    bn=bn)
     return _adc.fused_adc_cuda(lut.reshape(Q, -1).contiguous(), codes, k=k,
-                               n_codewords=n_codewords, mask=mask)
+                               n_codewords=n_codewords, mask=mask, bq=bq,
+                               bn=bn)
 
 
 def quantize(

@@ -40,5 +40,5 @@ def quantize_cuda(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         consts[2].data_ptr(), out.data_ptr(), n, d, bits,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "quantize")
-    LAUNCHES["quantize"] += 1
+    _build.count(LAUNCHES, "quantize")
     return out

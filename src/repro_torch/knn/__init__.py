@@ -2,7 +2,7 @@
 ``hnsw``, ``ivf``, ``pq``, the ``stream`` wrapper and the ``cascade``
 kind), and the graph-construction utilities."""
 
-from repro_torch.knn.base import SearchParams, SearchResult  # noqa: F401
+from repro_torch.knn.base import Index, SearchParams, SearchResult  # noqa: F401
 from repro_torch.knn.graph_utils import knn_graph, radius_graph  # noqa: F401
 from repro_torch.knn.registry import kinds, load_index, make_index  # noqa: F401
 from repro_torch.knn.spec import (  # noqa: F401

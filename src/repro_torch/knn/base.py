@@ -3,16 +3,18 @@
 
 The on-disk format is the reference's, byte for byte: one ``.npz`` holding
 the index's arrays plus a ``__meta__`` uint8 array with the JSON meta
-record.  An index saved by either package loads in the other.  A
-``"tune"`` meta key (the reference's embedded TuneTable) is ignored on
-load: the tuning tables are not ported.
+record.  An index saved by either package loads in the other.  The active
+tuning table rides along under the ``"tune"`` meta key, as in the
+reference; ``registry.load_index`` adopts it, stamp-checked.
+
+``Index`` is the structural protocol every registered kind satisfies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -101,6 +103,44 @@ class SearchResult:
         return 2
 
 
+@runtime_checkable
+class Index(Protocol):
+    """Structural protocol every registered index satisfies.
+
+    The query side is plan-then-execute: ``plan`` freezes k +
+    SearchParams into a runner, ``searcher`` wraps that runner in the
+    bucketed, rerank-capable ``Searcher``, and ``search`` is a one-shot
+    searcher call."""
+
+    kind: str
+
+    @staticmethod
+    def build(corpus, spec=None, *, key=None, device=None) -> "Index":
+        ...
+
+    def search(self, queries, k: int,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        ...
+
+    def plan(self, k: int, params: Optional[SearchParams] = None, *,
+             mesh=None, placement=None):
+        ...
+
+    def searcher(self, k: int, params: Optional[SearchParams] = None,
+                 **kwargs):
+        ...
+
+    def memory_bytes(self) -> int:
+        ...
+
+    def save(self, path) -> None:
+        ...
+
+    @staticmethod
+    def load(path, device=None) -> "Index":
+        ...
+
+
 # --------------------------------------------------------------------------
 # Disk round-trip: one .npz per index — arrays plus a JSON meta record.
 # --------------------------------------------------------------------------
@@ -116,7 +156,13 @@ def _numpy(v) -> np.ndarray:
 
 def save_state(path, arrays: dict[str, Any], meta: dict[str, Any]) -> None:
     """Write an index's arrays + JSON-serializable ``meta`` (which includes
-    ``kind``) as one ``.npz``; ``path`` may be a path or a binary file."""
+    ``kind``) as one ``.npz``; ``path`` may be a path or a binary file.
+    The active tuning table rides along under ``meta["tune"]``."""
+    from repro_torch.tune import table as tunetable
+
+    active_table = tunetable.active()
+    if active_table is not None and "tune" not in meta:
+        meta = {**meta, "tune": active_table.to_dict()}
     out = {k: _numpy(v) for k, v in arrays.items() if v is not None}
     out[_META_KEY] = np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8
@@ -134,7 +180,6 @@ def load_state(path) -> tuple[dict[str, np.ndarray], dict[str, Any]]:
     with np.load(path) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
         arrays = {k: z[k] for k in z.files if k != _META_KEY}
-    meta.pop("tune", None)
     return arrays, meta
 
 
@@ -144,5 +189,4 @@ def load_meta(path) -> dict[str, Any]:
         path.seek(0)
     with np.load(path) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
-    meta.pop("tune", None)
     return meta

@@ -56,6 +56,16 @@ class FlatIndex:
     def params(self) -> Optional[Qz.QuantParams]:
         return self.store.params
 
+    @property
+    def codes(self) -> Optional[torch.Tensor]:
+        """The quantized codes (None for an fp32 index)."""
+        return self.store.data if self.store.quantized else None
+
+    @property
+    def vectors(self) -> Optional[torch.Tensor]:
+        """The fp32 rows (None for a quantized index)."""
+        return None if self.store.quantized else self.store.data
+
     # -- construction -----------------------------------------------------
     @staticmethod
     def build(

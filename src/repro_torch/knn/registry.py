@@ -73,10 +73,21 @@ def make_index(
                                          device=device)
 
 
-def load_index(path, *, device=None):
+def load_index(path, *, device=None, adopt_tune: bool = True):
     """Load a saved index (either package's npz), dispatching on the
-    recorded kind, onto ``device`` (default: the GPU)."""
+    recorded kind, onto ``device`` (default: the GPU).
+
+    A tuning table embedded by ``save_state`` is adopted into this
+    process's dispatch (``adopt_tune=False`` opts out), stamp-checked: a
+    table measured on another backend is parked for the maintenance
+    re-tune trigger (a counter, not a crash), and dispatch keeps its
+    current configs."""
     from repro_torch.knn import base
 
     meta = base.load_meta(path)
-    return get_impl(meta["kind"]).load(path, device=device)
+    idx = get_impl(meta["kind"]).load(path, device=device)
+    if adopt_tune:
+        from repro_torch.tune import table as tunetable
+
+        tunetable.adopt_from_meta(meta)
+    return idx

@@ -12,7 +12,14 @@ the single-device half of ``repro.knn.searcher``, DESIGN.md §9).
     quantized top-``depth`` against an fp32/int8 store (§3.4 recall
     recovery; ``"flat,lpq4+r32"`` builds the store at index time).
   * **account** — every result's stats carry the engine block plus
-    ``{bucket, padded_q, shards, reranked}``.
+    ``{bucket, padded_q, shards, reranked, tuned}``.
+  * **tune** — the active tuning table (``repro_torch.tune``) is
+    snapshotted at plan time and every run executes under
+    ``pinned(snapshot)``, so a table installed later cannot change a
+    planned Searcher; ``stats["tuned"]`` says whether the plan holds one.
+    Bucketed runs build their PQ tables afresh (``engine.lut_cache_bypassed``),
+    as the reference's compiled buckets do; one-shot searches may use the
+    LUT cache.
 
 ``multi_source_plan`` fuses per-source plans (a stream index's sealed
 segments and memtable) behind one runner.  The sharded (mesh) plan is not
@@ -32,6 +39,7 @@ from repro_torch.device import to_tensor
 from repro_torch.filter import overfetch
 from repro_torch.kernels.ref import NEG, stable_desc
 from repro_torch.knn import base as B
+from repro_torch.tune import table as tunetable
 
 __all__ = ["Searcher", "Rerank", "one_shot", "multi_source_plan",
            "DEFAULT_BATCH_SIZES", "DEFAULT_RERANK_DEPTH"]
@@ -286,7 +294,10 @@ class Searcher:
             )
         self._qdim = _query_dim(index)
         self._counts: collections.Counter = collections.Counter()
-        self._extras = {"shards": 1, "tuned": False}
+        # plan-time table resolution: the active table (if it was measured
+        # on this backend) is frozen now and pinned around every run
+        self.tune_table = tunetable.snapshot_for_plan()
+        self._extras = {"shards": 1, "tuned": self.tune_table is not None}
 
         rr = self.rerank
         if rr is not None and rr.store is None:
@@ -299,7 +310,8 @@ class Searcher:
         metric = index.metric
 
         def run(queries: torch.Tensor) -> B.SearchResult:
-            res = inner(queries)
+            with tunetable.pinned(self.tune_table):    # plan-time snapshot
+                res = inner(queries)
             stats = dict(res.stats)
             s, i = res.scores, res.ids
             if rr is not None:
@@ -382,7 +394,8 @@ class Searcher:
                 sl = torch.nn.functional.pad(sl, (0, 0, 0, bucket - rows))
             if bucket not in self._counts:
                 self._counts[bucket] = 1
-            res = self._run(sl)
+            with engine.lut_cache_bypassed():
+                res = self._run(sl)
             parts_s.append(res.scores[:rows])
             parts_i.append(res.ids[:rows])
             padded_q += bucket - rows

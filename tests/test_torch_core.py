@@ -93,6 +93,17 @@ def test_learned_params_match_reference(scheme, bits, sigmas):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+def test_acc_dtype_is_the_references(bits):
+    x = np.random.default_rng(3).standard_normal((64, 8)).astype(np.float32)
+    r = RQ.learn_params(jnp.asarray(x), bits=bits)
+    t = TQ.learn_params(torch.from_numpy(x), bits=bits)
+    assert t.acc_dtype == torch.int32
+    assert str(t.acc_dtype).split(".")[-1] == jnp.dtype(r.acc_dtype).name
+    assert str(t.storage_dtype).split(".")[-1] == \
+        jnp.dtype(r.storage_dtype).name
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("n", [1, 37, 1030])
 def test_codes_bit_equal_given_same_params(bits, n):
     x = _corpus(seed=2, n=n, d=40, scale=0.2)

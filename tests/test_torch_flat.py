@@ -196,21 +196,70 @@ def test_unported_kinds_and_options_raise_clearly(data):
         idx.searcher(K)(queries[:, :5])
 
 
+@pytest.mark.parametrize("f", ["flat", "flat,lpq8@gaussian:3", "flat,lpq4"])
+def test_codes_and_vectors_views_match_the_reference(data, tmp_path, f):
+    corpus, _ = data
+    ref = r_make(f, corpus)
+    path = tmp_path / "v.npz"
+    ref.save(str(path))
+    port = load_index(path, device="cpu")
+    for name in ("codes", "vectors"):
+        r, t = getattr(ref, name), getattr(port, name)
+        assert (r is None) == (t is None), name
+        if r is not None:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+
+
+def test_every_kind_satisfies_the_index_protocol(data):
+    from repro.knn import Index as RIndex
+    from repro_torch.knn import Index
+
+    members = lambda P: {n for n in dir(P) if not n.startswith("_")}  # noqa: E731
+    assert members(Index) == members(RIndex)
+    corpus, _ = data
+    for f in ("flat,lpq8", "pq8+lpq", "ivf4,lpq8", "hnsw8,lpq8", "graph8",
+              "stream(flat,lpq4)", "cascade(flat,lpq4|r32)"):
+        idx = make_index(f, corpus[:300], device="cpu")
+        assert isinstance(idx, Index), f
+    assert not isinstance(object(), Index)
+
+
 def test_tune_meta_key_is_ignored_on_load(data, tmp_path):
+    # the name is historical: the "tune" meta key is now adopted on load,
+    # stamp-checked, as the reference's load_index adopts it
+    from repro_torch.knn.base import save_state
+    from repro_torch.tune import table as T
+
     corpus, queries = data
     idx = make_index("flat,lpq4", corpus, device="cpu")
     path = tmp_path / "i.npz"
     idx.save(path)
     arrays, meta = load_state(path)
-    with np.load(path) as z:
-        import json
-        raw = json.loads(bytes(z["__meta__"].tobytes()))
-    raw["tune"] = {"stamp": {}, "entries": {}}
-    from repro_torch.knn.base import save_state
-    save_state(path, arrays, raw)
-    again = load_index(path, device="cpu")
-    assert torch.equal(again.search(queries, K).ids, idx.search(queries, K).ids)
-    assert "tune" not in load_state(path)[1]
+    # a table the reference measured here (a CPU stamp, as the port's)
+    ref_table = tunetable.TuneTable(stamp=tunetable.live_stamp())
+    ref_table.put("packed", "ip", 4, 37, N, D,
+                  tunetable.TuneConfig("scan", chunk=512))
+    save_state(path, arrays, {**meta, "tune": ref_table.to_dict()})
+    T.clear()
+    try:
+        again = load_index(path, device="cpu")
+        assert T.active() is not None and T.pending_mismatch() is None
+        assert T.active().table_hash() == ref_table.table_hash()
+        assert "tune" in load_state(path)[1]
+        res = again.search(queries, K)
+        assert res.stats["tuned"] is True and res.stats["chunks"] == N // 512
+        assert torch.equal(res.ids, idx.search(queries, K).ids)
+        # a table from another backend is parked, not installed
+        T.clear()
+        foreign = {**ref_table.to_dict(),
+                   "stamp": {**ref_table.stamp, "backend": "tpu",
+                             "device_kind": "TPU v5e", "interpret": False}}
+        save_state(path, arrays, {**meta, "tune": foreign})
+        load_index(path, device="cpu")
+        assert T.active() is None and T.pending_mismatch() is not None
+        load_index(path, device="cpu", adopt_tune=False)
+    finally:
+        T.clear()
 
 
 def test_searcher_rerank_depth_and_stats(data):

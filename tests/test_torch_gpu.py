@@ -881,3 +881,127 @@ def test_cascade_and_regions_on_the_card_equal_the_cpu(dev, f):
             assert [(r[0], r[1], r[3]) for r in a] == \
                 [(r[0], r[1], r[3]) for r in b]
             assert a[1:] == b[1:]
+
+
+# --------------------------------------------------------------------------
+# tuning: the layouts a TuneTable may choose, and tuned dispatch
+# --------------------------------------------------------------------------
+
+def _layout_bns(n: int, tile: int):
+    """Split lengths that reach one split, a few and many (a split of one
+    tile) and a ragged last split."""
+    return (n, -(-n // 7), tile, 3 * tile + 5)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "fp32"])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_fused_topk_layout_overrides_equal_the_plain_version(dev, kind,
+                                                             metric):
+    """Every block B2 / B3 holds (``F.block_rows``) at every split length
+    of ``_layout_bns`` gives the plain version's top-k (fp32: within
+    ``hold_fp32``'s gate), masked too, at k=100 and past 1024."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    Q, N, d = 37, 70001, 64
+    mask = (torch.rand(N, generator=g, device=dev) < 0.5).to(torch.int8)
+    if kind == "fp32":
+        q = torch.randn(Q, d, generator=g, device=dev)
+        x = torch.randn(N, d, generator=g, device=dev)
+    else:
+        lim = 8 if kind == "int4" else 128
+        q = torch.randint(-lim, lim, (Q, d), generator=g, device=dev).to(torch.int8)
+        x = torch.randint(-lim, lim, (N, d), generator=g, device=dev).to(torch.int8)
+    packed = kind == "int4"
+    if packed:
+        x = PK.pack_int4(x)
+    fk = F.KIND_F32 if kind == "fp32" else F.KIND_I8
+    tile = F.f32_tile(32)[0] if kind == "fp32" else F.I8_BM
+    for k, mk in ((100, None), (100, mask), (1500, None)):
+        if packed:
+            want = F.fused_topk4_plain(*K.split_nibble_queries(q), x, k=k,
+                                       metric=metric, mask=mk)
+        else:
+            want = F.fused_topk_plain(q, x, k=k, metric=metric, mask=mk)
+        for bq in F.block_rows(fk):
+            for bn in _layout_bns(N, tile):
+                got = K.fused_topk(q, x, k, metric, packed=packed, mask=mk,
+                                   bq=bq, bn=bn)
+                if kind == "fp32":
+                    hold_fp32(q, x, metric, mk, got, want)
+                else:
+                    assert torch.equal(got[0], want[0]), (bq, bn, k)
+                    assert torch.equal(got[1], want[1]), (bq, bn, k)
+    with pytest.raises(ValueError, match="layout"):
+        K.fused_topk(q, x, 10, metric, packed=packed, bq=64)
+
+
+@pytest.mark.parametrize("bits,m,Q", [(8, 32, 37), (8, 32, 3), (4, 64, 37),
+                                      (4, 64, 2), (4, 1000, 9)])
+def test_fused_adc_layout_overrides_equal_the_plain_version(dev, bits, m, Q):
+    """Every block B4 / B5 holds for the batch (``A.block_rows``: the word
+    kernel's, the MMA kernel's, the gather kernel's, B5's too-wide rows
+    the gather kernel's 4) at every split length of ``_layout_bns`` gives
+    the plain version's top-k, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    N, kc, k = 70001, 2 ** bits, 100
+    lut = torch.randint(-128, 128, (Q, m, kc), generator=g,
+                        device=dev).to(torch.int8)
+    codes = torch.randint(0, kc, (N, m), generator=g, device=dev).to(torch.uint8)
+    if bits == 8:
+        want = A.fused_adc_plain(lut.reshape(Q, -1), codes, k=k,
+                                 n_codewords=kc)
+        x = codes
+    else:
+        x = PK.pack_uint4(codes)
+        want = A.fused_adc4_plain(lut[:, 0::2].reshape(Q, -1).contiguous(),
+                                  lut[:, 1::2].reshape(Q, -1).contiguous(),
+                                  x, k=k)
+    tried = 0
+    for bq in A.block_rows(bits, Q):
+        for bn in _layout_bns(N, 1024):
+            try:
+                lay = A.adc_layout(k, x.shape[1], bits, Q, N, bq, bn)
+            except ValueError:
+                continue                 # e.g. B5's MMA block on wide rows
+            got = K.fused_adc_topk(lut, x, k, packed=bits == 4, bq=bq, bn=bn)
+            assert lay.bq == bq
+            assert torch.equal(got[0], want[0]), (bq, bn)
+            assert torch.equal(got[1], want[1]), (bq, bn)
+            tried += 1
+    assert tried >= 4
+
+
+def test_tuned_searcher_on_the_card(dev):
+    """A table stamped on this card: a tuned flat,lpq8 plan still launches
+    B2, with the entry's layout, and returns the untuned plan's results;
+    a scan entry for an ip / l2 kernel family is refused."""
+    from repro_torch import kernels
+    from repro_torch.knn import make_index
+    from repro_torch.tune import table as T
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    corpus = torch.randn(50_000, 64, generator=g, device=dev)
+    q = torch.randn(32, 64, generator=g, device=dev)
+    idx = make_index("flat,lpq8", corpus, metric="ip")
+    table = T.TuneTable(stamp=T.live_stamp())
+    assert table.stamp["backend"] == "cuda"
+    table.put("fused_topk", "ip", 8, 32, 50_000, 64,
+              T.TuneConfig("fused", bq=8, bn=4096))
+    T.clear()
+    try:
+        untuned = idx.searcher(10, batch_sizes=(32,))
+        T.install(table)
+        tuned = idx.searcher(10, batch_sizes=(32,))
+        T.clear()
+        before = kernels.launch_counts()["fused_topk_int8"]
+        a, b = untuned(q), tuned(q)
+        assert kernels.launch_counts()["fused_topk_int8"] == before + 2
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
+        assert b.stats["tuned"] and not a.stats["tuned"]
+        assert b.stats["bytes_read"] == 50_000 * 64 * 4    # 32 / bq passes
+        bad = T.TuneTable(stamp=T.live_stamp())
+        bad.put("fused_topk", "ip", 8, 32, 50_000, 64,
+                T.TuneConfig("scan", chunk=4096))
+        with pytest.raises(ValueError, match="scan"):
+            T.install(bad)
+    finally:
+        T.clear()
