@@ -3380,6 +3380,10 @@ MAINT_ROUNDS = 4
 #: seconds advanced first) and the CPU run's decisions for it
 ADMIT_BURST = ((4, 0, 0.0), (2, 2, 0.0), (4, 0, 0.0), (1, 4, 0.0),
                (16, 0, 0.0), (8, 0, 1.0))
+#: 11(a): the store whose requests time the host cost of a table lookup
+#: (small, so the host's share of a request shows): rows, width, queries,
+#: lookups timed, requests a turn
+LOOKUP_N, LOOKUP_D, LOOKUP_Q, LOOKUP_REPS, LOOKUP_REQS = 8192, 256, 8, 2000, 50
 ADMIT_EXPECT = (("admit", "ok", 4.0), ("degrade", "queue", 0.5),
                 ("degrade", "budget", 1.0), ("shed", "queue", 0.0),
                 ("shed", "budget", 0.0), ("admit", "ok", 8.0))
@@ -3425,7 +3429,65 @@ def tune_path():
          "the table read back from JSON differs")
     log(f"[tune] wrote {path.relative_to(ROOT)}, read back with hash "
         f"{back.table_hash()}")
+    lookup_cost(table)
     return table
+
+
+def lookup_cost(table) -> None:
+    """11(a): the host cost of consulting the table, which every tuned
+    ``engine.topk`` does: one ``lookup`` under a pinned table and under
+    none, beside one whole runtime stamp (what a lookup's stamp check
+    would cost if it built one), and the wall time of a small
+    ``engine.topk`` request tuned and untuned, in turns (untuned, tuned,
+    tuned, untuned), its results equal."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.knn import make_index
+    from repro_torch.tune import TuneTable
+    from repro_torch.tune import space as S
+    from repro_torch.tune import table as T
+
+    card = smi()
+    g = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(LOOKUP_N, LOOKUP_D, generator=g, device="cuda")
+    q = torch.randn(LOOKUP_Q, LOOKUP_D, generator=g, device="cuda")
+    store = make_index("flat,lpq8", x, metric="ip").store
+    shape = ("fused_topk", "ip", 8, LOOKUP_Q, LOOKUP_N, LOOKUP_D)
+    small = TuneTable(stamp=dict(table.stamp), entries=dict(table.entries))
+    small.put(*shape, S.default_config(S.Workload(*shape, k=10), "cuda"))
+
+    def per_call_us(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(LOOKUP_REPS):
+            fn()
+        return (time.perf_counter() - t0) / LOOKUP_REPS * 1e6
+
+    with T.pinned(small):
+        hit_us = per_call_us(lambda: T.lookup(*shape))
+        stamp_us = per_call_us(T.live_stamp)
+    with T.pinned(None):
+        none_us = per_call_us(lambda: T.lookup(*shape))
+    lat = {"untuned": [], "tuned": []}
+    res = {}
+    for name in ("untuned", "tuned", "tuned", "untuned"):
+        with T.pinned(small if name == "tuned" else None):
+            for _ in range(LOOKUP_REQS):
+                t0 = time.perf_counter()
+                s, i, st = engine.topk(q, store, 10, "ip")
+                torch.cuda.synchronize()
+                lat[name].append((time.perf_counter() - t0) * 1e6)
+                need(st["tuned"] is (name == "tuned"), f"tuned {st['tuned']}")
+        res[name] = (s, i)
+    need(all(torch.equal(a, b) for a, b in zip(res["untuned"], res["tuned"])),
+         "a tuned small request differs from the untuned one")
+    p50 = {n: statistics.median(v) for n, v in lat.items()}
+    log(f"[tune] host cost of a table lookup: {hit_us:.2f} us with a table "
+        f"pinned (hit), {none_us:.2f} us with none; one whole runtime stamp "
+        f"{stamp_us:.2f} us; wall time of one {LOOKUP_Q}-query engine.topk "
+        f"on {LOOKUP_N}x{LOOKUP_D} flat,lpq8 (p50 of {2 * LOOKUP_REQS} a "
+        f"side, turns untuned, tuned, tuned, untuned): untuned "
+        f"{p50['untuned']:.2f} us, tuned {p50['tuned']:.2f} us | {card}")
 
 
 def _p50_turns(searchers: dict, q, reps: int) -> dict:
@@ -3532,13 +3594,15 @@ def tuned_serving(table, pc, pq) -> dict:
     return built
 
 
-def runtime_path(built, pc, pq) -> None:
+def runtime_path(built, pc, pq):
     """11(c): the result cache (a repeat hits, bit-identical, launching no
     kernel), the LUT cache on an eager pq32+lpq search, a maintenance thread
     compacting MAINT_ARM while this thread serves (waiting on its swap
-    event), a forced full compaction bit-equal to a from-scratch build on
-    live_items(), an admission burst under an injected clock, and the
-    phase's telemetry summary and runtime stamp."""
+    event), a forced full compaction, an admission burst under an injected
+    clock, and the phase's telemetry summary and runtime stamp.  Returns
+    the check of the compaction against a from-scratch build on
+    live_items(), to run once the phase's launch counts are read (the
+    oracle's build and search are not the path)."""
     import numpy as np
     import torch
 
@@ -3640,17 +3704,23 @@ def runtime_path(built, pc, pq) -> None:
     torch.cuda.synchronize()
     need(out["swapped"] and idx.stats()["segments"] == 1,
          f"forced full compaction: {out}")
+    compact_s, live_n = time.perf_counter() - t0, idx.n
     ext_ids, vecs = idx.live_items()
-    scratch = make_index(MAINT_ARM[len("stream("):-1], vecs, metric="ip")
-    got, want = idx.search(q, k), scratch.search(q, k)
-    mapped = torch.as_tensor(ext_ids, device=dev)[want.ids.long()]
-    need(torch.equal(got.ids.long(), mapped)
-         and torch.equal(got.scores, want.scores),
-         "forced full compaction differs from a from-scratch build")
-    log(f"[runtime] forced full compaction ({time.perf_counter() - t0:.2f} "
-        f"s): one segment of {idx.n} live rows, ids and scores bit-equal to "
-        f"a from-scratch {MAINT_ARM[len('stream('):-1]} on live_items()")
-    del idx, scratch
+    got = idx.search(q, k)
+    del idx
+
+    def hold_compaction() -> None:
+        inner = MAINT_ARM[len("stream("):-1]
+        scratch = make_index(inner, vecs, metric="ip")
+        want = scratch.search(q, k)
+        mapped = torch.as_tensor(ext_ids, device=dev)[want.ids.long()]
+        need(torch.equal(got.ids.long(), mapped)
+             and torch.equal(got.scores, want.scores),
+             "forced full compaction differs from a from-scratch build")
+        log(f"[runtime] forced full compaction ({compact_s:.2f} s): one "
+            f"segment of {live_n} live rows, ids and scores bit-equal to a "
+            f"from-scratch {inner} on live_items() (built after the phase's "
+            "launch counts were read)")
 
     # admission burst under an injected clock
     now = [0.0]
@@ -3667,6 +3737,7 @@ def runtime_path(built, pc, pq) -> None:
     log(f"[runtime] telemetry summary: {json.dumps(tel.summary())}")
     log(f"[runtime] counters: {json.dumps(dict(tel.counters))}")
     log(f"[runtime] stamp: {json.dumps(rtprofile.stamp())} | {card}")
+    return hold_compaction
 
 
 #: phase 11's kernels: the main path's int scans and the encode
@@ -3676,17 +3747,20 @@ PHASE11_KERNELS = ("quantize", "fused_topk_int8", "fused_topk4", "fused_adc",
 
 def phase11(pc, pq) -> dict:
     """11: (a) tune outside the counts; then (b) and (c) as one run of the
-    path, the counters set to 0 before and read after."""
+    path, the counters set to 0 before and read after; then the oracle of
+    (c)'s compaction."""
     from repro_torch import kernels
 
     table = tune_path()
     kernels.reset_launch_counts()
     built = tuned_serving(table, pc, pq)
-    runtime_path(built, pc, pq)
+    hold_compaction = runtime_path(built, pc, pq)
     run = kernels.launch_counts()
     log(f"[phase11] kernel launches on phase 11's run: {run}")
     for name in PHASE11_KERNELS:
         need(run[name] > 0, f"kernel {name} was never launched on phase 11")
+    del built
+    hold_compaction()
     return run
 
 

@@ -219,8 +219,11 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
         chunks = -(-store.n // (_fused.BN if q.dtype == torch.float32
                                 else _fused.I8_BM))
         # pass 1 re-streams the corpus once per query block
-        bq = bq or K.fused_query_tile(q.shape[0], k=k_eff, bits=store.bits)
-        passes = max(1, -(-q.shape[0] // bq))
+        kind = (_fused.KIND_F32 if q.dtype == torch.float32 else
+                _fused.KIND_I4 if store.packed else _fused.KIND_I8)
+        lay = _fused.layout(kind, q.shape[0], store.n, k_eff,
+                            store.data.shape[1], bq, bn)
+        passes = max(1, -(-q.shape[0] // lay.bq))
     else:
         s, i = _scan_topk(q, store, k_eff, metric, chunk, mask)
         chunks = max(1, -(-store.n // chunk))

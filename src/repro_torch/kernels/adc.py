@@ -276,8 +276,9 @@ def adc_layout(k: int, code_bytes: int, kbits: int, q: int, n: int,
     block, LUTs read from global memory).
 
     ``bq`` (query rows a block) and ``bn`` (corpus rows a split) override
-    the choice within that kernel: a tuning table's entry.  An override
-    the CUDA source would refuse raises ``ValueError``."""
+    the choice within that kernel: a tuning table's entry (the splits
+    keep the layout's k cap, ``_fused.split_count``).  An override the
+    CUDA source would refuse raises ``ValueError``."""
     if bq is not None and bq not in block_rows(kbits, q):
         raise ValueError(f"fused_adc: layout bq={bq} is no block for "
                          f"{q} queries (one of {block_rows(kbits, q)})")
@@ -286,7 +287,7 @@ def adc_layout(k: int, code_bytes: int, kbits: int, q: int, n: int,
     def wave(per_sm: int, qblocks: int, tile: int) -> int:
         # one wave: as many blocks as are resident at once
         if bn is not None:
-            return _fused.split_count(n, bn, tile)
+            return _fused.split_count(n, bn, tile, k)
         return max(1, min(per_sm * _fused._SMS // qblocks,
                           -(-n // max(_fused._MIN_SPLIT_ROWS, 2 * k)), 65535))
 
@@ -328,7 +329,7 @@ def adc_layout(k: int, code_bytes: int, kbits: int, q: int, n: int,
                          "bytes in shared memory")
     bq = b
     splits = (n_splits(q, n, bq, k) if bn is None
-              else _fused.split_count(n, bn, tile_rows(bq)))
+              else _fused.split_count(n, bn, tile_rows(bq), k))
     return AdcLayout(bq, lutg, cap, splits,
                      -(-q // bq) * splits * bq * cap if gbuf else 0, mbuf,
                      gather=True)

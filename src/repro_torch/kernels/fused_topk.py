@@ -224,10 +224,14 @@ def block_rows(kind: int) -> tuple[int, ...]:
     return F32_BQ if kind == KIND_F32 else I8_BQ
 
 
-def split_count(n: int, bn: int, tile: int) -> int:
+def split_count(n: int, bn: int, tile: int, k: int) -> int:
     """Corpus splits when each streams ``bn`` rows: ceil(n / bn), where
     ``bn`` is at least one pass-1 tile or the whole corpus (no split is
-    empty) and the count fits the grid's y dimension."""
+    empty) and the count fits the grid's y dimension.  The count keeps the
+    layout's own cap of ``_split_count`` (a split holds at least 2048 and
+    2k rows), so the partial lists of a tuned layout stay within the
+    untuned layout's bound at any k (table keys carry no k): a shorter
+    ``bn`` is lengthened."""
     if bn < min(tile, n):
         raise ValueError(f"layout: bn={bn} is below the kernel's tile of "
                          f"{tile} rows")
@@ -235,7 +239,7 @@ def split_count(n: int, bn: int, tile: int) -> int:
     if splits > 65535:
         raise ValueError(f"layout: bn={bn} gives {splits} splits of {n} rows "
                          "(at most 65535)")
-    return splits
+    return min(splits, max(1, -(-n // max(_MIN_SPLIT_ROWS, 2 * k))))
 
 
 def _fixed_block(bq: int, allowed, smem) -> bool:
@@ -260,8 +264,9 @@ def layout(kind: int, q: int, n: int, k: int, d: int = 0,
     the int scans only, whose queries stay in shared memory.
 
     ``bq`` (query rows a block) and ``bn`` (corpus rows a split) override
-    the layout's own choice: a tuning table's entry.  An override the CUDA
-    source would refuse raises ``ValueError``."""
+    the layout's own choice: a tuning table's entry (``split_count``
+    keeps the layout's k cap on the splits).  An override the CUDA source
+    would refuse raises ``ValueError``."""
     if kind == KIND_F32:
         cap = f32_cap(k)
         if bq is None:
@@ -289,7 +294,7 @@ def layout(kind: int, q: int, n: int, k: int, d: int = 0,
         splits = max(1, min(per_sm * _SMS // qblocks,
                             -(-n // max(_MIN_SPLIT_ROWS, 2 * k)), 65535))
     else:
-        splits = split_count(n, bn, tile)
+        splits = split_count(n, bn, tile, k)
     gbuf = qblocks * splits * lists * cap if gbuf else 0
     mbuf = 0 if merge_in_shared(k) else q * _pow2(k + NT)
     return Layout(bq, cap, splits, gbuf, mbuf)

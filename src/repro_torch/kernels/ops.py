@@ -14,7 +14,8 @@ LUT split for packed 4-bit PQ codes (``repro/kernels/ops.py:319-335``),
 and the optional [N] mask.  ``fused_topk`` / ``fused_adc_topk`` take a
 tuning table's layout (``bq`` query rows a block, ``bn`` corpus rows a
 split); ``fused_query_tile`` / ``fused_adc_query_tile`` answer table-first,
-with the fallback rows registered here (today's layouts) behind them.
+then with the layout's own choice (``fused_topk.layout`` /
+``adc.adc_layout``, the one record of the untuned layout).
 """
 
 from __future__ import annotations
@@ -32,14 +33,11 @@ from repro_torch.tune import table as _tune
 split_nibble_queries = _packed.split_nibble_queries
 
 # -- registered fallback rows: the dispatch floor (tuned table > these rows).
-# bq is the block of a full batch; bn None keeps each layout's one-wave rule
-_tune.register_fallback("fused_topk", _tune.TuneConfig(
-    "fused", bq=_fused.I8_BQ[-1], chunk=16384))
-_tune.register_fallback("packed", _tune.TuneConfig(
-    "fused", bq=_fused.I8_BQ[-1], chunk=16384))
-_tune.register_fallback("fused_adc", _tune.TuneConfig(
-    "fused", bq=_adc.BQ, chunk=16384))
-_tune.register_fallback("scan", _tune.TuneConfig("scan", chunk=16384))
+# They name the implementation only: a fused family runs its kernel at the
+# layout's own rule, the scan at the caller's chunk (SearchParams.chunk)
+for _family in _tune.FUSED_FAMILIES:
+    _tune.register_fallback(_family, _tune.TuneConfig("fused"))
+_tune.register_fallback("scan", _tune.TuneConfig("scan"))
 
 
 def qmip(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
@@ -68,41 +66,32 @@ def ql24(q_codes: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return _packed.ql24_cuda(qe, qo, packed.contiguous())
 
 
-def fused_query_tile(q: int | None = None, n: int | None = None,
-                     d: int | None = None, *, metric: str = "ip",
-                     bits: int = 8, packed: bool = False, k: int = 100) -> int:
+def fused_query_tile(q: int, n: int, d: int, *, metric: str = "ip",
+                     bits: int = 8, packed: bool = False,
+                     k: int = 100) -> int:
     """Query rows per fused-kernel block — the corpus re-stream granularity
-    the engine's ``bytes_read`` accounting derives from.
-
-    With a workload shape the installed TuneTable answers first (the
-    entry's ``bq``); else, with a batch size, the batch's tile before a
-    wide k or row narrows it (fp32: ``bits=32``); with neither, the family's
-    registered fallback row."""
+    the engine's ``bytes_read`` accounting derives from: the installed
+    TuneTable's entry for the workload first, else ``fused_topk.layout``'s
+    choice (fp32 rows: ``bits=32``; ``d`` is the vector width)."""
     kernel = "packed" if packed else "fused_topk"
-    if q is not None and n is not None and d is not None:
-        cfg = _tune.lookup(kernel, metric, bits, q, n, d)
-        if cfg is not None and cfg.bq is not None:
-            return cfg.bq
-    if q is None:
-        return _tune.fallback(kernel).bq
-    return (_fused.f32_query_tile(k, q)[0] if bits == 32
-            else _fused.i8_query_tile(q))
+    cfg = _tune.lookup(kernel, metric, bits, q, n, d)
+    if cfg is not None and cfg.bq is not None:
+        return cfg.bq
+    kind = (_fused.KIND_F32 if bits == 32 else
+            _fused.KIND_I4 if packed else _fused.KIND_I8)
+    width = -(-d // 2) if packed else d
+    return _fused.layout(kind, q, n, min(k, n), width).bq
 
 
-def fused_adc_query_tile(q: int | None = None, n: int | None = None,
-                         m: int | None = None, *, metric: str = "ip",
+def fused_adc_query_tile(q: int, n: int, m: int, *, metric: str = "ip",
                          bits: int = 8, k: int = 100) -> int:
     """Query rows per fused-ADC block (each holds its queries' LUTs):
-    table-first, then ``adc_layout``'s choice for the batch, then the
-    registered fallback row."""
-    if q is not None and n is not None and m is not None:
-        cfg = _tune.lookup("fused_adc", metric, bits, q, n, m)
-        if cfg is not None and cfg.bq is not None:
-            return cfg.bq
-    if q is None or m is None:
-        return _tune.fallback("fused_adc").bq
+    table-first, then ``adc_layout``'s choice for the batch."""
+    cfg = _tune.lookup("fused_adc", metric, bits, q, n, m)
+    if cfg is not None and cfg.bq is not None:
+        return cfg.bq
     code_bytes = -(-m // 2) if bits == 4 else m
-    return _adc.query_tile(k, code_bytes, bits, q)
+    return _adc.adc_layout(min(k, n), code_bytes, bits, q, n).bq
 
 
 def fused_topk(

@@ -110,6 +110,9 @@ PROFILES: dict[str, RuntimeProfile] = {
 
 #: the profile ``apply`` installed in this process (at most one)
 _ACTIVE: Optional[RuntimeProfile] = None
+#: this process's backend facts (``backend_facts``), fixed once a profile
+#: is applied; ``apply`` and ``_reset_for_tests`` forget them
+_FACTS: Optional[dict] = None
 
 
 def register(profile: RuntimeProfile) -> RuntimeProfile:
@@ -167,7 +170,7 @@ def apply(profile: RuntimeProfile) -> RuntimeProfile:
     warns and is ignored (profiles are process-start state).  A platform
     the process cannot give raises ``ValueError`` / ``RuntimeError``.
     """
-    global _ACTIVE
+    global _ACTIVE, _FACTS
     if _ACTIVE is not None:
         if profile.name != _ACTIVE.name:
             warnings.warn(
@@ -188,7 +191,7 @@ def apply(profile: RuntimeProfile) -> RuntimeProfile:
                 "CUDA device is available")
     if profile.nan_debug:
         torch.autograd.set_detect_anomaly(True, check_nan=True)
-    _ACTIVE = profile
+    _ACTIVE, _FACTS = profile, None
     return profile
 
 
@@ -220,22 +223,36 @@ def backend() -> str:
     return "cuda"
 
 
+def backend_facts() -> dict:
+    """The stamp keys two tuning tables must agree on (``backend``,
+    ``device_kind``, ``interpret``), worked out once a process: every
+    tuned dispatch compares them (``tune.table.lookup``)."""
+    global _FACTS
+    if _FACTS is None:
+        be = backend()
+        _FACTS = {"backend": be,
+                  "device_kind": (torch.cuda.get_device_name(0)
+                                  if be == "cuda" else "cpu"),
+                  "interpret": be == "cpu"}
+    return _FACTS
+
+
 def stamp(profile: Optional[RuntimeProfile] = None) -> dict:
     """The runtime-metadata block every report embeds: the resolved facts
     (backend, device kind, device count, whether only the kernels' plain
     versions run) beside the profile that asked for them."""
     p = profile or active()
-    be = backend()
+    facts = backend_facts()
+    be = facts["backend"]
     return {
         "profile": p.name,
         # the active TuneTable's dispatch hash (None = fallback rows)
         "tune_table": _tune_table_hash(),
         "applied": _ACTIVE is not None,
         "backend": be,
-        "device_kind": (torch.cuda.get_device_name(0) if be == "cuda"
-                        else "cpu"),
+        "device_kind": facts["device_kind"],
         "n_devices": torch.cuda.device_count() if be == "cuda" else 1,
-        "interpret": be == "cpu",
+        "interpret": facts["interpret"],
         "platform": _platform.platform(),
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
@@ -258,5 +275,5 @@ def _tune_table_hash() -> Optional[str]:
 
 def _reset_for_tests() -> None:
     """Test hook: forget the applied profile."""
-    global _ACTIVE
-    _ACTIVE = None
+    global _ACTIVE, _FACTS
+    _ACTIVE = _FACTS = None

@@ -22,7 +22,8 @@ Per workload:
 Parity is tie-robust (the reference's rule): the candidate's top-k
 *scores* must equal the stable top-k of the full oracle matrix, and every
 returned id must point at a row whose oracle score equals the returned
-score.
+score, and no row may be returned twice in one result (a tile two splits
+scanned would otherwise pass wherever its score ties another row's).
 
 ``timer`` is injectable: ``wall_timer`` times on the device (CUDA events
 on the card), ``estimate_timer`` stands the roofline estimate in for it,
@@ -233,6 +234,10 @@ def _parity_ok(ctx: _Ctx, s: torch.Tensor, i: torch.Tensor) -> bool:
         return False
     i = i.long()
     if bool((i < 0).any()) or bool((i >= ctx.full.shape[1]).any()):
+        return False
+    # a row returned twice (a tile two splits scanned) can hide behind a tie
+    srt = i.sort(dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
         return False
     return torch.equal(torch.gather(ctx.full, 1, i), s)
 

@@ -15,8 +15,10 @@ there.  A layout is ``(bq, bn)``: ``bq`` the query rows one block holds
 (B2 int8 / B3 8, 16 or 32; B2 fp32 1, 8 or 32; B4 the word kernel's 4 or
 8, the gather kernel's 1, 2 or 4 for batches of at most 4; B5 the MMA
 kernel's 8, 16 or 32), ``bn`` the corpus rows one split streams (splits =
-ceil(n / bn), in place of the one-wave rule).  The split counts tried are
-half, one, two and four waves of the block's resident blocks (the layout's
+ceil(n / bn), in place of the one-wave rule, within the layouts' own cap
+of a split of at least 2048 and 2k rows, which holds a tuned layout's
+partial lists to the untuned one's bound at any k: table keys carry no
+k).  The split counts tried are half, one, two and four waves of the block's resident blocks (the layout's
 own rule is one wave; a split streams one tile at least), so every
 ``bq`` is tried at each occupancy.  A layout is legal where the
 CUDA source accepts it: ``kernels/fused_topk.layout`` and
@@ -209,21 +211,29 @@ def candidates(w: Workload,
     if not _fusable(w, backend):
         return [TuneConfig("scan", chunk=c) for c in scan_chunks(w)]
     out: list[TuneConfig] = []
+    # (bq, splits) of the layouts already listed: the layouts' k cap may
+    # give two split lengths one split count
+    seen: set[tuple[int, int]] = set()
     for bq in block_rows(w.kernel, w.bits, w.q):
         try:
             lay = kernel_layout(w, TuneConfig("fused", bq=bq))
         except ValueError:
             continue
+        if not out:                      # the default is legal where any is
+            default = default_config(w, backend)
+            out.append(default)
+            seen.add((default.bq, kernel_layout(w, default).splits))
         wave = max(1, resident_blocks(w, lay) // -(-w.q // lay.bq))
         for f in SPLIT_WAVES:
             bn = max(split_rows(w, max(1, int(wave * f))),
                      min(w.n, tile_rows(w, lay)))
             cfg = TuneConfig("fused", bq=bq, bn=bn)
-            if cfg not in out and legal(w, cfg, backend):
+            if not legal(w, cfg, backend):
+                continue
+            run = (bq, kernel_layout(w, cfg).splits)
+            if run not in seen:
+                seen.add(run)
                 out.append(cfg)
-    if out:                              # the default is legal where any is
-        default = default_config(w, backend)
-        out = [default] + [c for c in out if c != default]
     return out
 
 

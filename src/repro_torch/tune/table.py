@@ -11,7 +11,8 @@ where every candidate was held bit-equal to the plain version before it
 was timed.  Dispatch precedence is **tuned > fallback rows**: when no entry
 matches (or no table is installed, or the table was measured on another
 backend), callers use the registered fallback rows (``kernels/ops.py``),
-which are today's launch layouts, and the miss is counted, never raised.
+which name the implementation only (a kernel runs at its layout's own
+rule), and the miss is counted, never raised.
 
 The JSON form (``TABLE_VERSION`` 1) and ``table_hash`` are the
 reference's byte for byte, so a table written by either package reads in
@@ -170,9 +171,12 @@ class TuneTable:
 
     def matches(self, stamp: Optional[dict] = None) -> bool:
         """Was this table measured on the backend ``stamp`` describes
-        (default: the live process)?"""
-        other = stamp if stamp is not None else live_stamp()
-        return all(self.stamp.get(k) == other.get(k) for k in STAMP_KEYS)
+        (default: the live process, whose facts are worked out once)?"""
+        if stamp is None:
+            from repro_torch.runtime import profile as rtprofile
+
+            stamp = rtprofile.backend_facts()
+        return all(self.stamp.get(k) == stamp.get(k) for k in STAMP_KEYS)
 
     def check(self) -> "TuneTable":
         """Refuse entries no dispatch of the table's backend can run (see

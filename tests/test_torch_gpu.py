@@ -1005,3 +1005,42 @@ def test_tuned_searcher_on_the_card(dev):
             T.install(bad)
     finally:
         T.clear()
+
+
+@pytest.mark.parametrize("f", ["flat,lpq8", "pq16+lpq"])
+def test_tuned_plan_past_the_k_cap_equals_untuned(dev, f):
+    """A table entry's ``bn`` (measured at a small k: keys carry no k)
+    served at a depth past n / (2 * 33): the tuned plan runs no more
+    splits than the untuned layout's cap of 2k rows a split, and returns
+    the untuned plan's results."""
+    from repro_torch.knn import make_index
+    from repro_torch.tune import table as T
+
+    N, d, Q, k = 200_000, 64, 64, 4000           # N / 66 is about 3030
+    g = torch.Generator(device=dev).manual_seed(14)
+    corpus = torch.randn(N, d, generator=g, device=dev)
+    q = torch.randn(Q, d, generator=g, device=dev)
+    idx = make_index(f, corpus, metric="ip")
+    bn = -(-N // 33)
+    table = T.TuneTable(stamp=T.live_stamp())
+    if f.startswith("pq"):
+        m = idx.store.m
+        table.put("fused_adc", "ip", 8, Q, N, m,
+                  T.TuneConfig("fused", bq=8, bn=bn))
+        lay = A.adc_layout(k, m, 8, Q, N, bq=8, bn=bn)
+    else:
+        table.put("fused_topk", "ip", 8, Q, N, d,
+                  T.TuneConfig("fused", bq=32, bn=bn))
+        lay = F.layout(F.KIND_I8, Q, N, k, d, bq=32, bn=bn)
+    assert lay.splits == -(-N // (2 * k)) < 33
+    T.clear()
+    try:
+        untuned = idx.searcher(k, batch_sizes=(Q,))
+        T.install(table)
+        tuned = idx.searcher(k, batch_sizes=(Q,))
+        T.clear()
+        a, b = untuned(q), tuned(q)
+        assert b.stats["tuned"] and not a.stats["tuned"]
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
+    finally:
+        T.clear()

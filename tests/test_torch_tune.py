@@ -11,6 +11,8 @@ candidates (interpret mode is slow): its tables are built with
 ``TuneTable.put``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -113,12 +115,17 @@ class TestSpace:
         w = S.Workload("fused_topk", "ip", 8, q=64, n=8192, d=64)
         cands = S.candidates(w, "cuda")
         assert cands and all(c.impl == "fused" for c in cands)
+        runs = set()
         for c in cands:
             assert c.bq in F.I8_BQ and c.bn >= F.I8_BM
             lay = S.kernel_layout(w, c)
-            assert lay.splits == -(-w.n // c.bn) <= 65535
+            # ceil(n / bn) within the layout's cap: 2048 and 2k rows a split
+            assert lay.splits == min(-(-w.n // c.bn),
+                                     -(-w.n // max(2048, 2 * w.k))) <= 65535
             gbuf = lay.gbuf_keys > 0
             assert F.i8_smem_bytes(lay.bq, lay.cap, gbuf, 64) <= F.SMEM_MAX
+            runs.add((lay.bq, lay.splits))
+        assert len(runs) == len(cands)          # no layout listed twice
         assert {c.bq for c in cands} == set(F.I8_BQ)
         # an ip / l2 CUDA store always runs its kernel: no scan crossover
         assert S.default_config(w, "cuda") in cands
@@ -126,6 +133,30 @@ class TestSpace:
         r_w = r_S.Workload("fused_topk", "ip", 8, q=64, n=8192, d=64)
         ref_scan = [c.chunk for c in r_S.candidates(r_w) if c.impl == "scan"]
         assert [c.chunk for c in S.candidates(w, "cpu")] == ref_scan
+
+    @pytest.mark.parametrize("k", [100, 1500, 70_000, 10 ** 6])
+    def test_tuned_splits_keep_the_k_cap(self, k):
+        """A table entry's ``bn`` (keys carry no k) never gives more splits
+        than the untuned layout's cap of 2048 and 2k rows a split, so a
+        tuned plan's partial lists stay within the untuned bound at every
+        over-fetch depth: the default entries of the main path's 4M-row
+        bucket (33 splits at k=100) run 2 splits at k=10^6."""
+        n, q = 4_000_000, 256
+        cap = -(-n // max(2048, 2 * k))
+        for w in AT.default_workloads():
+            if w.kernel == "scan":
+                continue
+            at_k = dataclasses.replace(w, k=k)
+            cfg = S.default_config(w, "cuda")          # measured at k=100
+            for c in (cfg, dataclasses.replace(cfg, bn=F.I8_BM * 8)):
+                tuned = S.kernel_layout(at_k, c)
+                assert tuned.splits <= cap, (w, c, tuned)
+                untuned = S.kernel_layout(at_k, TuneConfig("fused"))
+                assert untuned.splits <= cap
+        lay = F.layout(F.KIND_I8, q, n, 10 ** 6, 256, bq=32, bn=-(-n // 33))
+        assert lay.splits == 2 and q * lay.splits * 10 ** 6 * 8 < 5e9
+        a = A.adc_layout(10 ** 6, 32, 8, q, n, bq=8, bn=-(-n // 33))
+        assert a.splits == 2
 
     def test_scan_family_has_no_fused_candidates(self):
         w = S.Workload("scan", "angular", 8, q=8, n=20480, d=32)
@@ -188,6 +219,20 @@ class TestTunerAndRoundTrips:
         ref = r_AT.autotune(r_w, seed=0, timer=r_AT.estimate_timer)
         assert a.table_hash() == ref.table_hash()
         assert sorted(a.entries) == sorted(ref.entries)
+
+    def test_parity_rejects_a_row_returned_twice(self):
+        """The tie-robust parity rule also refuses a result that returns one
+        row twice, which a tile scanned by two splits gives and a tie
+        would otherwise hide."""
+        full = torch.tensor([[5.0, 5.0, 3.0, 1.0], [2.0, 7.0, 7.0, 7.0]])
+        ctx = AT._Ctx(None, None, None, full, torch.tensor([[5.0, 5.0],
+                                                            [7.0, 7.0]]))
+        s = ctx.top.clone()
+        assert AT._parity_ok(ctx, s, torch.tensor([[0, 1], [3, 2]]))
+        assert AT._parity_ok(ctx, s, torch.tensor([[1, 0], [1, 3]]))
+        assert not AT._parity_ok(ctx, s, torch.tensor([[0, 0], [1, 2]]))
+        assert not AT._parity_ok(ctx, s, torch.tensor([[0, 1], [2, 2]]))
+        assert not AT._parity_ok(ctx, s, torch.tensor([[0, 2], [1, 2]]))
 
     @pytest.mark.parametrize("writer", ["port", "reference"])
     def test_json_round_trip_bit_exact(self, tmp_path, writer):
@@ -315,9 +360,18 @@ class TestDispatch:
             assert st1[key] == rst1[key], key
 
     def test_tile_query_routing(self):
-        fb = T.fallback("fused_topk").bq
-        assert Kops.fused_query_tile() == fb
-        assert T.fallback("fused_adc").bq == Kops.fused_adc_query_tile()
+        # the fallback rows name the implementation only: untuned, the
+        # layouts answer
+        for fam in T.FUSED_FAMILIES:
+            assert T.fallback(fam) == TuneConfig("fused")
+        assert T.fallback("scan") == TuneConfig("scan")
+        assert Kops.fused_query_tile(64, 8192, 64) == \
+            F.layout(F.KIND_I8, 64, 8192, 100, 64).bq
+        assert Kops.fused_query_tile(256, 8192, 256, packed=True, bits=4,
+                                     k=1500) == \
+            F.layout(F.KIND_I4, 256, 8192, 1500, 128).bq
+        assert Kops.fused_adc_query_tile(256, 8192, 64, bits=4) == \
+            A.adc_layout(100, 32, 4, 256, 8192).bq
         table = _tiny_table({("fused_topk", "ip", 8, 64, 8192, 64):
                              TuneConfig("fused", bq=16, bn=4096),
                              ("fused_adc", "ip", 8, 64, 8192, 32):
@@ -327,7 +381,8 @@ class TestDispatch:
         assert Kops.fused_adc_query_tile(64, 8192, 32, metric="ip") == 4
         # a bucket the table never measured -> today's layouts
         assert Kops.fused_query_tile(64, 8192, 128, metric="ip",
-                                     bits=8) == F.i8_query_tile(64)
+                                     bits=8) == \
+            F.layout(F.KIND_I8, 64, 8192, 100, 128).bq
         assert Kops.fused_adc_query_tile(64, 8192, 16) == \
             A.query_tile(100, 16, 8, 64)
         # the reference routes the same table the same way
