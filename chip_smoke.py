@@ -176,11 +176,32 @@ Phases (each prints its lines; any failure exits non-zero):
               from-scratch build on live_items(), an admission burst
               under an injected clock, the telemetry summary and the
               runtime stamp
+ 12. dist     sharded plans on ["cuda:0"] * s meshes and replicas: each
+              sharded request and the replica set's serving is a run of
+              the path, counted alone (counters set to 0 just before, read
+              just after; the plans it is held against run outside), and
+              B1-B6 must each launch on them: (a) every arm of the reference's
+              SHARDED_ARMS at 4,000 x 64 (the stream arm with writes),
+              planned at 1, 2 and 4 shards, unfiltered and at 0.25: ids
+              and scores bit-equal to the card's unsharded plan, and for
+              flat,lpq4 / pq16x4,lpq8 / ivf8,lpq8 to the CPU's sharded plan
+              too; (b) phase 11's product-like builds (flat,lpq8@gaussian:3,
+              pq32+lpq, pq64x4+lpq) and flat,lpq4+r32 at 1, 2 and 4 shards,
+              each shard launching the arm's kernel, bit-equal to the
+              unsharded plan, p50 of 256-query requests beside it;
+              SIFT-like ivf1024,lpq8@global_minmax at nprobe 16 on 4
+              shards, its probe launching B2 fp32; retrieval_cand (10^6 x
+              128, Q=512) through make_retrieval_sharded on 4 shards, B1
+              and B6 launched once a shard, bit-equal to
+              make_retrieval; balance and merge bytes logged; (c) a
+              ReplicaSet of two flat,lpq8@gaussian:3 Searchers serving 32
+              requests, each equal to the plain Searcher's, its telemetry
+              counters logged
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
 the score-matrix ops, the HNSW path, the graph / ivf path, phase 9(b)
-and (c), phase 10(c) and phase 11(b)-(c)), then the
+and (c), phase 10(c), phase 11(b)-(c) and phase 12), then the
 card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -3745,10 +3766,11 @@ PHASE11_KERNELS = ("quantize", "fused_topk_int8", "fused_topk4", "fused_adc",
                    "fused_adc4")
 
 
-def phase11(pc, pq) -> dict:
+def phase11(pc, pq):
     """11: (a) tune outside the counts; then (b) and (c) as one run of the
     path, the counters set to 0 before and read after; then the oracle of
-    (c)'s compaction."""
+    (c)'s compaction.  Returns the counts and (b)'s builds, which phase 12
+    serves again."""
     from repro_torch import kernels
 
     table = tune_path()
@@ -3759,8 +3781,357 @@ def phase11(pc, pq) -> dict:
     log(f"[phase11] kernel launches on phase 11's run: {run}")
     for name in PHASE11_KERNELS:
         need(run[name] > 0, f"kernel {name} was never launched on phase 11")
-    del built
     hold_compaction()
+    return run, built
+
+
+# --------------------------------------------------------------------------
+# phase 12: sharded plans and replicas (dist/) on one card
+# --------------------------------------------------------------------------
+
+#: 12(a): the reference's sharded parity arms and their build overrides
+#: (tests/test_conformance.py:195)
+SHARDED_ARMS = {
+    "flat,lpq4": {},
+    "ivf8,lpq8": {"kmeans_iters": 4},
+    "ivf8,lpq8,regions": {"kmeans_iters": 4},
+    "pq16x4,lpq8": {"kmeans_iters": 4},
+    "pq16+lpq,l2": {"kmeans_iters": 4},
+    "hnsw8,lpq8,regions": {"ef_construction": 40, "batch_size": 128},
+    "graph16,lpq4,regions": {"n_seeds": 16},
+    "stream(ivf8,lpq8)+r32": {"seal_threshold": 128, "kmeans_iters": 4},
+    "cascade(flat,lpq4|r32)": {},
+}
+#: 12(a): arms whose card plans are also held to the CPU's sharded plans
+#: (the card built from the CPU build's draws)
+SHARDED_ON_CPU = ("flat,lpq4", "pq16x4,lpq8", "ivf8,lpq8")
+#: 12(a)-(b): the shard counts of the meshes (["cuda:0"] * s)
+SHARD_COUNTS = (1, 2, 4)
+#: 12(b): product-like arms at full width, each with the kernel its shards
+#: launch
+SHARDED_WIDE = {"flat,lpq8@gaussian:3": "fused_topk_int8",
+                "flat,lpq4+r32": "fused_topk4",
+                "pq32+lpq": "fused_adc", "pq64x4+lpq": "fused_adc4"}
+#: 12(b): timed 256-query requests a plan (each plan warmed first)
+SHARDED_REQS = 6
+#: 12(b): the SIFT-like ivf arm, its nprobe and its shard count
+SHARDED_IVF, SHARDED_NPROBE, SHARDED_IVF_S = ("ivf1024,lpq8@global_minmax",
+                                              16, 4)
+#: 12(c): requests a two-replica set serves, and their queries each
+REPLICA_REQS, REPLICA_Q = 32, 8
+#: kernels phase 12's runs must launch: B1-B6
+PHASE12_KERNELS = ("quantize", "fused_topk_int8", "fused_topk_fp32",
+                   "fused_topk4", "fused_adc", "fused_adc4", "qmip")
+
+
+def _mesh(s: int, dev: str = "cuda:0"):
+    from repro_torch.dist import make_mesh
+
+    return make_mesh((s,), ("data",), [dev] * s)
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a.ids.cpu(), b.ids.cpu())
+            and torch.equal(a.scores.cpu(), b.scores.cpu()))
+
+
+def _counted(run: dict, fn, *args):
+    """``fn(*args)`` as one run of phase 12's path: the launch counts set
+    to 0 just before it and read just after (the card synchronised), and
+    added into ``run``.  Returns fn's result and this run's counts.  The
+    plans it is held against, and every timed repeat, run outside."""
+    import torch
+
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    for name, c in got.items():
+        run[name] = run.get(name, 0) + c
+    return out, got
+
+
+def sharded_exact(run: dict) -> None:
+    """12(a): every arm of SHARDED_ARMS at 4,000 x 64 (ip, k=10, 64
+    queries, nprobe 8, ef_search 40), built once on the card (the stream
+    arm with writes: segments and a memtable), planned on ["cuda:0"] * s
+    for s in SHARD_COUNTS, unfiltered and at selectivity 0.25: ids and
+    scores equal the card's unsharded plan bit for bit, and
+    for SHARDED_ON_CPU also the CPU's sharded plan on the CPU's build (the
+    card's build takes its draws).  Only the sharded plans count into
+    ``run``.  Every failure is listed before the phase fails."""
+    import numpy as np
+    import torch
+
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, as_spec, make_index
+    from repro_torch.knn.registry import get_impl
+    from repro_torch.testing import (build_draws, build_with_writes,
+                                     fp32_near_equal)
+
+    n, d, k = 4000, 64, 10
+    rng = np.random.default_rng(12)
+    corpus = (rng.standard_normal((n, d)) * 0.05).astype(np.float32)
+    q_cpu = torch.from_numpy(
+        (rng.standard_normal((64, d)) * 0.05).astype(np.float32))
+    queries = q_cpu.cuda()
+    allow = rng.random(n) < 0.25
+    params = {"unfiltered": SearchParams(nprobe=8, ef_search=40),
+              "0.25": SearchParams(nprobe=8, ef_search=40,
+                                   filter=Filter.from_mask(allow))}
+    bad = []
+    for f, over in SHARDED_ARMS.items():
+        t0 = time.perf_counter()
+        cpu = None
+        if f in SHARDED_ON_CPU:
+            spec = as_spec(f, metric="ip")
+            cpu = get_impl(spec.kind).build(corpus, spec, device="cpu",
+                                            **over)
+            spec, kw = build_draws(f, "ip", cpu, corpus)
+            if not kw["_given"]:            # a flat build draws nothing
+                del kw["_given"]
+            card = get_impl(spec.kind).build(corpus, spec, device="cuda",
+                                             **kw, **over)
+        elif f.startswith("stream"):
+            # segments and a memtable: half the rows bulk-loaded, the rest
+            # upserted, some deleted and upserted back (phase 9(a)'s way)
+            card = build_with_writes(make_index, f, corpus, bulk=n // 2,
+                                     chunk=700, dead=np.arange(5, 400, 7),
+                                     revive=True, metric="ip", **over)
+        else:
+            card = make_index(f, corpus, metric="ip", **over)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = 0
+        for tag, sp in params.items():
+            un = card.searcher(k, sp)(queries)
+            for s in SHARD_COUNTS:
+                sh, _ = _counted(run, lambda: card.searcher(
+                    k, sp, shards=_mesh(s))(queries))
+                if not _same(un, sh):
+                    ok, err = fp32_near_equal(
+                        sh.scores.cpu().numpy(), sh.ids.cpu().numpy(),
+                        un.scores.cpu().numpy(), un.ids.cpu().numpy(), 1e-6)
+                    bad.append(f"{f} {tag} @ {s} shards: not bit-equal to "
+                               f"the unsharded plan (fp32 rtol 1e-6: {ok}, "
+                               f"{err})")
+                if sh.stats["shards"] != s or "placement" not in sh.stats:
+                    bad.append(f"{f} @ {s} shards: stats {sh.stats}")
+                held += 1
+                if cpu is not None:
+                    c = cpu.searcher(k, sp, shards=_mesh(s, "cpu"))(q_cpu)
+                    if not _same(c, sh):
+                        bad.append(f"{f} {tag} @ {s} shards: the card's "
+                                   "plan differs from the CPU's")
+                    held += 1
+        log(f"[sharded] {f} 4,000 x 64: built in {build_s:.2f} s; {held} "
+            f"sharded plans held at {SHARD_COUNTS} shards, unfiltered and "
+            f"at 0.25 (placement {sh.stats['placement']}, balance "
+            f"{sh.stats['placement_balance']})"
+            + (" and against the CPU's" if cpu is not None else ""))
+        del card, cpu
+    need(not bad, "12(a): " + "; ".join(bad))
+
+
+def _p50(fn, q, reps: int) -> float:
+    import torch
+
+    fn(q)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn(q)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(lat)
+
+
+def sharded_wide(built, pc, pq, run: dict) -> None:
+    """12(b): the product-like arms of SHARDED_WIDE at 4,000,000 x 256 (ip,
+    k=100; phase 11's builds where it has them) planned unsharded and on
+    SHARD_COUNTS meshes: each shard launches the arm's kernel, ids and
+    scores bit-equal to the unsharded plan, p50 of 256-query requests
+    beside it, placement balance and merge bytes.  Then SHARDED_IVF at
+    SIFT-like 10^6 x 128 (l2, nprobe SHARDED_NPROBE) on SHARDED_IVF_S
+    shards, and retrieval_cand (10^6 x 128, Q=512, k=100) through
+    make_retrieval_sharded on 4 shards against make_retrieval.  One
+    request of each sharded plan counts into ``run``, and must launch its
+    kernels: each shard its arm's, the ivf plan its B2 fp32 probe, the
+    retrieval step B1 and B6 once a shard."""
+    import torch
+
+    from repro_torch.core.quant import learn_params, quantize
+    from repro_torch.data import synthetic
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.launch.steps import make_retrieval, make_retrieval_sharded
+
+    card = smi()
+    k = 100
+    q = pq[:256]
+    for f, kname in SHARDED_WIDE.items():
+        t0 = time.perf_counter()
+        idx = built[f] if f in built else make_index(f, pc, metric="ip")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        un = idx.searcher(k)
+        want = un(q)
+        p50 = {"unsharded": _p50(un, q, SHARDED_REQS)}
+        wire = {}
+        for s in SHARD_COUNTS:
+            plan = idx.searcher(k, shards=_mesh(s))
+            got, c = _counted(run, plan, q)
+            need(c[kname] >= s,
+                 f"12(b) {f} @ {s} shards: {kname} not launched by each shard")
+            need(_same(got, want), f"12(b) {f} @ {s} shards: not bit-equal "
+                 "to the unsharded plan")
+            p50[s] = _p50(plan, q, SHARDED_REQS)
+            wire[s] = (got.stats["placement_balance"],
+                       got.stats["merge_wire_bytes"])
+        log(f"[sharded] product {pc.shape[0]}x{pc.shape[1]} ip {f} "
+            f"({'phase 11 build' if f in built else f'built {build_s:.2f} s'}"
+            f"): ids and scores bit-equal to the unsharded plan at "
+            f"{SHARD_COUNTS} shards; p50 of 256-query requests unsharded "
+            f"{p50['unsharded']:.3f} ms, "
+            + ", ".join(f"{s} shards {p50[s]:.3f} ms (balance {wire[s][0]}, "
+                        f"merge {wire[s][1]} B)" for s in SHARD_COUNTS)
+            + f" | {card}")
+
+    sc, sq, metric = synthetic.load("sift", 1_000_000, 256)
+    t0 = time.perf_counter()
+    idx = make_index(SHARDED_IVF, sc, metric=metric)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sp = SearchParams(nprobe=SHARDED_NPROBE)
+    un = idx.searcher(k, sp)
+    want = un(sq)
+    t0 = time.perf_counter()
+    plan = idx.searcher(k, sp, shards=_mesh(SHARDED_IVF_S))
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    un_p50 = _p50(un, sq, SHARDED_REQS)
+    got, c = _counted(run, plan, sq)
+    need(c["fused_topk_fp32"] > 0, f"12(b) {SHARDED_IVF} @ {SHARDED_IVF_S} "
+         "shards: the coarse probe did not launch fused_topk_fp32")
+    need(_same(got, want), f"12(b) {SHARDED_IVF} @ {SHARDED_IVF_S} shards: "
+         "not bit-equal to the unsharded plan")
+    pl = plan.placement.summary()
+    log(f"[sharded] SIFT-like 1000000x128 {metric} {SHARDED_IVF} nprobe "
+        f"{SHARDED_NPROBE} (built {build_s:.2f} s): {SHARDED_IVF_S} shards "
+        f"bit-equal to the unsharded plan; list blocks placed in "
+        f"{plan_s:.2f} s, rows a shard {pl['rows']}, balance "
+        f"{pl['balance']}, merge {got.stats['merge_wire_bytes']} B; p50 of "
+        f"256-query requests unsharded {un_p50:.3f} ms, "
+        f"sharded {_p50(plan, sq, SHARDED_REQS):.3f} ms | {card}")
+    del idx, plan, un, sc, sq
+
+    table_np, queries_np = retrieval_data(1_000_000, 128, 512, seed=0)
+    table = torch.from_numpy(table_np).cuda()
+    rq = torch.from_numpy(queries_np).cuda()
+    p = learn_params(table, bits=8, scheme="absmax")
+    args = (quantize(table, p), p.lo, p.hi, p.zero)
+    plain = make_retrieval(True, k=k)
+    sharded = make_retrieval_sharded(_mesh(4), table.shape[0] // 4, k=k)
+    ws, wi = plain(rq, *args)
+    (gs, gi), c = _counted(run, sharded, rq, *args)
+    need(c["quantize"] == 4 and c["qmip"] == 4, "12(b) retrieval_cand: "
+         f"make_retrieval_sharded launched quantize {c['quantize']} and qmip "
+         f"{c['qmip']} times, not once a shard")
+    need(torch.equal(ws, gs) and torch.equal(wi, gi),
+         "12(b) retrieval_cand: make_retrieval_sharded differs from "
+         "make_retrieval")
+
+    def timed(step):
+        return _p50(lambda x: step(x, *args), rq, SHARDED_REQS)
+
+    log(f"[sharded] retrieval_cand 1000000x128 Q=512 k=100: 4 shards "
+        f"bit-equal to make_retrieval; p50 make_retrieval "
+        f"{timed(plain):.3f} ms, make_retrieval_sharded {timed(sharded):.3f}"
+        f" ms | {card}")
+
+
+def replica_path(built, pq, run: dict) -> None:
+    """12(c): a ReplicaSet of two flat,lpq8@gaussian:3 Searchers (phase
+    11's 4,000,000 x 256 build) on the card serves REPLICA_REQS requests
+    of REPLICA_Q queries, each result equal to the plain Searcher's; the
+    telemetry counters are logged.  The set's serving counts into
+    ``run``; the plain Searcher runs after."""
+    import torch
+
+    from repro_torch.dist import ReplicaSet
+    from repro_torch.runtime.telemetry import Telemetry
+
+    idx = built["flat,lpq8@gaussian:3"]
+    k = 100
+    tel = Telemetry()
+
+    def make(r):
+        s = idx.searcher(k)
+
+        def serve(qs):
+            res = s(qs)
+            torch.cuda.synchronize()
+            return res
+
+        return serve
+
+    reqs = [pq[i * REPLICA_Q:(i + 1) * REPLICA_Q] for i in range(REPLICA_REQS)]
+
+    def serve_all():
+        rs = ReplicaSet(make, 2, telemetry=tel)
+        futs = [rs.submit(r, queries=REPLICA_Q) for r in reqs]
+        got = [f.result(timeout=300) for f in futs]
+        rs.close()
+        return got
+
+    t0 = time.perf_counter()
+    got, c = _counted(run, serve_all)
+    wall = time.perf_counter() - t0
+    need(c["fused_topk_int8"] >= REPLICA_REQS, "12(c): the replicas "
+         f"launched fused_topk_int8 {c['fused_topk_int8']} times for "
+         f"{REPLICA_REQS} requests")
+    plain = idx.searcher(k)
+    for i, (r, res) in enumerate(zip(reqs, got)):
+        need(_same(res, plain(r)), f"12(c): request {i} served by the "
+             "replica set differs from the plain Searcher's")
+    counters = {key: v for key, v in tel.counters.items()
+                if key.startswith("replica") or key == "requests"}
+    log(f"[replicas] two flat,lpq8@gaussian:3 replicas on one card served "
+        f"{REPLICA_REQS} requests of {REPLICA_Q} queries in {wall:.3f} s, "
+        f"each equal to the plain Searcher's; counters {counters}; "
+        f"execute {tel.percentiles('replica0/execute')} / "
+        f"{tel.percentiles('replica1/execute')}; queue wait "
+        f"{tel.percentiles('replica0/queue_wait')} / "
+        f"{tel.percentiles('replica1/queue_wait')} | {smi()}")
+
+
+def phase12(built, pc, pq) -> dict:
+    """12: (a) the exactness matrix at 4,000 x 64, then (b) full width and
+    (c) replicas.  The path's runs are the sharded plans' requests and the
+    replica set's serving, each counted with the counters set to 0 just
+    before it and read just after (``_counted``); the unsharded and plain
+    plans they are held against, and the timed repeats, run outside those
+    windows.  B1-B6 must each have launched on the path's runs."""
+    from repro_torch import kernels
+
+    run = dict.fromkeys(kernels.launch_counts(), 0)
+    t0 = time.perf_counter()
+    sharded_exact(run)
+    log(f"[sharded] 12(a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_wide(built, pc, pq, run)
+    log(f"[sharded] 12(b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    replica_path(built, pq, run)
+    log(f"[sharded] 12(c) {time.perf_counter() - t0:.1f} s")
+    log(f"[phase12] kernel launches on phase 12's sharded and replica runs: "
+        f"{run}")
+    for name in PHASE12_KERNELS:
+        need(run[name] > 0, f"kernel {name} was never launched on phase 12")
     return run
 
 
@@ -3870,10 +4241,14 @@ def main() -> int:
         for name, c in cascade_path(err, pc, pq).items():
             counts[name] += c
         mark("phase 10(c)")
-        for name, c in phase11(pc, pq).items():
+        run, built = phase11(pc, pq)
+        for name, c in run.items():
             counts[name] = counts.get(name, 0) + c
-        del pc, pq
         mark("phase 11")
+        for name, c in phase12(built, pc, pq).items():
+            counts[name] = counts.get(name, 0) + c
+        del pc, pq, built
+        mark("phase 12")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

@@ -18,7 +18,9 @@ plan as given and is applied again at every stage.
 Per-stage stats ride in ``SearchResult.stats["stages"]`` as a tuple of
 ``(label, candidates, bytes_read, bits)`` rows.  Refinement stages score
 with plain torch (``topk_among``), as the reference does: no TPU kernel
-stands behind them; the head runs its kind's kernels.
+stands behind them; the head runs its kind's kernels.  A cascade shards
+wherever its head shards: on a mesh the head plans on it, and the stages
+gather by id against their stores on the cascade's device.
 """
 
 from __future__ import annotations
@@ -43,9 +45,6 @@ from repro_torch.knn.spec import (
     parse_factory,
     resolve_build_spec,
 )
-
-_MESH = ("cascade placement and mesh plans are not ported yet: ROADMAP "
-         "queue A14 (dist/)")
 
 
 def _build_stage_store(frag: str, corpus,
@@ -199,22 +198,25 @@ class CascadeIndex:
 
     # -- query -------------------------------------------------------------
     def placement(self, n_shards: int):
-        raise NotImplementedError(_MESH)
+        """A cascade shards wherever its head shards: refinement stages
+        gather by id against their stores."""
+        from repro_torch.dist import placement as dplacement
+
+        return dplacement.for_index(self.head, n_shards)
 
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None, rerank_depth: Optional[int] = None):
         """Freeze budgets and per-stage stores into one runner ``queries ->
         SearchResult``: the head prunes to ``budgets[0]``, each stage
         refines through ``engine.refine_among``."""
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(_MESH)
         sp = (params or B.SearchParams()).validate()
         budgets = self.resolve_budgets(k, sp.budgets, rerank_depth)
         # the head prunes under the filter (it gets sp as is) and every
         # stage masks its candidate slots again: a stage can only prune,
         # but the re-apply keeps that independent of the head's kind
         fmask, fstats = B.filter_mask(sp, self.n, self.device)
-        head_runner = self.head.plan(budgets[0], sp)
+        head_runner = self.head.plan(budgets[0], sp, mesh=mesh,
+                                     placement=placement)
         outs = tuple(budgets[1:]) + (k,)
         labels = tuple(_stage_label(f, st)
                        for f, st in zip(self.stage_specs, self.stage_stores))

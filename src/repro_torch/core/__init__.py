@@ -1,7 +1,6 @@
 """The paper's quantization family (Q, phi) in torch: Eq. 1 constants and
 codes, integer-domain distances, int4 packing, and the Definition-2 and
-recall validators (port of ``repro.core``; ``distributed_stats`` waits for
-ROADMAP queue A14)."""
+recall validators (port of ``repro.core``)."""
 
 from repro_torch.core.distances import (  # noqa: F401
     angular_scores,
@@ -32,5 +31,6 @@ from repro_torch.core.stats import (  # noqa: F401
     DimStats,
     StreamingStats,
     corpus_stats,
+    distributed_stats,
     merge_stats,
 )

@@ -2,8 +2,8 @@
 port of ``repro.core.stats``: the one-shot collector ``corpus_stats``,
 the Chan / Welford parallel merge ``merge_stats`` and its streaming holder
 ``StreamingStats``, the ``calibration_drift`` scalar the stream compactor
-reads, and the npz fragments of a ``DimStats``.  The distributed
-collector waits for ROADMAP queue A14.
+reads, the npz fragments of a ``DimStats``, and ``distributed_stats``
+over a row-sharded corpus.
 """
 
 from __future__ import annotations
@@ -180,3 +180,29 @@ class StreamingStats:
     @property
     def stats(self) -> DimStats:
         return self._s
+
+
+def distributed_stats(local_shards) -> DimStats:
+    """Per-dim stats of a row-sharded corpus: each shard's moments on its
+    own device (``corpus_stats``), merged on the first shard's device with
+    the reference's one-pass moment arithmetic (``_psum_stats``): summed
+    counts, the count-weighted mean, and m2 with the cross-shard term
+    ``n_i * (mean_i - mean)^2``; max / min for the ranges.  O(d) bytes
+    move between devices, not O(N * d).  An empty shard adds nothing."""
+    parts = [corpus_stats(x) for x in local_shards]
+    if not parts:
+        raise ValueError("distributed_stats of zero shards")
+    dev = parts[0].mean.device
+    parts = [DimStats(**{f: getattr(p, f).to(dev) for f in STATS_FIELDS})
+             for p in parts]
+    n = sum(p.count for p in parts)
+    safe_n = torch.clamp_min(n, 1.0)
+    gmean = sum(p.mean * p.count for p in parts) / safe_n
+    m2 = sum(p.m2 + p.count * (p.mean - gmean) ** 2 for p in parts)
+    amax, vmin, vmax = parts[0].amax, parts[0].vmin, parts[0].vmax
+    for p in parts[1:]:
+        amax = torch.maximum(amax, p.amax)
+        vmin = torch.minimum(vmin, p.vmin)
+        vmax = torch.maximum(vmax, p.vmax)
+    return DimStats(count=n, mean=gmean, m2=m2, amax=amax, vmin=vmin,
+                    vmax=vmax)

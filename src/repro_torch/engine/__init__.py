@@ -7,6 +7,7 @@ from repro_torch.engine.scorer import (  # noqa: F401
     get_lut_cache,
     lut_cache_bypassed,
     chunked_topk,
+    distributed_topk,
     make_batch_score_set,
     make_score_set,
     merge_topk,
@@ -21,5 +22,6 @@ from repro_torch.engine.scorer import (  # noqa: F401
     topk,
     topk_among,
     topk_among_regional,
+    topk_from_lut,
 )
 from repro_torch.engine.store import PQ_CODE_BITS, CodeStore, PQStore  # noqa: F401

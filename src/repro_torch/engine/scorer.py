@@ -241,6 +241,62 @@ def topk(queries, store: CodeStore | PQStore, k: int, metric: str, *,
 
 
 # --------------------------------------------------------------------------
+# distributed merge (corpus sharded over a mesh's devices)
+# --------------------------------------------------------------------------
+
+def distributed_topk(local_scores, local_ids, k: int, shard_offset=0, *,
+                     tie_break: str = "order", device=None):
+    """Merge per-shard top-k lists into one global top-k on one device.
+
+    ``local_scores`` / ``local_ids`` hold one [Q, k_s] list a shard, in
+    shard order, each on its shard's device; ``shard_offset`` (an int, or
+    one int a shard) rebases the shards' ids to global ids (-1 stays -1).
+    The lists are gathered onto ``device`` (default: the first shard's):
+    O(shards * Q * k) bytes, whatever the corpus size.  Nothing here waits
+    on the host, so the caller launches every shard's work before the
+    first gather and shards on distinct cards overlap.
+
+    ``tie_break`` decides which of several equal-score candidates wins,
+    the thing that makes sharded results *bit-identical* to unsharded
+    ones, not merely score-identical (quantized scores tie constantly):
+
+      * ``"order"``: stable in gather order, the lower shard first, then
+        the local rank.  Correct when shard order is global id order
+        (contiguous row blocks: flat / pq scans), where it is lowest id.
+      * ``"id"``: lexicographic (score desc, id asc).  Correct when shards
+        interleave the id space (ivf's list placement merges on candidate
+        *positions*, reproducing ``topk_among``'s order).  NEG-masked
+        slots sort last whatever their id.  As the reference's two-key
+        sort, it holds -0.0 and +0.0 equal (ties by id); ``"order"`` ranks
+        +0.0 first, as ``lax.top_k`` and the rest of the port do.
+
+    A mesh of several axes merges once over all its shards in row-major
+    order (the reference merges axis by axis).
+    """
+    if tie_break not in ("order", "id"):
+        raise ValueError(f"tie_break must be 'order' or 'id', got {tie_break!r}")
+    n_sh = len(local_scores)
+    if len(local_ids) != n_sh or n_sh == 0:
+        raise ValueError("one score list and one id list a shard, at least one")
+    offs = ([int(shard_offset)] * n_sh if isinstance(shard_offset, int)
+            else [int(o) for o in shard_offset])
+    dev = torch.device(device) if device is not None else local_scores[0].device
+    s = torch.cat([x.to(dev, torch.float32) for x in local_scores], dim=1)
+    i = torch.cat([torch.where(x >= 0, x + o, -1).to(dev, torch.int32)
+                   for x, o in zip(local_ids, offs)], dim=1)
+    k = min(int(k), s.shape[1])
+    if tie_break == "order":
+        pos = stable_desc(s, k)
+    else:
+        # (score desc, id asc): a stable sort by id, then a stable sort by
+        # score; NEG is the lowest score, so masked slots come last
+        by_id = torch.sort(i, dim=1, stable=True).indices
+        s, i = torch.gather(s, 1, by_id), torch.gather(i, 1, by_id)
+        pos = stable_desc(s + 0.0, k)           # + 0.0: -0.0 ties +0.0
+    return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
+
+
+# --------------------------------------------------------------------------
 # PQ: ADC — fused kernel (B4 / B5) or streaming LUT gather-sum scan
 # --------------------------------------------------------------------------
 
@@ -322,21 +378,17 @@ def lut_cache_bypassed():
         _BYPASS.depth -= 1
 
 
-def _topk_pq(queries, store: PQStore, k: int, metric: str, chunk: int,
-             mask=None, cfg=None):
-    """Asymmetric distance computation over the code matrix: the per-query
-    LUT (from the LUT cache where one is installed and this thread is not
-    in a bucketed run), then ``_topk_pq_from_lut``."""
+def pq_lut(queries, store: PQStore, metric: str) -> torch.Tensor:
+    """The per-query ADC table of a search: from the LUT cache where one is
+    installed and this thread is not in a bucketed run, else
+    ``_prepare_pq_lut``."""
     cache = _LUT_CACHE
     if cache is not None and not getattr(_BYPASS, "depth", 0):
         key = cache.key_for(queries, store.codebooks, metric,
                             store.lpq_tables)
-        lut = cache.get_or_build(
+        return cache.get_or_build(
             key, lambda: _prepare_pq_lut(queries, store, metric))
-    else:
-        lut = _prepare_pq_lut(queries, store, metric)
-    return _topk_pq_from_lut(lut, store, k, metric, chunk, mask=mask,
-                             cfg=cfg)
+    return _prepare_pq_lut(queries, store, metric)
 
 
 def _topk_pq_from_lut(lut, store: PQStore, k: int, metric: str, chunk: int,
@@ -375,9 +427,19 @@ def _topk_pq_stats(queries, store: PQStore, k: int, metric: str, chunk: int,
             "PQ/ADC scoring supports ip and l2 only (see the dispatch "
             "table in this module's docstring)"
         )
-    Q = queries.shape[0]
+    return topk_from_lut(pq_lut(queries, store, metric), store, k, metric,
+                         chunk=chunk, mask=mask)
+
+
+def topk_from_lut(lut, store: PQStore, k: int, metric: str, *,
+                  chunk: int = 16384, mask=None):
+    """Top-k of a PQ store given its [Q, M, K] ADC table ``lut`` (on the
+    store's device): (scores, ids, stats) padded to [Q, k], as ``topk``'s
+    PQStore branch; a sharded plan builds the table once and hands each
+    shard's code block its copy."""
+    Q = lut.shape[0]
     cfg = T.lookup("fused_adc", metric, store.bits, Q, store.n, store.m)
-    s, i = _topk_pq(queries, store, k, metric, chunk, mask=mask, cfg=cfg)
+    s, i = _topk_pq_from_lut(lut, store, k, metric, chunk, mask=mask, cfg=cfg)
     if s.shape[1] < k:                   # uniform [Q, k] contract: -1 pads
         s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=NEG)
         i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=-1)

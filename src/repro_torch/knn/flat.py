@@ -6,8 +6,9 @@ the fused score + top-k kernels B2 / B3.
 
 Registered as kind ``"flat"``; factory strings ``"flat"``,
 ``"flat,lpq8@gaussian:3"``, ``"flat,lpq4"``, ``"flat,lpq4+r32"``.
-A ``SearchParams.filter`` bitmap rides the scan's id-masking fence.  The
-mesh (sharded) path is not ported yet.
+A ``SearchParams.filter`` bitmap rides the scan's id-masking fence.  On a
+mesh the scan shards in contiguous row blocks
+(``knn.searcher.sharded_scan_plan``).
 """
 
 from __future__ import annotations
@@ -105,7 +106,8 @@ class FlatIndex:
 
     @staticmethod
     def from_store(store: engine.CodeStore, metric: str) -> "FlatIndex":
-        """Wrap an existing store."""
+        """Wrap an existing store (shared-payload builds, shard-local
+        indexes carrying a row-id base)."""
         return FlatIndex(metric=metric, store=store)
 
     # -- query ------------------------------------------------------------
@@ -113,19 +115,39 @@ class FlatIndex:
         """h(q) of Definition 2: queries enter the quantized space too."""
         return self.store.encode_queries(queries)
 
+    def placement(self, n_shards: int):
+        """Contiguous row blocks: the flat scan's natural sharding."""
+        from repro_torch.dist.placement import Placement
+
+        return Placement.rows(self.n, n_shards)
+
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None):
-        """Freeze (k, params) into a runner ``queries -> SearchResult``."""
-        del placement
+        """Freeze (k, params) into a runner ``queries -> SearchResult``.
+
+        With a mesh, the runner row-shards the store per ``placement``
+        (row blocks) and merges the shard-local top-k lists once
+        (``knn.searcher.sharded_scan_plan``)."""
         sp = params or B.SearchParams()
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded (mesh) flat plan is not ported yet: "
-                "ROADMAP queue A14 (dist/)")
         # filter (DESIGN.md §16): external ids == row ids for a direct
         # build, so the bitmap aligns with the store as-is and rides the
         # engine's id-masking fence (B2 / B3's mask on the card)
         fmask, fstats = B.filter_mask(sp, self.n, self.device)
+        if mesh is not None:
+            from repro_torch.knn.searcher import sharded_scan_plan
+
+            inner = sharded_scan_plan(self.store, self.metric, k, mesh,
+                                      chunk=sp.chunk, placement=placement,
+                                      mask=fmask)
+            if not fstats:
+                return inner
+
+            def run_sharded(queries) -> B.SearchResult:
+                res = inner(queries)
+                return B.SearchResult(res.scores, res.ids,
+                                      {**res.stats, **fstats})
+
+            return run_sharded
 
         def run(queries) -> B.SearchResult:
             q = self.prepare_queries(queries)

@@ -41,8 +41,9 @@ before the cut to k.
 
 A ``SearchParams.filter`` leaves the walk alone, widens ef to
 ``overfetch(k, selectivity, n)`` and masks the cut from ef to k (or the
-regional re-score).  Not ported yet: placement / mesh plans (ROADMAP
-queue A14), which raise naming their item.
+regional re-score).  The walk is not row-shardable: on a mesh the index
+replicates and the query batch splits over the shards
+(``dist.replica.replicated_query_plan``).
 """
 
 from __future__ import annotations
@@ -70,9 +71,6 @@ from repro_torch.knn.spec import (
     quant_spec_from_kwargs,
     resolve_build_spec,
 )
-
-_MESH = ("graph placement (replicated walks over a mesh) is not ported "
-         "yet: ROADMAP queue A14 (dist/)")
 
 #: bytes of working set one block of the self-join's queries may hold
 JOIN_BYTES = 1 << 28
@@ -289,16 +287,26 @@ class GraphIndex:
         return self.store.encode_queries(queries)
 
     def placement(self, n_shards: int):
-        raise NotImplementedError(_MESH)
+        """The walk is not row-shardable: every shard holds the whole
+        adjacency and queries fan out instead (``dist.replica``)."""
+        from repro_torch.dist.placement import Placement
+
+        return Placement.replicated(self.n, n_shards)
 
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None):
         """Freeze (k, ef) into a seed-probe + beam-walk runner ``queries ->
         SearchResult``.  Queries enter in user space; the runner applies
         the MIP -> L2 augmentation itself, so the Searcher's rerank tail
-        (user metric, un-augmented store) composes on the walked ids."""
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(_MESH)
+        (user metric, un-augmented store) composes on the walked ids.
+        Under a mesh the index replicates and the walks split over the
+        shards, the cut or re-score running at the whole batch, as the
+        hnsw kind's."""
+        if placement is not None and placement.kind != "replicated":
+            raise ValueError(
+                f"the graph walk only replicates; got a {placement.kind!r} "
+                "placement"
+            )
         sp = params or B.SearchParams()
         ef = max(sp.ef_search, k)
         # filter (DESIGN.md §16): walk unfiltered, widen ef by the
@@ -306,25 +314,41 @@ class GraphIndex:
         fmask, fstats = B.filter_mask(sp, self.n, self.device)
         if fmask is not None:
             ef = max(ef, overfetch(k, sp.filter.selectivity, self.n))
-        score_set = engine.make_batch_score_set(self.store,
-                                                self.internal_metric)
         n_entry = min(8, self.seeds.shape[0])
-        seed_store = engine.CodeStore.dense(self.seeds)
+
+        def walk_of(ix: "GraphIndex"):
+            score_set = engine.make_batch_score_set(ix.store,
+                                                    ix.internal_metric)
+            seed_store = engine.CodeStore.dense(ix.seeds)
+
+            def walk(queries):
+                qf = to_tensor(queries, device=ix.device, dtype=torch.float32)
+                if ix.aug:
+                    qf = torch.nn.functional.pad(qf, (0, 1))
+                q = ix.prepare_queries(qf)
+                # entry points: the best seeds through the engine (the
+                # "tree")
+                _s, probe, _ = engine.topk(qf, seed_store, n_entry,
+                                           ix.internal_metric)
+                entry = ix.seed_ids[probe.long()]             # [Q, n_entry]
+                return G.beam_search_batch(q, ix.adj, entry, score_set, ef)
+
+            return walk
+
+        if mesh is None:
+            exec_walk = walk_of(self)
+        else:
+            # the walks fan out over the mesh; the cut (and a regional
+            # re-score) runs on the gathered beams at the whole batch, so
+            # its batched fp32 product has the unsharded plan's shape
+            from repro_torch.dist.replica import replicated_walk
+
+            exec_walk = replicated_walk(self, walk_of, mesh)
         rg = self.regions
 
         def run(queries) -> B.SearchResult:
-            qf = to_tensor(queries, device=self.device, dtype=torch.float32)
-            qu = qf                             # user space, for regions
-            nq = qf.shape[0]
-            if self.aug:
-                qf = torch.nn.functional.pad(qf, (0, 1))
-            q = self.prepare_queries(qf)
-            # entry points: the best seeds through the engine (the "tree")
-            _s, probe, _ = engine.topk(qf, seed_store, n_entry,
-                                       self.internal_metric)
-            entry = self.seed_ids[probe.long()]               # [Q, n_entry]
-            scores, ids = G.beam_search_batch(q, self.adj, entry, score_set,
-                                              ef)
+            nq = queries.shape[0]
+            scores, ids = exec_walk(queries)
             cand_bound = n_entry + 8 * ef * self.degree
             stats = {"kind": "graph", "ef_search": ef, "n_entry": n_entry,
                      **engine.search_stats(
@@ -332,16 +356,21 @@ class GraphIndex:
                          rows_read=nq * cand_bound), **fstats}
             if rg is None:
                 scores, ids = G.filtered_cut(scores, ids, k, fmask)
-                return B.SearchResult(scores, ids, stats)
-            # re-score the walked candidates under each row's own seed's
-            # constants, in the user's metric and space (the walk's
-            # internal scores only order them)
-            rs = engine.regional_stats(self.region_store, ids)
-            scores, ids = engine.topk_among_regional(
-                qu, self.region_store, rg.scale, rg.zero, rg.assign, ids, k,
-                self.metric, mask=fmask)
-            stats.update(regional=True, regional_candidates=rs["candidates"],
-                         bytes_read=stats["bytes_read"] + rs["bytes_read"])
+            else:
+                # re-score the walked candidates under each row's own seed's
+                # constants, in the user's metric and space (the walk's
+                # internal scores only order them)
+                rs = engine.regional_stats(self.region_store, ids)
+                scores, ids = engine.topk_among_regional(
+                    to_tensor(queries, device=self.device,
+                              dtype=torch.float32),
+                    self.region_store, rg.scale, rg.zero, rg.assign, ids,
+                    k, self.metric, mask=fmask)
+                stats.update(regional=True,
+                             regional_candidates=rs["candidates"],
+                             bytes_read=stats["bytes_read"] + rs["bytes_read"])
+            if mesh is not None:
+                stats["placement"] = "replicated"
             return B.SearchResult(scores, ids, stats)
 
         return run

@@ -27,8 +27,9 @@ beam's ef survivors are re-scored under each row's own cell's constants
 
 A ``SearchParams.filter`` leaves the walk alone, widens ef to
 ``overfetch(k, selectivity, n)`` and masks the cut from ef to k (or the
-regional re-score).  Not ported yet: placement / mesh plans (ROADMAP
-queue A14), which raise naming their item.
+regional re-score).  The walk is not row-shardable: on a mesh the index
+replicates and the query batch splits over the shards
+(``dist.replica.replicated_query_plan``).
 """
 
 from __future__ import annotations
@@ -282,19 +283,27 @@ class HNSWIndex:
 
     # -- query ------------------------------------------------------------
     def placement(self, n_shards: int):
-        raise NotImplementedError(
-            "hnsw placement (replicated walks over a mesh) is not ported "
-            "yet: ROADMAP queue A14 (dist/)")
+        """The walk is not row-shardable: every shard holds the whole graph
+        and queries fan out instead (``dist.replica``)."""
+        from repro_torch.dist.placement import Placement
+
+        return Placement.replicated(self.n, n_shards)
 
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None):
         """Freeze (k, ef) into a layered-descent + beam runner ``queries ->
         SearchResult``: greedy ef=1 descent through the upper layers, then a
-        layer-0 beam of ef = max(ef_search, k), cut to k."""
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(
-                "the replicated (mesh) hnsw plan is not ported yet: "
-                "ROADMAP queue A14 (dist/)")
+        layer-0 beam of ef = max(ef_search, k), cut to k.  Under a mesh the
+        index replicates (a copy on each shard device that is not the
+        index's own) and the query batch's walks split over the shards:
+        each query's walk depends on that query alone.  The beams are
+        gathered and cut (or re-scored, ``regions``) on the index's device
+        at the whole batch."""
+        if placement is not None and placement.kind != "replicated":
+            raise ValueError(
+                f"the hnsw walk only replicates; got a {placement.kind!r} "
+                "placement"
+            )
         sp = params or B.SearchParams()
         ef = max(sp.ef_search, k)
         # filter (DESIGN.md §16): the walk stays unfiltered (the graph's
@@ -303,21 +312,37 @@ class HNSWIndex:
         fmask, fstats = B.filter_mask(sp, self.n, self.device)
         if fmask is not None:
             ef = max(ef, overfetch(k, sp.filter.selectivity, self.n))
-        score_set = engine.make_batch_score_set(self.store, self.metric)
 
+        def walk_of(ix: "HNSWIndex"):
+            score_set = engine.make_batch_score_set(ix.store, ix.metric)
+
+            def walk(queries):
+                q = ix.prepare_queries(queries)
+                entry = torch.full((q.shape[0],), ix.entry, dtype=torch.int32,
+                                   device=ix.device)
+                # upper layers: greedy ef=1 descent
+                for l in range(len(ix.layers) - 1, 0, -1):
+                    entry = G.greedy_descent_batch(q, ix.layers[l], entry,
+                                                   score_set)[0]
+                return G.beam_search_batch(q, ix.layers[0], entry[:, None],
+                                           score_set, ef)
+
+            return walk
+
+        if mesh is None:
+            exec_walk = walk_of(self)
+        else:
+            # the walks fan out over the mesh; the cut (and a regional
+            # re-score) runs on the gathered beams at the whole batch, so
+            # its batched fp32 product has the unsharded plan's shape
+            from repro_torch.dist.replica import replicated_walk
+
+            exec_walk = replicated_walk(self, walk_of, mesh)
         rg = self.regions
 
         def run(queries) -> B.SearchResult:
-            q = self.prepare_queries(queries)
-            nq = q.shape[0]
-            entry = torch.full((nq,), self.entry, dtype=torch.int32,
-                               device=self.device)
-            # upper layers: greedy ef=1 descent
-            for l in range(len(self.layers) - 1, 0, -1):
-                entry = G.greedy_descent_batch(q, self.layers[l], entry,
-                                               score_set)[0]
-            scores, ids = G.beam_search_batch(q, self.layers[0],
-                                              entry[:, None], score_set, ef)
+            nq = queries.shape[0]
+            scores, ids = exec_walk(queries)
             # candidate bound: layer-0 beam expands <= 8*ef nodes of degree
             # <= 2m each (walks stop early on convergence)
             cand_bound = ef + 8 * ef * 2 * self.m
@@ -329,16 +354,20 @@ class HNSWIndex:
                          rows_read=nq * cand_bound), **fstats}
             if rg is None:
                 scores, ids = G.filtered_cut(scores, ids, k, fmask)
-                return B.SearchResult(scores, ids, stats)
-            # re-score the beam's survivors under each row's own cell's
-            # constants before the cut to k (the filter rides its mask)
-            rs = engine.regional_stats(self.region_store, ids)
-            scores, ids = engine.topk_among_regional(
-                to_tensor(queries, device=self.device, dtype=torch.float32),
-                self.region_store, rg.scale, rg.zero, rg.assign, ids, k,
-                self.metric, mask=fmask)
-            stats.update(regional=True, regional_candidates=rs["candidates"],
-                         bytes_read=stats["bytes_read"] + rs["bytes_read"])
+            else:
+                # re-score the beam's survivors under each row's own cell's
+                # constants before the cut to k (the filter rides its mask)
+                rs = engine.regional_stats(self.region_store, ids)
+                scores, ids = engine.topk_among_regional(
+                    to_tensor(queries, device=self.device,
+                              dtype=torch.float32),
+                    self.region_store, rg.scale, rg.zero, rg.assign, ids,
+                    k, self.metric, mask=fmask)
+                stats.update(regional=True,
+                             regional_candidates=rs["candidates"],
+                             bytes_read=stats["bytes_read"] + rs["bytes_read"])
+            if mesh is not None:
+                stats["placement"] = "replicated"
             return B.SearchResult(scores, ids, stats)
 
         return run

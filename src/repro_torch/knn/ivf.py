@@ -28,9 +28,9 @@ its own list's constants, and fine scoring through
 ``engine.topk_among_regional`` (fp32 queries against dequantized rows),
 in query blocks sized for its fp32 temporaries.  A
 ``SearchParams.filter`` masks the fine scoring by row and the coarse
-probe by list (a list with no allowed member is never probed).  Not
-ported yet: the list-placed mesh plan (ROADMAP queue A14), which raises
-naming its item.
+probe by list (a list with no allowed member is never probed).  On a
+mesh, whole lists are placed on shards (``Placement.lists``) and each
+shard fine-scores the candidates it owns (``IVFIndex._sharded_plan``).
 """
 
 from __future__ import annotations
@@ -46,7 +46,9 @@ from repro_torch import engine
 from repro_torch.cascade.regions import RegionQuant
 from repro_torch.core import distances as D
 from repro_torch.core import quant as Qz
+from repro_torch.core import pack as PK
 from repro_torch.device import resolve_device, to_tensor
+from repro_torch.kernels.ref import stable_desc
 from repro_torch.knn import base as B
 from repro_torch.knn import registry
 from repro_torch.knn.spec import (
@@ -56,8 +58,6 @@ from repro_torch.knn.spec import (
     resolve_build_spec,
 )
 
-_MESH = ("the list-placed (mesh) ivf plan is not ported yet: ROADMAP "
-         "queue A14 (dist/)")
 
 #: bytes one block of fine scoring may gather, temporaries included
 FINE_BYTES = 1 << 30
@@ -267,17 +267,33 @@ class IVFIndex:
         return tuple(int(x) for x in (self.lists >= 0).sum(dim=1).cpu())
 
     def placement(self, n_shards: int):
-        raise NotImplementedError(_MESH)
+        """Whole IVF lists, LPT-balanced by list size (DESIGN.md §15)."""
+        from repro_torch.dist.placement import Placement
+
+        return Placement.lists(self.list_sizes(), n_shards)
+
+    def _probe(self, qf, nprobe: int, lmask):
+        """The coarse probe and the candidate ids [Q, nprobe * max_list]
+        (probe order first): ``engine.topk`` over the fp32 centroid table in
+        the user's metric; a probe slot the list mask left empty (id -1)
+        gives -1 candidates, dead at the fine-scoring fence."""
+        _cs, probe, _ = engine.topk(qf, engine.CodeStore.dense(self.centroids),
+                                    nprobe, self.metric, mask=lmask)
+        probe = probe.long()
+        cand = self.lists[probe.clamp_min(0)]
+        if lmask is not None:
+            cand = torch.where(probe[..., None] >= 0, cand, -1)
+        return cand.reshape(qf.shape[0], -1)
 
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None):
         """Freeze (k, nprobe) into a probe-then-fine-score runner ``queries
-        -> SearchResult``."""
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(_MESH)
+        -> SearchResult``.  With a mesh, lists are placed on shards
+        (``_sharded_plan``)."""
+        if mesh is not None:
+            return self._sharded_plan(k, params, mesh, placement)
         sp = params or B.SearchParams()
         nprobe = min(sp.nprobe, self.nlist)
-        cent_store = engine.CodeStore.dense(self.centroids)
         width = nprobe * self.max_list
         rg = self.regions
         rows = fine_block_rows(self.store, width, regional=rg is not None)
@@ -290,18 +306,8 @@ class IVFIndex:
         def run(queries) -> B.SearchResult:
             qf = to_tensor(queries, device=self.device, dtype=torch.float32)
             nq = qf.shape[0]
-            # 1) coarse: engine top-k over the fp32 centroid table, in the
-            #    user's metric
-            _cs, probe, _ = engine.topk(qf, cent_store, nprobe, self.metric,
-                                        mask=lmask)
-            # 2) candidate ids [Q, nprobe * max_list], probe order first; a
-            #    probe slot the list mask left empty (id -1) gives -1
-            #    candidates, dead at the fine-scoring fence
-            probe = probe.long()
-            cand = self.lists[probe.clamp_min(0)]
-            if lmask is not None:
-                cand = torch.where(probe[..., None] >= 0, cand, -1)
-            cand = cand.reshape(nq, -1)
+            # 1) coarse probe and 2) candidate ids
+            cand = self._probe(qf, nprobe, lmask)
             # 3) fine scoring + top-k through the engine, in query blocks.
             #    A regional build dequantizes each row under its own list's
             #    constants: codes of different lists are different integer
@@ -326,6 +332,150 @@ class IVFIndex:
             scores = torch.cat([s for s, _ in parts])
             ids = torch.cat([i for _, i in parts])
             return B.SearchResult(scores, ids, {**stats, **fstats})
+
+        return run
+
+    def _sharded_plan(self, k, params, mesh, placement):
+        """List-placed fine scoring over a mesh (DESIGN.md §15).
+
+        Plan time: each shard's lists' member rows are gathered once into
+        a block ``codes [rows_max, width]`` on its device (a row
+        permutation is safe: packing is per row), beside replicated
+        ``owner [N]`` / ``local_of [N]`` routing maps.  Request time: the
+        coarse probe and the candidate vector ``cand [Q, W]`` are computed
+        once, on the card B2 fp32; each shard scores, in the unsharded
+        plan's query blocks, the candidate *slots* whose rows it owns,
+        with the gather shapes of ``topk_among`` (unowned and pad slots
+        gather local row 0 and are masked), so an owned slot's score is
+        the unsharded one, bit for bit; its top-k runs over slot
+        *positions*; ``distributed_topk(tie_break="id")`` merges them as
+        (score desc, position asc), which is ``topk_among``'s order, and
+        the positions map back to ids through ``cand``.  A filtered slot
+        is as dead as an unowned one; the list mask skips empty lists at
+        the probe.  The ``regions`` path dequantizes each owned row under
+        its own list's constants, as unsharded.
+        """
+        from repro_torch.dist.placement import Placement
+        from repro_torch.dist.replica import replicate
+        from repro_torch.dist.sharding import corpus_shards
+
+        sp = params or B.SearchParams()
+        nprobe = min(sp.nprobe, self.nlist)
+        fmask, lmask, fstats = self._filter_masks(sp)
+        _axes, n_shards = corpus_shards(mesh)
+        if placement is None:
+            placement = Placement.lists(self.list_sizes(), n_shards)
+        if placement.kind != "lists" or placement.n_units != self.nlist:
+            raise ValueError(
+                f"ivf plans place whole lists; got a {placement.kind!r} "
+                f"placement over {placement.n_units} units (nlist={self.nlist})"
+            )
+        if placement.n_shards != n_shards:
+            raise ValueError(
+                f"placement covers {placement.n_shards} shards but the mesh "
+                f"has {n_shards}"
+            )
+
+        store = self.store
+        n = store.n
+        lists_np = self.lists.cpu().numpy()
+        owner = np.zeros(n, np.int32)
+        local_of = np.zeros(n, np.int32)
+        shard_gids = []
+        for s in range(n_shards):
+            mine = [lists_np[c][lists_np[c] >= 0]
+                    for c in placement.shard_units(s)]
+            gids = (np.concatenate(mine).astype(np.int64) if mine
+                    else np.zeros(0, np.int64))
+            owner[gids] = s
+            local_of[gids] = np.arange(gids.size, dtype=np.int32)
+            shard_gids.append(gids)
+        rows_max = max(1, max(g.size for g in shard_gids))
+        rg = self.regions
+        devs = mesh.shard_devices()
+        shards = []
+        for s, (gids, dev) in enumerate(zip(shard_gids, devs)):
+            block = torch.zeros((rows_max,) + tuple(store.data.shape[1:]),
+                                dtype=store.data.dtype, device=dev)
+            block[:gids.size] = store.data[
+                torch.from_numpy(gids).to(store.device)].to(dev)
+            shards.append({
+                "dev": dev, "block": block,
+                "own": torch.from_numpy(owner == s).to(dev),
+                "local": torch.from_numpy(local_of).to(dev, torch.int64),
+                "fmask": None if fmask is None else fmask.to(dev),
+                "rg": None if rg is None else replicate(rg, dev),
+            })
+
+        width = nprobe * self.max_list
+        k_eff = min(k, width)
+        rows = fine_block_rows(store, width, regional=rg is not None)
+        merge_wire = n_shards * k_eff * 8
+
+        def local(sh, q, cand):
+            """One shard's top-k over the candidate slots it owns: (scores,
+            positions) [Qb, k_eff], -1 where no owned row scored."""
+            safe = cand.clamp_min(0).long()
+            ok = (cand >= 0) & sh["own"][safe]
+            if sh["fmask"] is not None:
+                ok = ok & sh["fmask"][safe]
+            x = sh["block"][torch.where(ok, sh["local"][safe], 0)]
+            if store.packed:
+                x = PK.unpack_int4(x)
+            if sh["rg"] is None:
+                sc = D.scores_among(q, x, self.metric,
+                                    quantized=store.quantized)
+            else:
+                reg = sh["rg"].assign[safe].long()
+                x = x.to(torch.float32)
+                x.mul_(sh["rg"].scale[reg])
+                x.add_(sh["rg"].zero[reg])
+                sc = D.scores_among(q, x, self.metric, quantized=False)
+            sc = torch.where(ok, sc.to(torch.float32), engine.NEG)
+            pos = stable_desc(sc, k_eff)
+            ls = torch.gather(sc, 1, pos)
+            return ls, torch.where(ls > engine.NEG, pos, -1).to(torch.int32)
+
+        def run(queries) -> B.SearchResult:
+            qf = to_tensor(queries, device=self.device, dtype=torch.float32)
+            nq = qf.shape[0]
+            cand = self._probe(qf, nprobe, lmask)
+            qs = qf if rg is not None else self.prepare_queries(qf)
+            parts_s, parts_i = [], []
+            for b in range(0, nq, rows):
+                outs = [local(sh, qs[b:b + rows].to(sh["dev"]),
+                              cand[b:b + rows].to(sh["dev"]))
+                        for sh in shards]
+                s, pos = engine.distributed_topk(
+                    [o[0] for o in outs], [o[1] for o in outs], k_eff,
+                    tie_break="id", device=self.device)
+                c = cand[b:b + rows]
+                ids = torch.where(
+                    pos >= 0,
+                    torch.gather(c, 1, pos.clamp(0, width - 1).long()),
+                    -1).to(torch.int32)
+                parts_s.append(s)
+                parts_i.append(ids)
+            scores = torch.cat(parts_s)
+            ids = torch.cat(parts_i)
+            if store.base:
+                ids = torch.where(ids >= 0, ids + store.base, -1)
+            if k_eff < k:
+                scores = torch.nn.functional.pad(scores, (0, k - k_eff),
+                                                 value=engine.NEG)
+                ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
+            if rg is None:
+                stats = {"kind": "ivf", "nprobe": nprobe,
+                         **engine.search_stats(store, candidates=width,
+                                               chunks=nprobe,
+                                               rows_read=nq * width)}
+            else:
+                stats = {"kind": "ivf", "nprobe": nprobe, "chunks": nprobe,
+                         **engine.regional_stats(store, cand)}
+            return B.SearchResult(scores, ids, {
+                **stats, **fstats, "placement": placement.kind,
+                "merge_wire_bytes": int(nq) * merge_wire,
+            })
 
         return run
 

@@ -13,8 +13,8 @@ low-precision scheme (port of ``repro.knn.pq``).
     and B5 (16 codewords, packed), which keep the int8 LUTs in shared
     memory and never write the [Q, N] ADC matrix.
 
-Registered as kind ``"pq"``.  The mesh (sharded) path and ``placement``
-are not ported yet (ROADMAP queue A14).
+Registered as kind ``"pq"``.  On a mesh, code rows shard in contiguous
+blocks like the flat scan's (``PQIndex._sharded_plan``).
 """
 
 from __future__ import annotations
@@ -169,16 +169,20 @@ class PQIndex:
                        rerank_store=build_rerank_store(spec, corpus))
 
     # -- query ------------------------------------------------------------
+    def placement(self, n_shards: int):
+        """Contiguous code-row blocks: ADC scans shard like flat scans."""
+        from repro_torch.dist.placement import Placement
+
+        return Placement.rows(self.n, n_shards)
+
     def plan(self, k: int, params: Optional[B.SearchParams] = None, *,
              mesh=None, placement=None):
         """Freeze (k, chunk) into an ADC-scan runner ``queries ->
         SearchResult``.  A rerank tail over a ``"pq16+lpq,r32"`` build is
-        the classic PQ + refine pattern (the Searcher runs it)."""
-        del placement
+        the classic PQ + refine pattern (the Searcher runs it).  With a
+        mesh, code rows shard in contiguous blocks (``_sharded_plan``)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "the sharded (mesh) pq plan is not ported yet: "
-                "ROADMAP queue A14 (dist/)")
+            return self._sharded_plan(k, params, mesh, placement)
         sp = params or B.SearchParams()
         # filter (DESIGN.md §16): the bitmap joins the ADC scan's fence
         # (B4 / B5's mask on the card; the fp32-LUT scan's otherwise)
@@ -191,6 +195,61 @@ class PQIndex:
                 s, i, {"kind": "pq", "m": self.m,
                        "lpq_tables": self.lpq_tables, **stats, **fstats},
             )
+
+        return run
+
+    def _sharded_plan(self, k, params, mesh, placement):
+        """Row-block ADC scan over a mesh (DESIGN.md §15).
+
+        The per-query LUT is built once, replicated (it is O(Q * M * K),
+        the thing ADC keeps small; for ``lpq_tables`` Eq. 1-quantized per
+        query), and each shard scans its block of code rows with its copy
+        through ``engine.topk_from_lut``: on the card B4 (``pq*+lpq``) or
+        B5 (``pq*x4,lpq8``) for the int8-LUT arms, the streaming scan for
+        the fp32-LUT arms, as unsharded.  The filter bitmap is sliced with
+        the rows.  Block order is id order and each shard's list breaks
+        ties to its lowest row, so the shard-order merge reproduces the
+        unsharded scan bit for bit.  A shard with no rows launches
+        nothing and contributes ``(NEG, -1)``.
+        """
+        from repro_torch.dist.sharding import (corpus_shards, row_blocks,
+                                               rows_placement, run_row_shards)
+
+        sp = params or B.SearchParams()
+        _axes, n_shards = corpus_shards(mesh)
+        store = self.store
+        n = store.n
+        placement = rows_placement(placement, n, n_shards, "a pq plan")
+        k_local = min(k, n, max(placement.unit_sizes, default=0))
+        fmask, fstats = B.filter_mask(sp, n, self.device)
+        blocks = row_blocks(placement, mesh)
+        shards = []
+        for lo, hi, dev in blocks:
+            view = None if hi == lo else (
+                dataclasses.replace(store, n=hi - lo,
+                                    codes=store.codes[lo:hi].to(dev)),
+                None if fmask is None else fmask[lo:hi].to(dev))
+            shards.append((view, dev))
+        merge_wire = n_shards * min(k, n) * 8
+
+        def run(queries) -> B.SearchResult:
+            lut = engine.scorer.pq_lut(queries, store, self.metric)
+
+            def scan(view, dev):
+                return engine.topk_from_lut(lut.to(dev), view[0], k_local,
+                                            self.metric, chunk=sp.chunk,
+                                            mask=view[1])
+
+            s, i, agg = run_row_shards(shards, scan, lut.shape[0], k_local,
+                                       k, n, [b[0] for b in blocks])
+            stats = engine.search_stats(store, candidates=n,
+                                        chunks=agg["chunks"], rows_read=0)
+            stats.update(bytes_read=agg["bytes_read"], tuned=agg["tuned"])
+            return B.SearchResult(s, i, {
+                "kind": "pq", "m": self.m, "lpq_tables": self.lpq_tables,
+                **stats, **fstats, "placement": placement.kind,
+                "merge_wire_bytes": int(lut.shape[0]) * merge_wire,
+            })
 
         return run
 

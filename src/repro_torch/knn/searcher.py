@@ -21,9 +21,14 @@ the single-device half of ``repro.knn.searcher``, DESIGN.md §9).
     as the reference's compiled buckets do; one-shot searches may use the
     LUT cache.
 
+  * **shard** — ``shards=mesh`` (``dist.make_mesh``) pins the index's
+    placement (``dist.placement.for_index``) at plan time, hands it to
+    ``index.plan(..., mesh=, placement=)`` and reports ``shards``,
+    ``placement``, ``placement_balance`` and ``merge_wire_bytes``.
+
+``sharded_scan_plan`` is the row-sharded scan of the flat kind;
 ``multi_source_plan`` fuses per-source plans (a stream index's sealed
-segments and memtable) behind one runner.  The sharded (mesh) plan is not
-ported yet (ROADMAP queue A14).
+segments and memtable) behind one runner.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from repro_torch.knn import base as B
 from repro_torch.tune import table as tunetable
 
 __all__ = ["Searcher", "Rerank", "one_shot", "multi_source_plan",
-           "DEFAULT_BATCH_SIZES", "DEFAULT_RERANK_DEPTH"]
+           "sharded_scan_plan", "DEFAULT_BATCH_SIZES",
+           "DEFAULT_RERANK_DEPTH"]
 
 PlanFn = Callable[[torch.Tensor], B.SearchResult]
 
@@ -142,6 +148,70 @@ def _resolve_rerank(index, k: int, n: int, rerank) -> Optional[Rerank]:
 
 
 # --------------------------------------------------------------------------
+# sharded flat scan (used by FlatIndex.plan)
+# --------------------------------------------------------------------------
+
+def sharded_scan_plan(
+    store: engine.CodeStore, metric: str, k: int, mesh, chunk: int = 16384,
+    placement=None, mask=None,
+) -> PlanFn:
+    """Row-shard a ``CodeStore`` scan over a mesh (DESIGN.md §4/§9/§15).
+
+    Queries replicate; corpus rows shard over every mesh axis in the
+    contiguous blocks a ``rows`` placement describes (``Placement.rows``
+    by default: ceil-sized blocks in shard order).  Each block is scanned
+    through ``engine.topk`` on a ``CodeStore`` view with ``base = lo``: a
+    slice of the store's payload (no copy) where the shard's device is the
+    store's, so on the card each shard runs B2 (fp32 / int8) or B3 (int4)
+    over its rows, with its slice of the filter ``mask`` (a filtered row
+    dies at the kernel's fence, exactly like a pad row).  Each block's
+    list is exact over its rows, with ties to the lowest row, so the
+    ``distributed_topk`` merge in block (= id) order
+    (``tie_break="order"``) returns the unsharded scan's ids and scores
+    bit for bit.  An empty block launches nothing and contributes ``(NEG,
+    -1)``; no pad row exists in a view, and any id >= n is mapped to -1 at
+    the boundary.  Every shard's work is launched before the merge
+    gathers.
+    """
+    from repro_torch.dist.sharding import (corpus_shards, row_blocks,
+                                           rows_placement, run_row_shards)
+
+    if store.base:
+        raise ValueError("sharded plans require a base-0 store (the plan "
+                         "owns the global id space)")
+    _axes, n_shards = corpus_shards(mesh)
+    n = store.n
+    placement = rows_placement(placement, n, n_shards, "sharded_scan_plan")
+    k_local = min(k, n, max(placement.unit_sizes, default=0))
+    shards = []
+    for lo, hi, dev in row_blocks(placement, mesh):
+        view = None if hi == lo else (
+            dataclasses.replace(store, n=hi - lo,
+                                data=store.data[lo:hi].to(dev), base=lo),
+            None if mask is None else mask[lo:hi].to(dev))
+        shards.append((view, dev))
+    merge_wire = n_shards * min(k, n) * 8    # per query: f32 score + i32 id
+
+    def run(queries) -> B.SearchResult:
+        q = store.encode_queries(queries)
+
+        def scan(view, dev):
+            return engine.topk(q.to(dev), view[0], k_local, metric,
+                               chunk=chunk, prepared=True, mask=view[1])
+
+        s, i, agg = run_row_shards(shards, scan, q.shape[0], k_local, k, n)
+        stats = engine.search_stats(store, candidates=n, chunks=agg["chunks"],
+                                    rows_read=0)
+        stats.update(bytes_read=agg["bytes_read"], tuned=agg["tuned"])
+        return B.SearchResult(s, i, {
+            "kind": "flat", **stats, "placement": placement.kind,
+            "merge_wire_bytes": int(q.shape[0]) * merge_wire,
+        })
+
+    return run
+
+
+# --------------------------------------------------------------------------
 # multi-source plans: segments + memtable behind one runner (stream kind)
 # --------------------------------------------------------------------------
 
@@ -155,6 +225,8 @@ def multi_source_plan(
     merge_store: Optional[engine.CodeStore],
     rescore: bool,
     stats_extra: Optional[dict] = None,
+    mesh=None,
+    placement=None,
 ) -> PlanFn:
     """Fuse per-source plans into one runner over a shared internal id
     space (DESIGN.md §10: the stream kind's search path).
@@ -181,10 +253,20 @@ def multi_source_plan(
 
     The runner snapshots the state it closed over: mutations after plan
     time need a new plan.
+
+    Under a ``mesh`` the source runners handed in are themselves sharded
+    plans (each segment's inner kind shards its own rows / lists over the
+    full mesh, DESIGN.md §15), and the mask, merge and re-score above them
+    run on the ``live`` bitmap's device; ``placement`` (a ``segments``
+    placement) is the accounting view, stamped into the stats.
     """
+    del mesh          # the sources carry it; the merge runs where live is
     if rescore and merge_store is None:
         raise ValueError("rescoring merge needs a merge_store")
     extra = dict(stats_extra or {})
+    if placement is not None:
+        extra["placement"] = placement.kind
+        extra["placement_balance"] = placement.summary()["balance"]
     total_width = sum(w for _, _, w in sources)
 
     def run(queries: torch.Tensor) -> B.SearchResult:
@@ -258,9 +340,6 @@ class Searcher:
         rerank: Union[None, bool, int, Rerank] = None,
         strict: bool = True,
     ):
-        if shards is not None:
-            raise NotImplementedError(
-                "sharded Searchers are not ported yet: ROADMAP queue A14")
         if not isinstance(k, int) or isinstance(k, bool) or k <= 0:
             raise ValueError(f"k must be a positive int, got {k!r}")
         n = int(index.n)
@@ -281,7 +360,7 @@ class Searcher:
         self.k = k
         self.params = sp
         self.batch_sizes = batch_sizes
-        self.mesh = None
+        self.mesh = shards
         self.rerank = _resolve_rerank(index, k, n, rerank)
         if self.rerank is not None and sp.filter is not None:
             # filter over-fetch (DESIGN.md §16): widen the candidate depth
@@ -297,16 +376,34 @@ class Searcher:
         # plan-time table resolution: the active table (if it was measured
         # on this backend) is frozen now and pinned around every run
         self.tune_table = tunetable.snapshot_for_plan()
-        self._extras = {"shards": 1, "tuned": self.tune_table is not None}
+        # plan-time placement, as the table: the unit -> shard assignment
+        # is worked out now from the index's sizes (row count, list sizes,
+        # segment rows), so a later mutation cannot re-place a planned
+        # Searcher's shards (DESIGN.md §15)
+        n_shards = int(shards.devices.size) if shards is not None else 1
+        if shards is not None:
+            from repro_torch.dist import placement as dplacement
+
+            self.placement = dplacement.for_index(index, n_shards)
+        else:
+            self.placement = None
+        self._extras = {"shards": n_shards,
+                        "tuned": self.tune_table is not None}
+        if self.placement is not None:
+            self._extras["placement"] = self.placement.kind
+            self._extras["placement_balance"] = (
+                self.placement.summary()["balance"])
 
         rr = self.rerank
         if rr is not None and rr.store is None:
             # index-owned rerank (stream): the plan runs scan -> merge ->
             # exact re-score itself; hand it k and the candidate depth
-            inner = index.plan(k, sp, rerank_depth=rr.depth)
+            inner = index.plan(k, sp, mesh=shards, placement=self.placement,
+                               rerank_depth=rr.depth)
             rr = None
         else:
-            inner = index.plan(rr.depth if rr is not None else k, sp)
+            inner = index.plan(rr.depth if rr is not None else k, sp,
+                               mesh=shards, placement=self.placement)
         metric = index.metric
 
         def run(queries: torch.Tensor) -> B.SearchResult:

@@ -36,8 +36,9 @@ segment calibrations) are reduced on the host CPU whatever the device.
 
 Every kind but ``stream`` may be the inner kind, a cascade too
 (``stream(cascade(flat,lpq8|r32))``: each sealed segment is a cascade).
-Not ported yet: ``placement`` and a ``mesh=`` plan (ROADMAP queue A14),
-which raise naming their item.
+Its ``placement`` is by segments (the memtable one more unit); on a mesh
+every source plans on the full mesh and the merge runs on the index's
+device.
 """
 
 from __future__ import annotations
@@ -68,8 +69,6 @@ from repro_torch.stream.segment import Segment
 
 DEFAULT_SEAL_THRESHOLD = 4096
 
-_MESH = ("stream placement and mesh plans are not ported yet: ROADMAP "
-         "queue A14 (dist/)")
 
 
 def as_key(key) -> np.ndarray:
@@ -519,7 +518,18 @@ class MutableIndex:
 
     # -- query -------------------------------------------------------------
     def placement(self, n_shards: int):
-        raise NotImplementedError(_MESH)
+        """Segments are the natural shard unit of a stream index: each
+        carries its own row-id base, so assigning whole segments to shards
+        keeps the id arithmetic local.  The memtable (when non-empty)
+        rides along as one more unit."""
+        from repro_torch.dist.placement import Placement
+
+        with self._lock:
+            rows = [int(seg.n) for seg in self.manifest.segments]
+            mvecs, _ = self.memtable.snapshot()
+            if int(mvecs.shape[0]):
+                rows.append(int(mvecs.shape[0]))
+        return Placement.segments(rows or [0], n_shards)
 
     def plan(
         self,
@@ -538,12 +548,18 @@ class MutableIndex:
         re-scores candidates against the raw payloads at ``rerank_bits``
         precision whenever there is more than one source or an explicit
         rerank depth (``knn.searcher.multi_source_plan``).
+
+        Under a mesh every source plans on the full mesh (each segment's
+        inner kind shards its own rows / lists, or replicates), and the
+        merge and re-score run on the index's device above them.
         """
         from repro_torch.knn.flat import FlatIndex
         from repro_torch.knn.searcher import multi_source_plan
 
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(_MESH)
+        if placement is not None and placement.kind != "segments":
+            raise ValueError(
+                "stream shards place whole segments; got a "
+                f"{placement.kind!r} placement")
         sp = (params or B.SearchParams()).validate()
         depth = rerank_depth or k
         # the whole snapshot assembly holds the write lock: a compaction
@@ -583,7 +599,8 @@ class MutableIndex:
                 # on exact sources
                 masked = int(seg.n - live_np[base:base + seg.n].sum())
                 kj = min(seg.n, depth + masked)
-                sources.append((seg.index.plan(kj, sp_inner), base, kj))
+                sources.append((seg.index.plan(kj, sp_inner, mesh=mesh),
+                                base, kj))
             if m:
                 base_m = self.manifest.total_rows
                 masked_m = int(m - live_np[base_m:base_m + m].sum())
@@ -592,8 +609,8 @@ class MutableIndex:
                     metric=self.metric,
                     store=engine.CodeStore.dense(mvecs, device=self.device),
                 )
-                sources.append((mem_index.plan(k_mem, sp_inner), base_m,
-                                k_mem))
+                sources.append((mem_index.plan(k_mem, sp_inner, mesh=mesh),
+                                base_m, k_mem))
 
             rescore = len(sources) > 1 or rerank_depth is not None
             merge_store = None
@@ -619,6 +636,8 @@ class MutableIndex:
             merge_store=merge_store,
             rescore=rescore and merge_store is not None,
             stats_extra=stats_extra,
+            mesh=mesh,
+            placement=placement,
         )
 
     def searcher(self, k: int, params: Optional[B.SearchParams] = None, **kw):

@@ -1044,3 +1044,100 @@ def test_tuned_plan_past_the_k_cap_equals_untuned(dev, f):
         assert torch.equal(a.ids, b.ids) and torch.equal(a.scores, b.scores)
     finally:
         T.clear()
+
+
+#: sharded arms on the card and the kernel each shard launches
+SHARDED_GPU_ARMS = {"flat": "fused_topk_fp32",
+                    "flat,lpq8@gaussian:3": "fused_topk_int8",
+                    "flat,lpq4": "fused_topk4",
+                    "pq16+lpq": "fused_adc",
+                    "pq16x4,lpq8": "fused_adc4",
+                    "ivf8,lpq8": "fused_topk_fp32"}
+
+
+@pytest.mark.parametrize("f", sorted(SHARDED_GPU_ARMS))
+def test_sharded_plans_on_one_card_equal_unsharded(dev, f):
+    """A ["cuda:0"] * s mesh: each shard launches its arm's kernel (B2-B5;
+    the ivf arm's probe is B2 fp32), and the merged result equals the
+    unsharded plan's bit for bit, filtered too (B2 fp32 sums each dot in
+    one order whatever a shard's rows, so the fp32 arm is bit-equal as
+    well)."""
+    from repro_torch import kernels
+    from repro_torch.dist import make_mesh
+    from repro_torch.filter import Filter
+    from repro_torch.knn import SearchParams, make_index
+
+    N, d, Q, k = 30_001, 64, 37, 100
+    g = torch.Generator(device=dev).manual_seed(15)
+    corpus = torch.randn(N, d, generator=g, device=dev)
+    q = torch.randn(Q, d, generator=g, device=dev)
+    allow = (torch.rand(N, generator=g, device=dev) < 0.25).cpu().numpy()
+    idx = make_index(f, corpus, metric="ip", kmeans_iters=4)
+    name = SHARDED_GPU_ARMS[f]
+    for sp in (SearchParams(nprobe=4),
+               SearchParams(nprobe=4, filter=Filter.from_mask(allow))):
+        un = idx.searcher(k, sp)(q)
+        for s in (1, 2, 4):
+            mesh = make_mesh((s,), ("data",), [dev] * s)
+            plan = idx.searcher(k, sp, shards=mesh)
+            before = kernels.launch_counts()[name]
+            sh = plan(q)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()[name] >= before + (
+                1 if f.startswith("ivf") else s)
+            assert torch.equal(un.ids, sh.ids), (f, s)
+            assert torch.equal(un.scores, sh.scores), (f, s)
+            assert sh.stats["shards"] == s
+
+
+def test_sharded_retrieval_on_the_card_equals_make_retrieval(dev):
+    from repro_torch import kernels
+    from repro_torch.core import quant as Qz
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch.steps import make_retrieval, make_retrieval_sharded
+
+    n, d, k = 40_000, 128, 100
+    g = torch.Generator(device=dev).manual_seed(16)
+    table = torch.randn(n, d, generator=g, device=dev)
+    q = torch.randn(64, d, generator=g, device=dev)
+    p = Qz.learn_params(table, bits=8, scheme="absmax")
+    codes = Qz.quantize(table, p)
+    want = make_retrieval(True, k=k)(q, codes, p.lo, p.hi, p.zero)
+    before = kernels.launch_counts()
+    got = make_retrieval_sharded(make_mesh((4,), ("data",), [dev] * 4),
+                                 n // 4, k=k)(q, codes, p.lo, p.hi, p.zero)
+    after = kernels.launch_counts()
+    assert after["quantize"] - before["quantize"] == 4
+    assert after["qmip"] - before["qmip"] == 4
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("f", ["hnsw8,lpq8,regions", "graph16,lpq4,regions",
+                               "hnsw8", "graph16"])
+def test_sharded_walks_on_one_card(dev, f):
+    """Replicated walks over a ["cuda:0"] * 4 mesh: each shard walks a
+    quarter of the batch, the cut / regional re-score runs on the whole
+    batch.  Integer walks are bit-equal to the unsharded plan; an fp32
+    walk scores each step with a batched product whose rounding may follow
+    the batch's size (ROADMAP queue C), so it is held within rtol 1e-6
+    of the row scale, ids equal outside near-ties."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.knn import SearchParams, make_index
+    from repro_torch.testing import fp32_near_equal
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    corpus = torch.randn(4000, 64, generator=g, device=dev) * 0.05
+    q = torch.randn(64, 64, generator=g, device=dev) * 0.05
+    over = ({"ef_construction": 40, "batch_size": 128} if f.startswith("hnsw")
+            else {"n_seeds": 16})
+    idx = make_index(f, corpus, metric="ip", **over)
+    sp = SearchParams(ef_search=40)
+    un = idx.searcher(10, sp)(q)
+    sh = idx.searcher(10, sp, shards=make_mesh((4,), ("data",),
+                                               [dev] * 4))(q)
+    if "lpq" in f:
+        assert torch.equal(un.ids, sh.ids) and torch.equal(un.scores, sh.scores)
+    else:
+        assert fp32_near_equal(sh.scores.cpu().numpy(), sh.ids.cpu().numpy(),
+                               un.scores.cpu().numpy(), un.ids.cpu().numpy(),
+                               1e-6)[0]

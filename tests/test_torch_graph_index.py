@@ -448,12 +448,17 @@ def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     back = GI.GraphIndex.from_state(arrays, meta, device="cpu")
     assert "rg_regions" in meta and back.regions is not None
     assert torch.equal(back.search(queries[:3], K, ef_search=40).ids, res.ids)
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.placement(2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.plan(K, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.searcher(K, shards=object())
+    # the mesh plans run: replicated placement, equal to unsharded
+    from repro_torch.dist import Placement, make_mesh
+
+    mesh = make_mesh((2,), ("data",), ["cpu"] * 2)
+    assert port.placement(2).kind == "replicated"
+    q = queries[:5]
+    un, sh = port.searcher(K)(q), port.searcher(K, shards=mesh)(q)
+    assert torch.equal(un.ids, sh.ids) and torch.equal(un.scores, sh.scores)
+    assert sh.stats["shards"] == 2 and sh.stats["placement"] == "replicated"
+    with pytest.raises(ValueError, match="only replicates"):
+        port.plan(K, mesh=mesh, placement=Placement.rows(port.n, 2))
     with pytest.raises(ValueError, match="SearchParams.filter must be"):
         port.searcher(K, SearchParams(filter=object()))
     with pytest.raises(ValueError, match="SearchParams.filter must be"):

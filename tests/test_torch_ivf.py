@@ -324,12 +324,17 @@ def test_unported_parts_raise_naming_their_roadmap_item(built, data):
     back = IV.IVFIndex.from_state(arrays, meta, device="cpu")
     assert "rg_regions" in meta and back.regions is not None
     assert torch.equal(back.search(corpus[:3], K, nprobe=4).ids, res.ids)
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.placement(2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.plan(K, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.searcher(K, shards=object())
+    # the mesh plans run: lists placement, equal to unsharded
+    from repro_torch.dist import Placement, make_mesh
+
+    mesh = make_mesh((2,), ("data",), ["cpu"] * 2)
+    assert port.placement(2).kind == "lists"
+    q = corpus[:5]
+    un, sh = port.searcher(K)(q), port.searcher(K, shards=mesh)(q)
+    assert torch.equal(un.ids, sh.ids) and torch.equal(un.scores, sh.scores)
+    assert sh.stats["shards"] == 2 and sh.stats["placement"] == "lists"
+    with pytest.raises(ValueError, match="place whole lists"):
+        port.plan(K, mesh=mesh, placement=Placement.rows(port.n, 2))
     with pytest.raises(ValueError, match="SearchParams.filter must be"):
         port.searcher(K, SearchParams(filter=object()))
     with pytest.raises(ValueError, match="SearchParams.filter must be"):

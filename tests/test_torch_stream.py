@@ -546,13 +546,18 @@ def test_unported_parts_raise_naming_their_roadmap_item(rows):
                       device="cpu")
     assert casc.manifest.segments[0].index.kind == "cascade"
     assert casc.search(queries[:2], K).ids.shape == (2, K)
-    idx = make_index("stream(flat,lpq8)", corpus[:50], device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        idx.placement(2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        idx.plan(K, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        idx.searcher(K, shards=object())
+    port = make_index("stream(flat,lpq8)", corpus[:50], device="cpu")
+    # the mesh plans run: segments placement, equal to unsharded
+    from repro_torch.dist import Placement, make_mesh
+
+    mesh = make_mesh((2,), ("data",), ["cpu"] * 2)
+    assert port.placement(2).kind == "segments"
+    q = queries[:5]
+    un, sh = port.searcher(K)(q), port.searcher(K, shards=mesh)(q)
+    assert torch.equal(un.ids, sh.ids) and torch.equal(un.scores, sh.scores)
+    assert sh.stats["shards"] == 2 and sh.stats["placement"] == "segments"
+    with pytest.raises(ValueError, match="place whole segments"):
+        port.plan(K, mesh=mesh, placement=Placement.rows(port.n, 2))
 
 
 def test_stream_runs_on_the_card_unless_cpu_is_asked(rows, monkeypatch):
