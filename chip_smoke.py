@@ -197,11 +197,30 @@ Phases (each prints its lines; any failure exits non-zero):
               ReplicaSet of two flat,lpq8@gaussian:3 Searchers serving 32
               requests, each equal to the plain Searcher's, its telemetry
               counters logged
+ 13. serve    the serving CLI and CTR serving, each run counted alone:
+              (a) ``launch.serve.main`` in this process (``--profile
+              cuda-serve``): flat,lpq8@gaussian:3 at product-like
+              1,000,000 x 256, k=100, 300 mixed 1/64/256-query requests
+              with a result cache and hot repeats, saved to npz and served
+              again from it (equal mean stats); the flat arm behind two
+              replicas (300 requests); stream(flat,lpq4)+r32 at 250,000 x
+              256, 256 requests under writes, admission and a maintenance
+              round (the re-tune of a table stamped elsewhere): each run's
+              QPS and latency lines, served plus shed equal to the queries
+              issued, cache hits, replans, maintenance rounds, B1 and B2
+              int8 (flat) or B3 (stream) launched, p50 / p95 / QPS logged;
+              (b) dlrm-mlperf (tables capped at
+              4,000,000 rows), dcn-v2 and autoint (whole Criteo
+              vocabularies) and dien at published widths, initialised on
+              the card one at a time: serve p50 (CUDA events, median of 10)
+              at batch 512 and, for dlrm-mlperf and dcn-v2, 262,144; each
+              architecture's probabilities at full widths and tables of
+              100,000 rows within rtol 1e-5 of the CPU's plain run
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
 the score-matrix ops, the HNSW path, the graph / ivf path, phase 9(b)
-and (c), phase 10(c), phase 11(b)-(c) and phase 12), then the
+and (c), phase 10(c), phase 11(b)-(c), phase 12 and phase 13), then the
 card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the JAX package.
@@ -4135,6 +4154,277 @@ def phase12(built, pc, pq) -> dict:
     return run
 
 
+# --------------------------------------------------------------------------
+# phase 13: the serving CLI and CTR serving of the recsys architectures
+# --------------------------------------------------------------------------
+
+#: 13(a): the serving CLI's runs, each in this process through
+#: ``launch.serve.main`` (the first applies --profile cuda-serve): the
+#: product-like flat arm built and saved, the same run loaded from the npz,
+#: the flat arm behind two replicas, and the stream arm under writes,
+#: admission and maintenance.  A few hundred requests a run, so p50 and p95
+#: rest on many requests; the replicas' --max-queue holds every request
+#: submitted at once, and the stream arm's --burst and --max-queue admit
+#: 238 of its 256 requests (119 of them degraded past the watermark, 18
+#: shed at the queue bound).  Its --tune table is stamped on another
+#: backend, so the maintenance thread's re-tune trigger fires and a round
+#: runs while the requests are served (the CLI's 8 upserted rows fire no
+#: compaction).
+SERVE_FLAT = ["--index", "flat,lpq8@gaussian:3", "--n", "1000000", "--d",
+              "256", "--k", "100", "--batch", "256", "--mixed", "--requests",
+              "300", "--cache", "64", "--hot-repeat", "4"]
+SERVE_REPLICAS = [*SERVE_FLAT[:8], "--batch", "32", "--mixed", "--requests",
+                  "300", "--cache", "64", "--hot-repeat", "4", "--replicas",
+                  "2", "--max-queue", "512"]
+SERVE_STREAM = ["--index", "stream(flat,lpq4)+r32", "--n", "250000", "--d",
+                "256", "--batch", "32", "--requests", "256", "--mutate",
+                "--maintenance", "--admission", "--rate", "256", "--burst",
+                "8192", "--max-queue", "240"]
+#: 13(b): (architecture, config module, row cap a table or None, batches);
+#: DLRM's whole fp32 tables (89.5 GiB) exceed the card's 80 GB, so its ids
+#: are drawn from vocabularies capped at 4,000,000 rows a table
+RECSYS_ARCHS = (("dlrm-mlperf", "dlrm_mlperf", 4_000_000, (512, 262_144)),
+                ("dcn-v2", "dcn_v2", None, (512, 262_144)),
+                ("autoint", "autoint", None, (512,)),
+                ("dien", "dien", None, (512,)))
+#: 13(b): rows a table for the card-vs-CPU check (full widths)
+RECSYS_CHECK_ROWS = 100_000
+#: 13(b): the card's probabilities against the CPU's, relative
+RECSYS_RTOL = 1e-5
+
+
+def _serve_run(run: dict, argv: list, tel_path) -> tuple[dict, str, dict]:
+    """One ``launch.serve.main`` run, its stdout captured: (telemetry,
+    text, this run's launch counts).  The run is one run of phase 13's path
+    (``_counted``)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as SV
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _out, c = _counted(run, SV.main, [*argv, "--profile", "cuda-serve",
+                                          "--telemetry-out", str(tel_path)])
+    text = buf.getvalue()
+    return json.loads(Path(tel_path).read_text()), text, c
+
+
+def _issued(argv: list) -> int:
+    """Queries a serve run issues: its request sizes, every --hot-repeat'th
+    request (but the first) replaced by the first request's payload."""
+    from repro_torch.launch import serve as SV
+
+    def arg(name, default):
+        return int(argv[argv.index(name) + 1]) if name in argv else default
+
+    sizes = SV._request_sizes(arg("--requests", 20), arg("--batch", 32),
+                              "--mixed" in argv)
+    hot = arg("--hot-repeat", 0)
+    return sum(sizes[0] if hot and i and i % hot == 0 else sz
+               for i, sz in enumerate(sizes))
+
+
+def _serve_line(text: str, key: str) -> str:
+    line = next((ln for ln in text.splitlines() if key in ln), None)
+    need(line is not None, f"13(a): the serving CLI printed no {key!r} line")
+    return line
+
+
+def serve_cli(run: dict) -> None:
+    """13(a): the serving CLI at the product width through its own entry
+    point, each run's telemetry checked: every run printed its QPS and
+    latency lines, served plus shed covers every query issued, and the
+    counts of its kernels rose (B1 and B2 int8 on the flat runs, B3 on the
+    stream run); the stream run replanned, avoided a replan and ran a
+    maintenance round (its re-tune) with no error."""
+    import re
+
+    from repro_torch.launch import serve as SV
+
+    from repro_torch.tune import table as T
+
+    out = ROOT / "build" / "phase13"
+    out.mkdir(parents=True, exist_ok=True)
+    npz = out / "serve_flat.npz"
+    foreign = out / "foreign_tune.json"
+    T.TuneTable(stamp={"backend": "cpu", "device_kind": "cpu",
+                       "interpret": False}).to_json(foreign)
+    runs = {"flat built": SERVE_FLAT + ["--save-index", str(npz)],
+            "flat loaded": SERVE_FLAT + ["--index-path", str(npz)],
+            "replicas": SERVE_REPLICAS,
+            "stream": SERVE_STREAM + ["--tune", str(foreign)]}
+    prev = T.active()
+    tels = {}
+    for tag, argv in runs.items():
+        t0 = time.perf_counter()
+        tel, text, c = _serve_run(run, argv, out / "tel.json")
+        wall = time.perf_counter() - t0
+        tels[tag] = tel
+        qps = _serve_line(text, " QPS (")
+        lat = _serve_line(text, "[serve] latency ")
+        rep, cnt = tel["meta"]["report"], tel["counters"]
+        issued = _issued(argv)
+        shed = cnt.get("admission_shed_queries", 0) + sum(
+            e.get("queries", 0) for e in tel["events"]
+            if e["type"] == "shed" and e.get("reason") == "replica_queue")
+        need(cnt.get("queries_served", 0) + shed == issued
+             and rep["served"] == cnt.get("queries_served", 0),
+             f"13(a) {tag}: served {cnt.get('queries_served', 0)} + shed "
+             f"{shed} of {issued} queries issued")
+        need(tel["meta"]["runtime"]["backend"] == "cuda",
+             f"13(a) {tag}: the session did not run on the card")
+        kernels_of = (("fused_topk4",) if tag == "stream"
+                      else ("quantize", "fused_topk_int8"))
+        for name in kernels_of:
+            need(c[name] > 0, f"13(a) {tag}: {name} was never launched")
+        p50, p95 = (float(x) for x in re.findall(
+            r"p(?:50|95)=([0-9.]+)ms", lat)[:2])
+        log(f"[serve-cli] {tag}: {' '.join(argv[:2])} n={tel['meta']['n']} "
+            f"d={tel['meta']['d']}: {qps.split('-> ')[1].split(' (')[0]}, "
+            f"p50 {p50:.2f} ms, p95 {p95:.2f} ms, {rep['requests']} requests"
+            f" / {rep['served']} queries, wall {wall:.2f} s; cache hits "
+            f"{sum(1 for e in tel['events'] if e.get('cache') == 'hit')}; "
+            f"launches {({k: v for k, v in c.items() if v})} | {smi()}")
+        if tag == "stream":
+            rounds = [e for e in tel["events"] if e["type"] == "maintenance"
+                      or str(e.get("name")).startswith("maintenance/")]
+            log(f"[serve-cli] stream: {_serve_line(text, '[serve] writes:')}"
+                f"; {_serve_line(text, '[serve] admission:')}; "
+                f"{_serve_line(text, '[serve] maintenance:')}; rounds "
+                f"{rounds}; degraded requests "
+                f"{cnt.get('requests_degraded', 0)}, shed queries {shed}")
+    for tag in ("flat built", "flat loaded", "replicas"):
+        hits = sum(1 for e in tels[tag]["events"] if e.get("cache") == "hit")
+        need(hits >= 1 or tag == "replicas",
+             f"13(a) {tag}: no result-cache hit")
+    a, b = (tels[t]["meta"]["report"] for t in ("flat built", "flat loaded"))
+    need({k: v for k, v in a.items() if k.startswith("mean_")}
+         == {k: v for k, v in b.items() if k.startswith("mean_")},
+         f"13(a): the loaded index served other stats ({a} / {b})")
+    T.install(prev)                  # the stream run's re-tune installed
+    c = tels["stream"]["counters"]   # a table of its own
+    need(c.get("replans", 0) >= 1 and c.get("replans_avoided", 0) >= 1
+         and c.get("maintenance_rounds", 0) >= 1
+         and c.get("maintenance_retunes", 0) >= 1
+         and c.get("maintenance_errors", 0) == 0,
+         f"13(a) stream: replans {c.get('replans', 0)}, avoided "
+         f"{c.get('replans_avoided', 0)}, maintenance rounds "
+         f"{c.get('maintenance_rounds', 0)}, re-tunes "
+         f"{c.get('maintenance_retunes', 0)}, errors "
+         f"{c.get('maintenance_errors', 0)}")
+    c = tels["replicas"]["counters"]
+    need(c.get("replica0_requests", 0) >= 1
+         and c.get("replica1_requests", 0) >= 1
+         and c.get("replica_shed", 0) == 0,
+         f"13(a) replicas: {({k: v for k, v in c.items() if 'replica' in k})}")
+    npz.unlink()
+    foreign.unlink()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def recsys_serving(run: dict) -> None:
+    """13(b): each architecture at its published widths on the card, one at
+    a time (initialised from a CUDA generator, freed before the next):
+    serve() counted as a run of the path (no kernel of the port is on it:
+    matmuls, gathers and the GRU loop), its probabilities finite and in
+    (0, 1), p50 of 10 CUDA-event calls at each batch; then at tables
+    capped to RECSYS_CHECK_ROWS, the card's probabilities against the
+    CPU's plain run of the same parameters and 512-row batch."""
+    import dataclasses
+    import gc
+    import importlib
+
+    import torch
+
+    from repro_torch.data.recsys_data import ctr_batch
+    from repro_torch.launch import make_recsys_serve
+    from repro_torch.models.recsys import models as RM
+
+    dev = torch.device("cuda")
+    for arch, mod, cap, batches in RECSYS_ARCHS:
+        cfg = importlib.import_module(f"repro_torch.configs.{mod}").config()
+        if cap:
+            cfg = dataclasses.replace(cfg, vocab_sizes=tuple(
+                min(v, cap) for v in cfg.vocab_sizes))
+        step = make_recsys_serve(cfg)
+        t0 = time.perf_counter()
+        params = RM.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rows = sum(cfg.vocab_sizes)
+        gib = sum(t["table"].numel() * 4 for t in params["tables"].values())
+        times = {}
+        for b in batches:
+            batch = ctr_batch(torch.Generator(device=dev).manual_seed(b), b,
+                              cfg.n_dense, cfg.vocab_sizes, cfg.seq_len,
+                              device=dev)
+            prob, _c = _counted(run, step, params, batch)
+            need(prob.shape == (b,) and bool(torch.isfinite(prob).all())
+                 and bool(((prob > 0) & (prob < 1)).all()),
+                 f"13(b) {arch}: serve at batch {b} gave no probabilities")
+            times[b] = time_ms(lambda: step(params, batch), reps=10)
+            del batch, prob
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        small = dataclasses.replace(cfg, vocab_sizes=tuple(
+            min(v, RECSYS_CHECK_ROWS) for v in cfg.vocab_sizes))
+        params = RM.init_params(torch.Generator(device=dev).manual_seed(1),
+                                small, device=dev)
+        batch = ctr_batch(torch.Generator(device=dev).manual_seed(2), 512,
+                          small.n_dense, small.vocab_sizes, small.seq_len,
+                          device=dev)
+        got = RM.serve(params, batch, small).cpu()
+        want = RM.serve(_to(params, "cpu"), _to(batch, "cpu"), small)
+        err = float(((got - want).abs() / want.abs()).max())
+        need(bool(torch.allclose(got, want, rtol=RECSYS_RTOL, atol=0)),
+             f"13(b) {arch}: card and CPU probabilities differ by {err:.3e} "
+             f"(relative), past {RECSYS_RTOL}")
+        del params, batch
+        torch.cuda.empty_cache()
+        log(f"[recsys] {arch} ({cfg.kind}): {len(cfg.vocab_sizes)} tables, "
+            f"{rows:,} rows x {cfg.embed_dim} ({gib / 2**30:.2f} GiB fp32"
+            f"{f', capped at {cap:,} rows a table' if cap else ''}), init "
+            f"{init_s:.2f} s; serve p50 "
+            + ", ".join(f"batch {b}: {t:.3f} ms ({b / t * 1e3:,.0f} rows/s)"
+                        for b, t in times.items())
+            + f"; card vs CPU at {RECSYS_CHECK_ROWS:,} rows a table, batch "
+            f"512: max relative error {err:.3e} (rtol {RECSYS_RTOL}) | "
+            f"{smi()}")
+
+
+def phase13() -> dict:
+    """13: (a) the serving CLI, (b) CTR serving of the four recsys
+    architectures.  Each CLI run and each counted serve() call is a run of
+    the path (``_counted``); the timed repeats and the CPU checks run
+    outside."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = dict.fromkeys(kernels.launch_counts(), 0)
+    t0 = time.perf_counter()
+    serve_cli(run)
+    log(f"[phase13] 13(a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recsys_serving(run)
+    log(f"[phase13] 13(b) {time.perf_counter() - t0:.1f} s")
+    log(f"[phase13] kernel launches on phase 13's runs: {run}")
+    return run
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -4249,6 +4539,9 @@ def main() -> int:
             counts[name] = counts.get(name, 0) + c
         del pc, pq, built
         mark("phase 12")
+        for name, c in phase13().items():
+            counts[name] = counts.get(name, 0) + c
+        mark("phase 13")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

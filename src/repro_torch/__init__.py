@@ -12,7 +12,10 @@ B3 packed int4), and the PQ / ADC path (``pq<M>+lpq``, ``pq<M>x4+lpq``,
 ``pq<M>``, ``,r32``) with the fused ADC + top-k kernels (B4, B5), and
 recsys candidate retrieval (``models.recsys``, ``launch.make_retrieval``)
 with the score-matrix kernels (B6 ``qmip``, B7 ``ql2``, B8 ``qmip4`` /
-``ql24``), all under ``csrc/``.
+``ql24``), all under ``csrc/``.  Since then: every index kind, filters,
+the stream and cascade kinds, tuning, the runtime subsystem, meshes, the
+serving CLI (``python -m repro_torch.launch.serve``) and CTR serving of
+the four recsys architectures (``models.recsys.models.serve``).
 
 Numerics: the fp32 arm is the ground truth every quantized arm is measured
 against, so TF32 is switched off for matmuls and cuDNN here, at import.

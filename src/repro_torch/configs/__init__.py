@@ -1,3 +1,4 @@
-"""Architecture configurations (port of ``repro.configs``, the recsys part
-that the ported paths read: ``base`` and ``dlrm_mlperf``).  Copied, not
+"""Architecture configurations (port of ``repro.configs``): ``base`` (its
+recsys part), the four recsys architectures (``autoint``, ``dcn_v2``,
+``dien``, ``dlrm_mlperf``) and the paper's own ``lpq_ann``.  Copied, not
 imported: the port imports nothing of the reference package."""

@@ -9,7 +9,7 @@ stage stores, a stream index's segments (each an inner index's npz
 blob), tombstones, memtable, live stats and key, or a reference-saved
 npz, holds nothing JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
-and Eq. 1 constants).  These helpers
+and Eq. 1 constants) and a recsys model's parameter tree.  These helpers
 turn them into the port's objects so both packages can run on the same
 codes, codebooks and Eq. 1 constants.
 """
@@ -163,3 +163,19 @@ def dense_table_from_numpy(table: np.ndarray, device=None):
     tensor on ``device`` (``None``: the GPU)."""
     return to_tensor(np.asarray(table, dtype=np.float32),
                      device=resolve_device(device))
+
+
+def recsys_params_from_reference(params, device=None):
+    """A reference recsys parameter tree (``repro.models.recsys.models
+    .init_params``: nested dicts whose leaves are numpy arrays, or anything
+    ``np.asarray`` takes) -> the port's tree of tensors with the same keys
+    on ``device`` (``None``: the GPU), so both packages compute the same
+    function."""
+    dev = resolve_device(device)
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(x) for k, x in v.items()}
+        return to_tensor(np.asarray(v), device=dev)
+
+    return leaf(params)

@@ -20,8 +20,9 @@ size, otherwise that dimension is replicated (``_spec_tree``).
 The LM, recsys and GNN rules are spec functions: they map a nested dict
 (or list) of shapes, or of anything with a ``.shape``, to the same nest of
 ``P`` specs, each wrapped in a ``Named`` (mesh, spec) pair.  Nothing here
-moves a tensor; applying the specs to real parameters waits for the
-port's models (ROADMAP queue A16).
+moves a tensor.  The recsys rules take the port's real parameter trees
+(``models.recsys.models.init_params``); the LM and GNN models come in
+later slices.
 
 Layout summary (DESIGN.md §4 records the serving side):
   * LM params: megatron-style: embed table vocab-sharded over "model";
@@ -119,13 +120,16 @@ class Mesh:
 
 def default_devices() -> list[torch.device]:
     """Every visible CUDA device (``device.resolve_device(None)``'s rule:
-    raising where there is none, or the CPU where an applied runtime
-    profile asks for it)."""
+    raising where there is none), or, where an applied runtime profile asks
+    for the CPU, its ``host_device_count`` host devices (one where it names
+    none): ``cpu-mesh4`` gives ``[cpu] * 4``, as the reference's profile
+    gives JAX four host devices."""
     from repro_torch.device import resolve_device
+    from repro_torch.runtime import profile as rtprofile
 
     dev = resolve_device(None)
     if dev.type != "cuda":
-        return [dev]
+        return [dev] * rtprofile.host_devices()
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 

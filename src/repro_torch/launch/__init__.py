@@ -1,6 +1,9 @@
-"""Launch surface (port of ``repro.launch``): so far the step builders of
-the ported paths (``launch.steps.make_retrieval``)."""
+"""Launch surface (port of ``repro.launch``): mesh construction, the step
+builders of the ported paths (``launch.steps``) and the ANN serving loop
+(``python -m repro_torch.launch.serve``)."""
 
-from repro_torch.launch.steps import make_retrieval
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.steps import make_recsys_serve, make_retrieval
 
-__all__ = ["make_retrieval"]
+__all__ = ["make_host_mesh", "make_production_mesh", "make_recsys_serve",
+           "make_retrieval"]

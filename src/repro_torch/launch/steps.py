@@ -1,7 +1,7 @@
-"""Step-function builders (port of ``repro.launch.steps``, the retrieval
-part).  Each returns a function of tensors with its configuration closed
-over.  The LM / GNN / recsys training and serving steps come with ROADMAP
-queue A16.
+"""Step-function builders (port of ``repro.launch.steps``: retrieval and
+recsys serving).  Each returns a function of tensors with its
+configuration closed over.  The LM / GNN steps and every training step
+come with later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -9,7 +9,17 @@ from __future__ import annotations
 from typing import Callable
 
 from repro_torch.core.quant import QuantParams
+from repro_torch.models.recsys import models as RM
 from repro_torch.models.recsys import retrieval as RT
+
+
+def make_recsys_serve(cfg: RM.RecsysConfig) -> Callable:
+    """``step(params, batch)``: the CTR probabilities [B] of ``cfg``'s
+    architecture (``models.recsys.models.serve``)."""
+    def step(params, batch):
+        return RM.serve(params, batch, cfg)
+
+    return step
 
 
 def make_retrieval(quantized: bool, k: int = 100) -> Callable:

@@ -1,0 +1,135 @@
+"""Shared model layers (port of ``repro.models.layers``): plain functions
+on nested dicts of tensors, so every model is a function of its
+parameter tree.
+
+Initializers take an explicit ``torch.Generator`` (in place of a
+``jax.random`` key) that must live on ``device`` (``None``: the GPU, as
+every entry point; ``"meta"`` gives shapes only).  The two packages draw
+different numbers from one seed: tests carry the reference's parameters
+across (``convert.recsys_params_from_reference``).  Every product
+accumulates in float32 and casts back to the input's dtype, as the
+reference's ``preferred_element_type`` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+
+
+def _normal(generator, shape, dtype, device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=resolve_device(device))
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in float32, cast back to x's dtype."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+
+
+def dense_init(generator, in_dim: int, out_dim: int, dtype=torch.float32,
+               scale: float | None = None, device=None):
+    if scale is None:
+        scale = 1.0 / (in_dim ** 0.5)
+    return {"w": _normal(generator, (in_dim, out_dim), dtype, device) * scale}
+
+
+def dense(params, x):
+    return _dot(x, params["w"])
+
+
+def embed_init(generator, vocab: int, dim: int, dtype=torch.float32,
+               device=None):
+    return {"table": _normal(generator, (vocab, dim), dtype, device) * 0.02}
+
+
+def embed(params, ids):
+    table = params["table"]
+    ids = torch.as_tensor(ids, device=table.device).to(torch.int64)
+    return table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[1])
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.zeros((dim,), dtype=dtype,
+                                 device=resolve_device(device))}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
+
+
+# -- gated MLPs -------------------------------------------------------------
+
+def glu_mlp_init(generator, d_model: int, d_ff: int, dtype=torch.float32,
+                 device=None):
+    return {
+        "gate": dense_init(generator, d_model, d_ff, dtype, device=device),
+        "up": dense_init(generator, d_model, d_ff, dtype, device=device),
+        "down": dense_init(generator, d_ff, d_model, dtype, device=device),
+    }
+
+
+def glu_mlp(params, x, act: str = "gelu"):
+    g = dense(params["gate"], x)
+    # jax.nn.gelu's default is the tanh approximation
+    g = F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
+    return dense(params["down"], g * dense(params["up"], x))
+
+
+def mlp_init(generator, dims: list[int], dtype=torch.float32, device=None):
+    """Plain MLP stack (recsys towers): dims = [in, h1, ..., out]."""
+    return {
+        f"l{i}": {
+            **dense_init(generator, dims[i], dims[i + 1], dtype,
+                         device=device),
+            "b": torch.zeros((dims[i + 1],), dtype=dtype,
+                             device=resolve_device(device)),
+        }
+        for i in range(len(dims) - 1)
+    }
+
+
+def mlp(params, x, act=torch.relu, final_act: bool = False):
+    n = len(params)
+    for i in range(n):
+        p = params[f"l{i}"]
+        x = _dot(x, p["w"]) + p["b"]
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
+# -- rotary position embeddings ---------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0):
+    """Apply RoPE. x: [B, S, H, hd], positions: [B, S]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = base ** (-torch.arange(0, half, dtype=torch.float32,
+                                  device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freq   # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float | None):
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def shifted_softplus(x):
+    """SchNet's ssp activation: ln(0.5 e^x + 0.5)."""
+    return torch.logaddexp(x, torch.zeros_like(x)) - math.log(2.0)

@@ -1,9 +1,10 @@
 """The recsys family (port of ``repro.models.recsys``): the embedding
-substrate with the paper's int8 ``QuantizedTable``, candidate retrieval
-and ``RecsysConfig``.  The interaction layers, ``init_params`` and the
-per-kind forwards come with training (ROADMAP A16)."""
+substrate with the paper's int8 ``QuantizedTable``, the feature
+interactions, the four architectures' ``init_params`` / ``forward`` /
+``serve`` / ``bce_loss``, candidate retrieval and ``RecsysConfig``.
+Training waits for ``train/`` (ROADMAP queue A)."""
 
-from repro_torch.models.recsys import embedding, models, retrieval
+from repro_torch.models.recsys import embedding, interactions, models, retrieval
 from repro_torch.models.recsys.models import RecsysConfig
 
-__all__ = ["embedding", "models", "retrieval", "RecsysConfig"]
+__all__ = ["embedding", "interactions", "models", "retrieval", "RecsysConfig"]

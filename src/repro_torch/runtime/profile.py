@@ -21,11 +21,14 @@ counterpart where one exists:
                 "gpu") raises when no card exists; any other raises
     nan_debug   ``torch.autograd.set_detect_anomaly(check_nan=True)``
     seed        the explicit ``torch.Generator`` seed policy (``key``)
+    host_device_count
+                the CPU devices ``dist.sharding.default_devices`` gives a
+                CPU profile (``cpu-mesh4``: four), so a mesh over them
+                shards as the reference's host devices do
 
 These only ride in the stamp: ``xla_flags`` and ``x64`` (no torch
-counterpart), ``host_device_count`` (until the sharded plans, ROADMAP
-A14), and ``deterministic`` (a marker for the trend gate, as in the
-reference).
+counterpart), and ``deterministic`` (a marker for the trend gate, as in
+the reference).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ class RuntimeProfile:
 
     name               registry key, stamped into every artifact
     platform           "cpu" / "cuda" ("gpu"), or None: the card default
-    host_device_count  host devices for the sharded plans (stamp only)
+    host_device_count  host devices a CPU profile's meshes shard over
     xla_flags          the reference's XLA flags (stamp only)
     nan_debug          fail fast on NaN in autograd
     x64                the reference's 64-bit switch (stamp only)
@@ -209,6 +212,14 @@ def platform_device() -> Optional[str]:
     return PLATFORMS.get(_ACTIVE.platform)
 
 
+def host_devices() -> int:
+    """The CPU devices a CPU run shards over: the applied profile's
+    ``host_device_count`` where its platform is the CPU, else 1."""
+    if platform_device() != "cpu":
+        return 1
+    return max(1, int(_ACTIVE.host_device_count or 1))
+
+
 def key(profile: Optional[RuntimeProfile] = None) -> torch.Generator:
     """A CPU ``torch.Generator`` seeded with the profile's seed (the seed
     policy in one place)."""
@@ -251,7 +262,8 @@ def stamp(profile: Optional[RuntimeProfile] = None) -> dict:
         "applied": _ACTIVE is not None,
         "backend": be,
         "device_kind": facts["device_kind"],
-        "n_devices": torch.cuda.device_count() if be == "cuda" else 1,
+        "n_devices": (torch.cuda.device_count() if be == "cuda"
+                      else host_devices()),
         "interpret": facts["interpret"],
         "platform": _platform.platform(),
         "torch_version": torch.__version__,

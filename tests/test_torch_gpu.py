@@ -1141,3 +1141,69 @@ def test_sharded_walks_on_one_card(dev, f):
         assert fp32_near_equal(sh.scores.cpu().numpy(), sh.ids.cpu().numpy(),
                                un.scores.cpu().numpy(), un.ids.cpu().numpy(),
                                1e-6)[0]
+
+
+def test_serve_cli_on_the_card(dev, tmp_path, capsys):
+    """``launch.serve.main --profile cuda-serve`` at n = 20,000: the session
+    runs on the card (B1 encodes the queries, B2 int8 scans), a hot repeat
+    hits the result cache, and every issued query is served."""
+    import json
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.runtime import profile as rtprofile
+
+    rtprofile._reset_for_tests()
+    out = tmp_path / "tel.json"
+    try:
+        kernels.reset_launch_counts()
+        serve.main(["--profile", "cuda-serve", "--index",
+                    "flat,lpq8@gaussian:3", "--n", "20000", "--d", "64",
+                    "--batch", "32", "--requests", "8", "--mixed",
+                    "--cache", "8", "--hot-repeat", "3", "--telemetry-out",
+                    str(out)])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        rtprofile._reset_for_tests()
+    text = capsys.readouterr().out
+    tel = json.loads(out.read_text())
+    assert "QPS" in text and "p95" in text
+    assert tel["meta"]["runtime"]["backend"] == "cuda"
+    assert counts["quantize"] > 0 and counts["fused_topk_int8"] > 0
+    assert any(e.get("cache") == "hit" for e in tel["events"])
+    sizes = serve._request_sizes(8, 32, True)
+    issued = sum(sizes[0] if i and i % 3 == 0 else s
+                 for i, s in enumerate(sizes))
+    assert tel["counters"]["queries_served"] == issued
+
+
+@pytest.mark.parametrize("arch", ["autoint", "dcn_v2", "dien",
+                                  "dlrm_mlperf"])
+def test_recsys_serve_on_the_card_equals_the_cpu(dev, arch):
+    """Each architecture's reduced config initialised on the card: the
+    card's CTR probabilities within rtol 1e-5 of the CPU's plain run of the
+    same parameters and batch (TF32 off; the two sum products in different
+    orders)."""
+    import importlib
+
+    from repro_torch.data.recsys_data import ctr_batch
+    from repro_torch.launch import make_recsys_serve
+    from repro_torch.models.recsys import models as RM
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}") \
+        .reduced_config()
+    params = RM.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    batch = ctr_batch(torch.Generator(device=dev).manual_seed(1), 256,
+                      cfg.n_dense, cfg.vocab_sizes, cfg.seq_len, device=dev)
+    got = make_recsys_serve(cfg)(params, batch)
+    assert got.is_cuda and got.shape == (256,)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    want = RM.serve(cpu(params), cpu(batch), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)

@@ -7,8 +7,9 @@ decisions and counters under the same ``FakeClock``), telemetry (equal
 percentiles), background compaction's atomic-swap invariant and the
 maintenance scheduler (its thread test waits on the scheduler's swap
 event, never on a clock loop), and the runtime hooks of
-``tests/test_cascade.py``.  The serve-loop and trend-gate classes wait for
-the port of ``launch/serve.py``.
+``tests/test_cascade.py``.  The serve-loop class is ported in
+``tests/test_torch_serve.py``; the trend gate waits for the port's
+benchmark.
 """
 
 import io
