@@ -58,7 +58,7 @@ Phases (each prints its lines; any failure exits non-zero):
               one run of their own; then recall@100 at n=20000 within 0.01
               of the reference's (REF_RETRIEVAL_RECALL)
   7. graph    the graph walk and HNSW: (a) hnsw8 int8 ip / l2 / angular
-              and packed-int4 arms at 4,000 x 64, built on the card and on
+              and packed-int4 arms at 2,000 x 64, built on the card and on
               the CPU from the same levels: adjacency and entry equal, and a
               bucketed Searcher's ids and scores equal at ef_search 40 and
               80 (fp32 hnsw8: recall@10 within 0.01); (c) the paper's arm
@@ -101,7 +101,7 @@ Phases (each prints its lines; any failure exits non-zero):
               width-257 self-join (B2 int8, Q = 1,024 of N = 250,000) held
               bit-equal to the plain version
   9. filter / stream  filtered search through every kind and the stream
-              kind: (a) at 4,000 x 64, every ported kind (flat, int8, int4
+              kind: (a) at 2,000 x 64, every ported kind (flat, int8, int4
               +r32, pq16+lpq, pq16x4,lpq8, ivf32, hnsw8, graph8 and a stream
               arm with segments and a memtable) filtered at 0.02 / 0.25 /
               0.9 equal to its own exhaustive ranking cut to the allowed
@@ -216,6 +216,28 @@ Phases (each prints its lines; any failure exits non-zero):
               at batch 512 and, for dlrm-mlperf and dcn-v2, 262,144; each
               architecture's probabilities at full widths and tables of
               100,000 rows within rtol 1e-5 of the CPU's plain run
+ 14. lm       LM serving (transformer, blockwise attention, MoE, int8 KV
+              cache; plain PyTorch: no kernel of the port lies on this
+              path, and the launch counters, logged before and after, must
+              not move): a bf16 x bf16 product with a float32 output held
+              to float64; (a) the five LM architectures' reduced configs
+              (float32) on the card against the CPU on the same parameters
+              and tokens: forward, prefill logits and caches, 4 decode_step
+              and 4 decode_step_q8 steps within 1e-5 of the logit scale,
+              argmax equal, a llama4 prefill dropping tokens; (b)
+              gemma2-9b at full width (2 layers, float32, B=1 x S=256):
+              prefill and one decode step within 1e-4 of the CPU's, TF32
+              off; (c) gemma2-9b at full width and depth in bf16 (9.24 B
+              parameters from a CUDA generator): make_lm_prefill on 4 x
+              4,608 tokens, 32 greedy make_lm_decode steps and 32
+              make_lm_decode_q8 steps from quantize_cache of the same
+              prefill: prefill tokens/s, decode ms a step (CUDA events,
+              median), cache bytes equal to cache_memory_bytes, q8 greedy
+              agreement and top-5 overlap, decode step 0 within
+              LM_TEACHER_TOL of forward over the S+1 tokens with the argmax
+              equal in at least 3 of 4 rows; (d) llama4-scout at full width,
+              4 layers (cccg), 1 x 8,320 tokens (past the 8,192 chunk), 16
+              fp and 16 q8 steps: the same numbers and drop_frac
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
@@ -1195,14 +1217,24 @@ def time_qscore(err: dict) -> dict:
 # phase 4: the main path at full width
 # --------------------------------------------------------------------------
 
-def serve(index, queries, k, sizes, searcher=None):
+#: the mixed 1/8/32 stream's queries (15 requests); on the graph walks,
+#: where every request costs a whole walk (0.3-1.4 s), 41 (one request of
+#: each size), so that the script stays inside its time limit on a slower
+#: host (1,166 s by its [time] lines with 205 on one H100 host)
+MIXED_Q = 205
+WALK_MIXED_Q = 41
+
+
+def serve(index, queries, k, sizes, searcher=None, warm=True):
     """Run ``queries`` through a Searcher in requests of ``sizes`` (cycled);
-    returns (ids, QPS, p50 ms, searcher)."""
+    returns (ids, QPS, p50 ms, searcher).  ``warm=False``: ``searcher`` has
+    already served every bucket (an earlier ``serve`` call)."""
     import torch
 
     s = searcher or index.searcher(k, batch_sizes=BUCKETS)
-    for b in BUCKETS:                               # warm every bucket
-        s(queries[:b])
+    if warm or searcher is None:
+        for b in BUCKETS:                           # warm every bucket
+            s(queries[:b])
     torch.cuda.synchronize()
     lat, ids, start, j = [], [], 0, 0
     t0 = time.perf_counter()
@@ -1365,7 +1397,8 @@ def main_path(err: dict) -> dict:
                  f"{f}: bad ids")
             mixed = ""
             if name == "product":
-                _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), srch)
+                _, mqps, mp50, _ = serve(idx, queries[:MIXED_Q], k, (1, 8, 32),
+                                         srch, warm=False)
                 mixed = f"; mixed 1/8/32: QPS {mqps:.1f} p50 {mp50:.2f} ms"
             log(f"[main] {name} {n}x{d} {metric} {f}: recall@100 {rec:.4f} mem "
                 f"{ratio:.4f} QPS {qps:.1f} p50 {p50:.2f} ms (256-query "
@@ -1703,7 +1736,7 @@ def graph_exact() -> None:
     from repro_torch.knn import SearchParams, as_spec, make_index
     from repro_torch.knn.hnsw import HNSWIndex, draw_levels
 
-    n, d = 4000, 64
+    n, d = 2000, 64
     rng = np.random.default_rng(7)
     corpus = rng.standard_normal((n, d)).astype(np.float32)
     queries = rng.standard_normal((256, d)).astype(np.float32)
@@ -1868,7 +1901,8 @@ def graph_path() -> dict:
             need(ids.shape == (1000, k) and bool(torch.all(ids >= 0)),
                  f"{f}: bad ids")
             rec = recall_at_k(gt, ids)
-            _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+            _, mqps, mp50, _ = serve(idx, queries[:WALK_MIXED_Q], k,
+                                     (1, 8, 32), s, warm=False)
             log(f"[graph] product {n}x{d} {metric} {f} ef_search {ef}: "
                 f"recall@100 {rec:.4f} QPS {qps:.1f} p50 {p50:.2f} ms "
                 f"(256-query requests); mixed 1/8/32: QPS {mqps:.1f} p50 "
@@ -2170,7 +2204,9 @@ def index_path(err: dict) -> dict:
         need(ids.shape == (1000, k) and bool(torch.all(ids >= 0)),
              f"{f}: bad ids")
         rec = recall_at_k(gt, ids)
-        _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+        mq = WALK_MIXED_Q if idx.kind == "graph" else MIXED_Q
+        _, mqps, mp50, _ = serve(idx, queries[:mq], k, (1, 8, 32), s,
+                                 warm=False)
         log(f"[index] sift {n}x{d} {metric} {f} {label}: recall@100 "
             f"{rec:.4f} QPS {qps:.1f} p50 {p50:.2f} ms (256-query "
             f"requests); mixed 1/8/32: QPS {mqps:.1f} p50 {mp50:.2f} ms | "
@@ -2340,7 +2376,7 @@ def allow_mask(n: int, sel: float, salt: int = 0):
 
 
 def filter_exact() -> None:
-    """9(a): (1) every ported kind at 4,000 x 64, filtered at each
+    """9(a): (1) every ported kind at 2,000 x 64, filtered at each
     selectivity, against its own exhaustive ranking (ef_search = N, nprobe
     = nlist, rerank depth N) cut to the allowed rows: scores bit-equal, ids
     equal up to order inside tie groups; (2) the integer flat, ivf, hnsw
@@ -2364,9 +2400,13 @@ def filter_exact() -> None:
                                      post_filter, stream_lifecycle,
                                      tie_groups_equal)
 
-    n, d, k = 4000, 64, 10
+    # the hnsw and graph walks at ef_search = N take most of this part's
+    # time, so (1) and (2) run at 2,000 rows; (3)'s write sequence reads
+    # 3,850 rows
+    n, d, k = 2000, 64, 10
     rng = np.random.default_rng(9)
-    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    rows = rng.standard_normal((4000, d)).astype(np.float32)
+    corpus = rows[:n]
     queries = rng.standard_normal((256, d)).astype(np.float32)
     q32 = queries[:32]
 
@@ -2446,7 +2486,7 @@ def filter_exact() -> None:
 
     for f in STREAM_EXACT:
         allow = allow_mask(6000, 0.25, 1)
-        runs = [stream_lifecycle(make_index, f, corpus, queries, allow,
+        runs = [stream_lifecycle(make_index, f, rows, queries, allow,
                                  (1, 8, 32, 215), bulk=2000, k=k,
                                  searcher_kw={"batch_sizes": BUCKETS},
                                  metric="ip", device=dev, seal_threshold=512,
@@ -2536,7 +2576,8 @@ def filtered_arm(f, idx, queries, k, params, sels, card, tag, n):
 
     _ids, qps0, p500, s0 = serve(idx, queries, k, (256,),
                                  idx.searcher(k, params))
-    _, mqps0, mp500, _ = serve(idx, queries[:205], k, (1, 8, 32), s0)
+    _, mqps0, mp500, _ = serve(idx, queries[:MIXED_Q], k, (1, 8, 32), s0,
+                               warm=False)
     log(f"[filter] {tag} {f}: unfiltered QPS {qps0:.1f} p50 {p500:.2f} ms "
         f"(256-query requests); mixed 1/8/32: QPS {mqps0:.1f} p50 "
         f"{mp500:.2f} ms | {card}")
@@ -2546,7 +2587,8 @@ def filtered_arm(f, idx, queries, k, params, sels, card, tag, n):
         sp = dataclasses.replace(params, filter=Filter.from_mask(allow))
         s = idx.searcher(k, sp)
         ids, qps, p50, _ = serve(idx, queries, k, (256,), s)
-        _, mqps, mp50, _ = serve(idx, queries[:205], k, (1, 8, 32), s)
+        _, mqps, mp50, _ = serve(idx, queries[:MIXED_Q], k, (1, 8, 32), s,
+                                 warm=False)
         got = ids.cpu().numpy()
         need(bool(allow[got[got >= 0]].all()),
              f"{tag} {f} at {sel}: a disallowed id came back")
@@ -3269,7 +3311,8 @@ def cascade_path(err: dict, pc, pq) -> dict:
         ids, qps, p50, _ = serve(idx, pq, k, (256,), s)
         need(ids.shape == (pq.shape[0], k) and bool(torch.all(ids >= 0)),
              f"{f}: bad ids")
-        _, mqps, mp50, _ = serve(idx, pq[:205], k, (1, 8, 32), s)
+        _, mqps, mp50, _ = serve(idx, pq[:MIXED_Q], k, (1, 8, 32), s,
+                                 warm=False)
         return recall_at_k(gt, ids), qps, p50, mqps, mp50, s(pq[:256]).stats
 
     for f in (*CASCADE_BESIDE, *CASCADE_ARMS):
@@ -3333,7 +3376,8 @@ def cascade_path(err: dict, pc, pq) -> dict:
             ids, qps, p50, _ = serve(idx, sq, 100, (256,), s)
             need(ids.shape == (1000, 100) and bool(torch.all(ids >= 0)),
                  f"{f}: bad ids")
-            _, mqps, mp50, _ = serve(idx, sq[:205], 100, (1, 8, 32), s)
+            _, mqps, mp50, _ = serve(idx, sq[:MIXED_Q], 100, (1, 8, 32), s,
+                                     warm=False)
             extra = ""
             if idx.kind == "ivf":
                 width = min(v, idx.nlist) * idx.max_list
@@ -4325,6 +4369,8 @@ def serve_cli(run: dict) -> None:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -4423,6 +4469,493 @@ def phase13() -> dict:
     log(f"[phase13] 13(b) {time.perf_counter() - t0:.1f} s")
     log(f"[phase13] kernel launches on phase 13's runs: {run}")
     return run
+
+
+# --------------------------------------------------------------------------
+# phase 14: LM serving (transformer, blockwise attention, MoE, int8 KV cache)
+# --------------------------------------------------------------------------
+
+#: the five LM architectures (their reduced configs in 14(a))
+LM_ARCHS = ("gemma-2b", "gemma2-9b", "minicpm-2b", "llama4-scout-17b-16e",
+            "llama4-maverick-400b-17b")
+#: 14(a): batch, prompt and steps at the reduced configs; the card against
+#: the CPU at the CPU tests' tolerance (max |diff| / max |logit|)
+LM_SMALL = dict(batch=2, prompt=32, steps=4)
+LM_TOL = 1e-5
+#: 14(a) in bf16: the dense reduced configs' whole model, and the llama4
+#: reduced configs' ``moe_apply``, card against CPU within a few bf16
+#: epsilons (2**-7) of the output scale: the two round their bf16 products'
+#: ties otherwise.  The argmax is not gated (near-ties flip), and the
+#: llama4 models are held a layer at a time because a one-ulp change can
+#: flip a token's top-1 expert.
+LM_BF16_ARCHS = ("gemma-2b", "gemma2-9b", "minicpm-2b")
+LM_BF16_EPS = 2.0 ** -7
+LM_BF16_TOL = 4 * LM_BF16_EPS
+LM_MOE_BF16_TOL = 2 * LM_BF16_EPS
+#: 14(b): gemma2-9b at full width, 2 layers, float32, B=1 x S=256; the
+#: card (TF32 off) against the CPU
+LM_WIDE = dict(arch="gemma2-9b", layers=2, batch=1, prompt=256)
+LM_WIDE_TOL = 1e-4
+#: 14(c) and (d): full width in bf16 on the card: gemma2-9b at full depth,
+#: B=4 x S=4,608 (past the 4,096 window), and llama4-scout at 4 layers
+#: ("cccg"), B=1 x S=8,320 (past the 8,192 chunk)
+LM_FULL = (dict(part="14(c)", arch="gemma2-9b", layers=None, batch=4,
+                prompt=4608, steps=32, teacher=True),
+           dict(part="14(d)", arch="llama4-scout-17b-16e", layers=4, batch=1,
+                prompt=8320, steps=16, teacher=False))
+#: 14(c) / (d): prefills timed after one warm-up prefill at the cell's
+#: shape (allocator growth, cuBLAS set-up); the median is logged
+LM_PREFILL_REPS = 3
+#: 14(c): decode step 0 against forward over the S+1 tokens (teacher
+#: forced), max |diff| / max |logit|: 3.3x the 9.212e-3 measured on an
+#: H100 80GB HBM3 (bf16 products of other shapes round otherwise, 42
+#: layers deep)
+LM_TEACHER_TOL = 0.03
+LM_DEV = "cuda"
+
+
+def _lm_cfg(arch: str, layers=None, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    cfg = get(arch).config()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg
+
+
+def _lm_close(tag: str, got, want, tol: float) -> float:
+    """``got`` (card) against ``want`` (CPU): within ``tol`` of the logit
+    scale and the argmax equal in every row."""
+    from repro_torch.testing import scale_err
+
+    g, w = got.cpu().numpy(), want.numpy()
+    err = scale_err(g, w)
+    need(err <= tol, f"{tag}: card and CPU differ by {err:.3e} of the "
+         f"logit scale, past {tol}")
+    need(bool((g.argmax(-1) == w.argmax(-1)).all()),
+         f"{tag}: card and CPU argmax differ")
+    return err
+
+
+def _lm_session(params, tokens, cfg, prompt: int, steps: int):
+    """Prefill ``tokens[:, :prompt]``, then ``steps`` decode steps on the fp
+    cache and ``steps`` on the int8 cache made by ``quantize_cache`` of the
+    same prefill, both fed ``tokens[:, prompt:]``: every logits tensor on
+    the host, and the prefill's drop_frac."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.quantized import qkv_cache as QC
+
+    B = tokens.shape[0]
+    max_len = prompt + steps
+    fwd, aux = TF.forward(params, tokens, cfg)
+    lg, kv, pre_aux = TF.forward(params, tokens[:, :prompt], cfg,
+                                 collect_kv=True, logits_mode="last")
+    kc, vc = TF.make_cache(cfg, B, max_len, dtype=kv[0].dtype,
+                           device=tokens.device)
+    TF.write_prefix(kc, kv[0])
+    TF.write_prefix(vc, kv[1])
+    qc = QC.quantize_cache(kv[0], kv[1], max_len)
+    out = {"forward": fwd.cpu(), "prefill": lg[:, -1].cpu(),
+           "kv": (kv[0].cpu(), kv[1].cpu()), "fp": [], "q8": [],
+           "drop": float(pre_aux["drop_frac"])}
+    for s in range(steps):
+        tok = tokens[:, prompt + s:prompt + s + 1]
+        out["fp"].append(TF.decode_step(params, (kc, vc), tok, prompt + s,
+                                        cfg)[0].cpu())
+        out["q8"].append(QC.decode_step_q8(params, qc, tok, prompt + s,
+                                           cfg)[0].cpu())
+    return out
+
+
+def lm_card_vs_cpu() -> None:
+    """14(a): the five reduced configs (float32) on the card against the
+    port's CPU path on the same parameters and tokens (drawn on the CPU):
+    forward, prefill (logits and caches), LM_SMALL's decode_step and
+    decode_step_q8 steps, each within LM_TOL of the logit scale with the
+    argmax equal.  A llama4 prefill must drop tokens (its drop_frac equal
+    on both)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import lm_data
+    from repro_torch.models import transformer as TF
+    from repro_torch.testing import scale_err
+
+    B, P, steps = (LM_SMALL[k] for k in ("batch", "prompt", "steps"))
+    drops = {}
+    for n, arch in enumerate(LM_ARCHS):
+        cfg = get(arch).reduced_config()
+        params = TF.init_params(torch.Generator().manual_seed(n), cfg,
+                                device="cpu")
+        toks = lm_data.lm_batch(torch.Generator().manual_seed(100 + n), B,
+                                P + steps, cfg.vocab, device="cpu")["tokens"]
+        cpu = _lm_session(params, toks, cfg, P, steps)
+        card = _lm_session(_to(params, LM_DEV), toks.to(LM_DEV), cfg, P,
+                           steps)
+        errs = [_lm_close(f"14(a) {arch} forward", card["forward"],
+                          cpu["forward"], LM_TOL),
+                _lm_close(f"14(a) {arch} prefill", card["prefill"],
+                          cpu["prefill"], LM_TOL)]
+        for g, w in zip(card["kv"], cpu["kv"]):
+            e = scale_err(g.numpy(), w.numpy())
+            need(e <= LM_TOL, f"14(a) {arch}: prefill caches differ by "
+                 f"{e:.3e} of their scale")
+            errs.append(e)
+        for path in ("fp", "q8"):
+            for s, (g, w) in enumerate(zip(card[path], cpu[path])):
+                errs.append(_lm_close(f"14(a) {arch} {path} step {s}", g, w,
+                                      LM_TOL))
+        need(card["drop"] == cpu["drop"],
+             f"14(a) {arch}: drop_frac {card['drop']} on the card, "
+             f"{cpu['drop']} on the CPU")
+        drops[arch] = cpu["drop"]
+        log(f"[lm] 14(a) {arch}: forward, prefill, {steps} fp + {steps} q8 "
+            f"decode steps at B={B}, S={P}: card vs CPU max "
+            f"{max(errs):.3e} of the logit scale (tolerance {LM_TOL}), "
+            f"argmax equal; prefill drop_frac {cpu['drop']:.4f}")
+    need(any(drops[a] > 0 for a in LM_ARCHS if a.startswith("llama4")),
+         "14(a): no llama4 prefill dropped a token")
+
+
+def lm_card_vs_cpu_bf16() -> None:
+    """14(a) in bf16: LM_BF16_ARCHS' reduced configs in bf16 on the card
+    against the port's CPU path (forward, prefill logits and caches,
+    LM_SMALL's decode_step and decode_step_q8 steps) within LM_BF16_TOL of
+    the scale; each llama4 reduced config's first MoE layer in bf16 on a
+    [B, S, d] bf16 input, card (``torch.bmm(..., out_dtype=float32)``)
+    against CPU, within LM_MOE_BF16_TOL of the output scale with drop_frac
+    equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import lm_data
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.testing import scale_err
+
+    B, P, steps = (LM_SMALL[k] for k in ("batch", "prompt", "steps"))
+    for n, arch in enumerate(LM_BF16_ARCHS):
+        cfg = dataclasses.replace(get(arch).reduced_config(),
+                                  dtype="bfloat16")
+        params = TF.init_params(torch.Generator().manual_seed(20 + n), cfg,
+                                device="cpu")
+        toks = lm_data.lm_batch(torch.Generator().manual_seed(120 + n), B,
+                                P + steps, cfg.vocab, device="cpu")["tokens"]
+        cpu = _lm_session(params, toks, cfg, P, steps)
+        card = _lm_session(_to(params, LM_DEV), toks.to(LM_DEV), cfg, P,
+                           steps)
+        pairs = [("forward", card["forward"], cpu["forward"]),
+                 ("prefill", card["prefill"], cpu["prefill"]),
+                 ("k cache", *(t[0] for t in (card["kv"], cpu["kv"]))),
+                 ("v cache", *(t[1] for t in (card["kv"], cpu["kv"])))]
+        for path in ("fp", "q8"):
+            pairs += [(f"{path} step {s}", g, w)
+                      for s, (g, w) in enumerate(zip(card[path], cpu[path]))]
+        errs, same = [], []
+        for what, g, w in pairs:
+            g, w = g.float().numpy(), w.float().numpy()
+            e = scale_err(g, w)
+            need(e <= LM_BF16_TOL, f"14(a) bf16 {arch} {what}: card and "
+                 f"CPU differ by {e:.3e} of the scale, past {LM_BF16_TOL}")
+            errs.append(e)
+            if what not in ("k cache", "v cache"):
+                same.append(float((g.argmax(-1) == w.argmax(-1)).mean()))
+        log(f"[lm] 14(a) bf16 {arch}: forward, prefill, {steps} fp + "
+            f"{steps} q8 decode steps at B={B}, S={P}: card vs CPU max "
+            f"{max(errs):.3e} of the scale (tolerance {LM_BF16_TOL}); argmax "
+            f"agreement {min(same):.4f} at worst (not gated)")
+    for n, arch in enumerate(a for a in LM_ARCHS if a.startswith("llama4")):
+        cfg = dataclasses.replace(get(arch).reduced_config(),
+                                  dtype="bfloat16")
+        params = TF.init_params(torch.Generator().manual_seed(30 + n), cfg,
+                                device="cpu")
+        moe = TF._block(params["layers"], 0)[
+            f"sub{cfg.block_layers - 1}"]["moe"]
+        x = torch.randn(B, 4 * P, cfg.d_model,
+                        generator=torch.Generator().manual_seed(130 + n)
+                        ).to(torch.bfloat16)
+        want, waux = M.moe_apply(moe, x, cfg.moe, act=cfg.act)
+        got, gaux = M.moe_apply(_to(moe, LM_DEV), x.to(LM_DEV), cfg.moe,
+                                act=cfg.act)
+        e = scale_err(got.float().cpu().numpy(), want.float().numpy())
+        need(e <= LM_MOE_BF16_TOL, f"14(a) bf16 {arch} moe_apply: card and "
+             f"CPU differ by {e:.3e} of the scale, past {LM_MOE_BF16_TOL}")
+        need(float(gaux["drop_frac"]) == float(waux["drop_frac"]),
+             f"14(a) bf16 {arch} moe_apply: drop_frac "
+             f"{float(gaux['drop_frac'])} on the card, "
+             f"{float(waux['drop_frac'])} on the CPU")
+        log(f"[lm] 14(a) bf16 {arch} moe_apply ({cfg.moe.n_experts} experts "
+            f"of d_ff {cfg.moe.d_ff}, {B * 4 * P} tokens): card vs CPU "
+            f"{e:.3e} of the scale (tolerance {LM_MOE_BF16_TOL}), drop_frac "
+            f"{float(waux['drop_frac']):.4f} on both")
+
+
+def lm_wide_f32() -> None:
+    """14(b): gemma2-9b at full width (d_model 3584, 16 / 8 heads of 256,
+    d_ff 14,336, vocab 256,000, soft-caps), LM_WIDE's layers, float32,
+    drawn on the card and copied to the CPU: prefill logits and one decode
+    step on the card (TF32 off) within LM_WIDE_TOL of the CPU's."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    w = LM_WIDE
+    cfg = _lm_cfg(w["arch"], w["layers"], "float32")
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    params = TF.init_params(torch.Generator(device=LM_DEV).manual_seed(7),
+                            cfg, device=LM_DEV)
+    toks = torch.randint(0, cfg.vocab, (w["batch"], w["prompt"] + 1),
+                         generator=torch.Generator(device=LM_DEV)
+                         .manual_seed(8), device=LM_DEV)
+    res = {}
+    for where, p, t in (("card", params, toks),
+                        ("cpu", _to(params, "cpu"), toks.cpu())):
+        t0 = time.perf_counter()
+        lg, kv = TF.prefill(p, t[:, :-1], cfg)
+        kc, vc = TF.make_cache(cfg, w["batch"], w["prompt"] + 1,
+                               dtype=torch.float32, device=t.device)
+        TF.write_prefix(kc, kv[0])
+        TF.write_prefix(vc, kv[1])
+        dec, _ = TF.decode_step(p, (kc, vc), t[:, -1:], w["prompt"], cfg)
+        res[where] = (lg.cpu(), dec.cpu(), time.perf_counter() - t0)
+        del p, kv, kc, vc
+    e1 = _lm_close("14(b) prefill", res["card"][0], res["cpu"][0],
+                   LM_WIDE_TOL)
+    e2 = _lm_close("14(b) decode", res["card"][1], res["cpu"][1],
+                   LM_WIDE_TOL)
+    n = sum(t.numel() for t in _lm_leaves(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] 14(b) {w['arch']} full width, {cfg.n_layers} layers, float32 "
+        f"({n:,} parameters), B={w['batch']}, S={w['prompt']}: card vs CPU "
+        f"prefill {e1:.3e}, decode {e2:.3e} of the logit scale (tolerance "
+        f"{LM_WIDE_TOL}), argmax equal; card {res['card'][2]:.2f} s, CPU "
+        f"{res['cpu'][2]:.2f} s (host clock, first call)")
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _lm_leaves(v)
+    else:
+        yield tree
+
+
+def _events(fn):
+    """(fn's result, its device ms by CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _cache_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lm_serve_full(spec: dict) -> dict:
+    """14(c) / (d): ``spec``'s architecture at full width in bf16, drawn
+    from a CUDA generator on the card: ``make_lm_prefill`` on B x S tokens
+    (the forward's drop_frac logged), then ``steps`` greedy
+    ``make_lm_decode`` steps on the bf16 cache and ``steps``
+    ``make_lm_decode_q8`` steps from ``quantize_cache`` of the same
+    prefill, fed the fp path's greedy tokens.  Logs prefill tokens/s,
+    decode ms a step (CUDA events, median), the caches' bytes against
+    ``cache_memory_bytes``, and the q8 path's greedy-token agreement and
+    top-5 overlap with the fp path.  With ``teacher``: decode step 0's
+    logits against ``forward`` over the S+1 tokens, argmax equal in at
+    least 3 of 4 rows and within LM_TEACHER_TOL of the logit scale."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_data
+    from repro_torch.launch import (make_lm_decode, make_lm_decode_q8,
+                                    make_lm_prefill)
+    from repro_torch.models import transformer as TF
+    from repro_torch.quantized import qkv_cache as QC
+    from repro_torch.testing import scale_err
+
+    tag = spec["part"]
+    cfg = _lm_cfg(spec["arch"], spec["layers"])
+    B, S, steps = spec["batch"], spec["prompt"], spec["steps"]
+    dev = torch.device(LM_DEV)
+    t0 = time.perf_counter()
+    params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _lm_leaves(params))
+    toks = lm_data.lm_batch(torch.Generator(device=dev).manual_seed(1), B, S,
+                            cfg.vocab, device=dev)["tokens"]
+
+    prefill = make_lm_prefill(cfg)
+    prefill(params, toks)                        # warm-up, result dropped
+    lg = kv = None
+    pre = []
+    for _ in range(LM_PREFILL_REPS):
+        lg = kv = None                           # free the last call's
+        (lg, kv), ms = _events(lambda: prefill(params, toks))
+        pre.append(ms)
+    pre_ms = statistics.median(pre)
+    drop = None
+    if cfg.moe is not None:
+        _, aux = TF.forward(params, toks, cfg, logits_mode="last")
+        drop = float(aux["drop_frac"])
+    need(bool(torch.isfinite(lg[:, :cfg.vocab]).all()),
+         f"{tag}: prefill logits are not finite")
+    max_len = S + steps
+    kc, vc = TF.make_cache(cfg, B, max_len, device=dev)
+    TF.write_prefix(kc, kv[0])
+    TF.write_prefix(vc, kv[1])
+    qc = QC.quantize_cache(kv[0], kv[1], max_len)
+    del kv
+    fp_bytes = _cache_bytes(kc, vc)
+    q8_bytes = _cache_bytes(qc.k_codes, qc.v_codes, qc.k_scale, qc.v_scale)
+    want_fp = QC.cache_memory_bytes(cfg, B, max_len, quantized=False)
+    want_q8 = QC.cache_memory_bytes(cfg, B, max_len, quantized=True)
+    need(fp_bytes == want_fp and q8_bytes == want_q8,
+         f"{tag}: caches hold {fp_bytes:,} / {q8_bytes:,} bytes, "
+         f"cache_memory_bytes says {want_fp:,} / {want_q8:,}")
+
+    decode, decode_q8 = make_lm_decode(cfg), make_lm_decode_q8(cfg)
+    tok = lg.argmax(-1)[:, None]
+    first, greedy, fp_logits, fp_ms = tok, [], [], []
+    for s in range(steps):
+        (out, _), ms = _events(lambda: decode(params, (kc, vc), tok, S + s))
+        fp_ms.append(ms)
+        fp_logits.append(out.cpu())
+        greedy.append(tok)
+        tok = out.argmax(-1)[:, None]
+    q8_ms, agree, top5 = [], [], []
+    for s in range(steps):
+        (out, _), ms = _events(lambda: decode_q8(params, qc, greedy[s], S + s))
+        q8_ms.append(ms)
+        q8 = out.cpu()
+        need(bool(torch.isfinite(q8[:, :cfg.vocab]).all()),
+             f"{tag}: q8 step {s} logits are not finite")
+        fp = fp_logits[s]
+        agree.append((q8.argmax(-1) == fp.argmax(-1)).float().mean().item())
+        a, b = fp.topk(5).indices, q8.topk(5).indices
+        top5.append(np.mean([len(set(x.tolist()) & set(y.tolist())) / 5
+                             for x, y in zip(a, b)]))
+    teacher = ""
+    if spec["teacher"]:
+        full = torch.cat([toks, first], dim=1)
+        (tf, _), tf_ms = _events(lambda: TF.forward(params, full, cfg,
+                                                    logits_mode="last"))
+        tf = tf[:, -1].cpu()
+        err = scale_err(fp_logits[0].numpy(), tf.numpy())
+        same = int((fp_logits[0].argmax(-1) == tf.argmax(-1)).sum())
+        need(same >= min(3, B), f"{tag}: decode step 0's argmax equals the "
+             f"teacher-forced forward's in {same} of {B} rows")
+        need(err <= LM_TEACHER_TOL, f"{tag}: decode step 0 differs from "
+             f"the teacher-forced forward by {err:.3e}, past "
+             f"{LM_TEACHER_TOL}")
+        teacher = (f"; decode step 0 vs teacher-forced forward over "
+                   f"{S + 1} tokens ({tf_ms:.1f} ms): {err:.3e} of the logit "
+                   f"scale, argmax equal in {same} of {B} rows (tolerance "
+                   f"{LM_TEACHER_TOL})")
+    result = {"prefill_ms": pre_ms, "tok_s": B * S / pre_ms * 1e3,
+              "fp_ms": statistics.median(fp_ms),
+              "q8_ms": statistics.median(q8_ms),
+              "agree": float(np.mean(agree)), "top5": float(np.mean(top5)),
+              "drop": drop}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[lm] {tag} {cfg.name}: {cfg.n_layers} layers, {n_params:,} "
+        f"parameters bf16 (init {init_s:.2f} s), B={B} x S={S}: prefill p50 "
+        f"{pre_ms:.1f} ms of {LM_PREFILL_REPS} after a warm-up "
+        f"({', '.join(f'{m:.1f}' for m in pre)}; {result['tok_s']:,.0f} "
+        f"tokens/s); decode p50 "
+        f"{result['fp_ms']:.3f} ms a step (bf16 cache), "
+        f"{result['q8_ms']:.3f} ms (int8 cache), {steps} steps each; caches "
+        f"{fp_bytes:,} / {q8_bytes:,} bytes (= cache_memory_bytes, ratio "
+        f"{q8_bytes / fp_bytes:.4f}); q8 greedy-token agreement "
+        f"{result['agree']:.4f}, top-5 overlap {result['top5']:.4f}"
+        + (f"; prefill drop_frac {drop:.4f}" if drop is not None else "")
+        + teacher + f"; peak {peak:.1f} GiB | {smi()}")
+    del params, kc, vc, qc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def lm_bf16_product() -> None:
+    """``layers.dot_f32``'s two card branches, bf16 operands with a float32
+    output, each within 1e-5 of its scale from a float64 product of the
+    same bf16 values: the final logits' ``aten::mm.dtype`` (2-D) and the
+    MoE experts' ``aten::bmm.dtype`` at llama4-scout's decode shapes (16
+    experts x 8 slots x d_model 5120 into d_ff 8192)."""
+    import torch
+
+    from repro_torch.models.layers import dot_f32
+
+    g = torch.Generator(device=LM_DEV).manual_seed(0)
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=g,
+                           device=LM_DEV).to(torch.bfloat16)
+
+    for what, x, w in (("2-D, logits", bf16(64, 3584), bf16(512, 3584).T),
+                       ("3-D, experts", bf16(16, 8, 5120),
+                        bf16(16, 5120, 8192))):
+        got = dot_f32(x, w)
+        want = x.double() @ w.double()
+        e = float((got.double() - want).abs().max() / want.abs().max())
+        need(got.dtype == torch.float32 and got.shape == want.shape
+             and e < 1e-5,
+             f"14: bf16 x bf16 -> float32 product ({what}) off by {e:.3e}")
+        log(f"[lm] bf16 product with a float32 output ({what}, "
+            f"{tuple(x.shape)} x {tuple(w.shape)}): {e:.3e} of its scale "
+            "from float64")
+        del got, want
+
+
+def phase14(parts: str = "abcd") -> dict:
+    """14: LM serving, the ``parts`` of (a)-(d) named.  No kernel of the
+    port lies on this path (the reference's flash attention and int8 cache
+    are jnp, not Pallas): the launch counters are set to 0 before it and
+    must read 0 after it."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+
+    steps = {"a": (lm_bf16_product, lm_card_vs_cpu, lm_card_vs_cpu_bf16),
+             "b": (lm_wide_f32,)}
+    for spec in LM_FULL:
+        steps[spec["part"][3]] = (lambda spec=spec: lm_serve_full(spec),)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    for part in "abcd":
+        if part in parts:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in steps[part]:
+                fn()
+            log(f"[phase14] 14({part}) {time.perf_counter() - t0:.1f} s")
+    after = kernels.launch_counts()
+    log(f"[phase14] kernel launches, set to 0 before phase 14, after it: "
+        f"{after}: no kernel of the port lies on the LM path")
+    need(not any(after.values()), "14: a port kernel launched on the LM path")
+    return after
 
 
 def table2() -> None:
@@ -4542,6 +5075,8 @@ def main() -> int:
         for name, c in phase13().items():
             counts[name] = counts.get(name, 0) + c
         mark("phase 13")
+        phase14()
+        mark("phase 14")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

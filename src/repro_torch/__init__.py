@@ -14,8 +14,10 @@ recsys candidate retrieval (``models.recsys``, ``launch.make_retrieval``)
 with the score-matrix kernels (B6 ``qmip``, B7 ``ql2``, B8 ``qmip4`` /
 ``ql24``), all under ``csrc/``.  Since then: every index kind, filters,
 the stream and cascade kinds, tuning, the runtime subsystem, meshes, the
-serving CLI (``python -m repro_torch.launch.serve``) and CTR serving of
-the four recsys architectures (``models.recsys.models.serve``).
+serving CLI (``python -m repro_torch.launch.serve``), CTR serving of
+the four recsys architectures (``models.recsys.models.serve``) and LM
+serving (``models.transformer``, ``quantized.qkv_cache``: prefill and
+decode on a bf16 or the paper's int8 KV cache).
 
 Numerics: the fp32 arm is the ground truth every quantized arm is measured
 against, so TF32 is switched off for matmuls and cuDNN here, at import.
@@ -28,3 +30,8 @@ import torch
 # fp32 ground truth: full-precision float32 products on the card (TF32 off)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 / fp16 products (the LM family) accumulate in float32 with one
+# rounding, as the reference's preferred_element_type=float32: no split-K
+# partial sums rounded to the half type
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

@@ -9,7 +9,7 @@ stage stores, a stream index's segments (each an inner index's npz
 blob), tombstones, memtable, live stats and key, or a reference-saved
 npz, holds nothing JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
-and Eq. 1 constants) and a recsys model's parameter tree.  These helpers
+and Eq. 1 constants) and a recsys or LM model's parameter tree.  These helpers
 turn them into the port's objects so both packages can run on the same
 codes, codebooks and Eq. 1 constants.
 """
@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core.quant import QuantParams
 from repro_torch.device import resolve_device, to_tensor
@@ -165,17 +166,32 @@ def dense_table_from_numpy(table: np.ndarray, device=None):
                      device=resolve_device(device))
 
 
+def _tree_to_tensors(tree, dev):
+    """Nested dicts of arrays -> the same nest of tensors on ``dev``.  A
+    bfloat16 array (numpy's ``ml_dtypes`` type, which torch cannot take)
+    crosses as its bits."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_tensors(x, dev) for k, x in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = to_tensor(np.ascontiguousarray(a).view(np.uint16))
+        return bits.view(torch.bfloat16).to(dev)
+    return to_tensor(a, device=dev)
+
+
 def recsys_params_from_reference(params, device=None):
     """A reference recsys parameter tree (``repro.models.recsys.models
     .init_params``: nested dicts whose leaves are numpy arrays, or anything
     ``np.asarray`` takes) -> the port's tree of tensors with the same keys
     on ``device`` (``None``: the GPU), so both packages compute the same
     function."""
-    dev = resolve_device(device)
+    return _tree_to_tensors(params, resolve_device(device))
 
-    def leaf(v):
-        if isinstance(v, dict):
-            return {k: leaf(x) for k, x in v.items()}
-        return to_tensor(np.asarray(v), device=dev)
 
-    return leaf(params)
+def lm_params_from_reference(params, device=None):
+    """A reference LM parameter tree (``repro.models.transformer
+    .init_params``: ``embed``, ``layers`` stacked [n_blocks, ...] and
+    ``final_norm``, leaves numpy arrays or anything ``np.asarray`` takes,
+    bf16 included) -> the port's tree of tensors with the same keys, shapes
+    and dtypes on ``device`` (``None``: the GPU)."""
+    return _tree_to_tensors(params, resolve_device(device))

@@ -1,7 +1,7 @@
-"""Step-function builders (port of ``repro.launch.steps``: retrieval and
-recsys serving).  Each returns a function of tensors with its
-configuration closed over.  The LM / GNN steps and every training step
-come with later slices (ROADMAP queue A).
+"""Step-function builders (port of ``repro.launch.steps``: LM prefill and
+decode, fp and int8 KV cache; retrieval; recsys serving).  Each returns a
+function of tensors with its configuration closed over.  The GNN steps
+and every training step come with later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -9,8 +9,46 @@ from __future__ import annotations
 from typing import Callable
 
 from repro_torch.core.quant import QuantParams
+from repro_torch.models import transformer as TF
 from repro_torch.models.recsys import models as RM
 from repro_torch.models.recsys import retrieval as RT
+from repro_torch.quantized import qkv_cache as QC
+
+
+# --------------------------------------------------------------------------
+# LM
+# --------------------------------------------------------------------------
+
+def make_lm_prefill(cfg: TF.LMConfig) -> Callable:
+    """``step(params, tokens)`` -> (last-position logits, kv caches)."""
+    def step(params, tokens):
+        return TF.prefill(params, tokens, cfg)
+
+    return step
+
+
+def make_lm_decode(cfg: TF.LMConfig) -> Callable:
+    """``step(params, caches, token, cur_len)`` -> (logits, caches), the
+    fp caches updated in place."""
+    def step(params, caches, token, cur_len):
+        return TF.decode_step(params, caches, token, cur_len, cfg)
+
+    return step
+
+
+def make_lm_decode_q8(cfg: TF.LMConfig) -> Callable:
+    """Paper-quantized int8-KV decode (the beyond-baseline arm):
+    ``step(params, qcache, token, cur_len)`` -> (logits, qcache)."""
+
+    def step(params, qcache, token, cur_len):
+        return QC.decode_step_q8(params, qcache, token, cur_len, cfg)
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# RecSys
+# --------------------------------------------------------------------------
 
 
 def make_recsys_serve(cfg: RM.RecsysConfig) -> Callable:

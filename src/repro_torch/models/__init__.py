@@ -1,9 +1,11 @@
-"""Model zoo (port of ``repro.models``): the shared layers and the recsys
-family (``models.recsys``: embeddings, interactions, the four CTR
-architectures, candidate retrieval).  The LM and GNN families come in
-later slices."""
+"""Model zoo (port of ``repro.models``): the shared layers, the LM family
+(``attention``, ``flash``, ``moe``, ``transformer``) and the recsys family
+(``models.recsys``: embeddings, interactions, the four CTR architectures,
+candidate retrieval).  The GNN family comes in a later slice."""
 
-from repro_torch.models import layers
+from repro_torch.models import attention, flash, layers, moe, transformer
 from repro_torch.models.recsys.models import RecsysConfig
+from repro_torch.models.transformer import LMConfig
 
-__all__ = ["layers", "RecsysConfig"]
+__all__ = ["attention", "flash", "layers", "moe", "transformer", "LMConfig",
+           "RecsysConfig"]

@@ -6,9 +6,13 @@ Initializers take an explicit ``torch.Generator`` (in place of a
 ``jax.random`` key) that must live on ``device`` (``None``: the GPU, as
 every entry point; ``"meta"`` gives shapes only).  The two packages draw
 different numbers from one seed: tests carry the reference's parameters
-across (``convert.recsys_params_from_reference``).  Every product
-accumulates in float32 and casts back to the input's dtype, as the
-reference's ``preferred_element_type`` does.
+across (``convert.recsys_params_from_reference``,
+``convert.lm_params_from_reference``).  Every product accumulates in
+float32 and casts back to the input's dtype, as the reference's
+``preferred_element_type`` does: float32 operands multiply in float32;
+two bf16 (or fp16) operands multiply in that dtype with float32
+accumulation and one rounding (``_dot``).  The initializers take a
+``lead`` shape for stacked layer weights (``[n_blocks, ...]``).
 """
 
 from __future__ import annotations
@@ -26,16 +30,44 @@ def _normal(generator, shape, dtype, device) -> torch.Tensor:
                        device=resolve_device(device))
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in float32, cast back to x's dtype."""
+    """x @ w with float32 accumulation, in x's dtype.
+
+    Two bf16 (or two fp16) operands: one product in that dtype (the
+    card's tensor cores accumulate in float32 and round once, as
+    ``jnp.dot(..., preferred_element_type=f32).astype(bf16)``; the
+    package switches off reduced-precision reductions at import).  Any
+    other pair: both operands in float32, cast back to x's dtype.
+    """
+    if x.dtype in _HALF and w.dtype == x.dtype:
+        return torch.matmul(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
 
 
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as float32 (``jnp.dot(x, w, preferred_element_type=f32)``
+    without the cast back).  x: [..., k], w: [k, n] or a batch [E, k, n]
+    beside x [E, m, k].  Two bf16 / fp16 operands on the card multiply in
+    their dtype with a float32 output (``aten::mm.dtype`` /
+    ``bmm.dtype``), never through a float32 copy of w; elsewhere (float32
+    operands, or the CPU) both operands go to float32."""
+    if x.dtype in _HALF and w.dtype == x.dtype and x.is_cuda:
+        if w.dim() == 3:
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
 def dense_init(generator, in_dim: int, out_dim: int, dtype=torch.float32,
-               scale: float | None = None, device=None):
+               scale: float | None = None, device=None, lead=()):
     if scale is None:
         scale = 1.0 / (in_dim ** 0.5)
-    return {"w": _normal(generator, (in_dim, out_dim), dtype, device) * scale}
+    return {"w": _normal(generator, (*lead, in_dim, out_dim), dtype,
+                         device) * scale}
 
 
 def dense(params, x):
@@ -54,8 +86,8 @@ def embed(params, ids):
         *ids.shape, table.shape[1])
 
 
-def rmsnorm_init(dim: int, dtype=torch.float32, device=None):
-    return {"scale": torch.zeros((dim,), dtype=dtype,
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None, lead=()):
+    return {"scale": torch.zeros((*lead, dim), dtype=dtype,
                                  device=resolve_device(device))}
 
 
@@ -69,11 +101,14 @@ def rmsnorm(params, x, eps: float = 1e-6):
 # -- gated MLPs -------------------------------------------------------------
 
 def glu_mlp_init(generator, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None):
+                 device=None, lead=()):
     return {
-        "gate": dense_init(generator, d_model, d_ff, dtype, device=device),
-        "up": dense_init(generator, d_model, d_ff, dtype, device=device),
-        "down": dense_init(generator, d_ff, d_model, dtype, device=device),
+        "gate": dense_init(generator, d_model, d_ff, dtype, device=device,
+                           lead=lead),
+        "up": dense_init(generator, d_model, d_ff, dtype, device=device,
+                         lead=lead),
+        "down": dense_init(generator, d_ff, d_model, dtype, device=device,
+                           lead=lead),
     }
 
 

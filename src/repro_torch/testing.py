@@ -13,6 +13,11 @@ tests and ``chip_smoke.py`` so that one copy of each exists.
   * ``build_draws``: the random draws and float reductions of a cascade
     or regions arm built on the CPU, so that a build on the card starts
     from the same inputs.
+  * ``scale_err``: an LM result's largest difference over its scale.
+  * ``moe_routing`` / ``c10_strikes`` / ``moe_naive``: the top-1 MoE's
+    capacity routing, whether the reference's fault C10 (a dropped token
+    overwriting the last expert's last slot) strikes on an input, and the
+    per-token top-1 oracle.
 
 Pure numpy on the host: results come in as numpy arrays.
 """
@@ -233,3 +238,77 @@ def build_draws(f: str, metric: str, idx, corpus: np.ndarray) -> tuple:
             spec, quant=spec.quant.with_params(params(idx.store)))
     return spec, kw
 
+
+
+def scale_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| / max |want|: an LM result's error at its scale
+    (logits, caches, attention outputs)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def moe_routing(x: np.ndarray, router_w: np.ndarray, n_experts: int,
+                capacity_factor: float):
+    """Top-1 capacity routing of tokens x [T, d]: (assign, pos, keep, C)
+    with pos a token's rank inside its expert and C = max(8, ceil(T * cf /
+    E)) (first-index argmax over float32 router logits)."""
+    x = np.asarray(x, np.float32).reshape(-1, router_w.shape[0])
+    T = x.shape[0]
+    C = max(8, int(-(-T * capacity_factor // n_experts)))
+    assign = np.argmax(x @ np.asarray(router_w, np.float32), axis=-1)
+    pos = np.zeros(T, np.int64)
+    seen = np.zeros(n_experts, np.int64)
+    for t, e in enumerate(assign):
+        pos[t] = seen[e]
+        seen[e] += 1
+    return assign, pos, pos < C, C
+
+
+def c10_strikes(x: np.ndarray, router_w: np.ndarray, n_experts: int,
+                capacity_factor: float) -> bool:
+    """Does the reference's ``moe_apply`` zero a kept token on x?  It does
+    when a token holds the last expert's last slot [E-1, C-1] and any
+    later token is dropped: the drop's sentinel overwrites that slot."""
+    assign, pos, keep, C = moe_routing(x, router_w, n_experts,
+                                       capacity_factor)
+    held = np.flatnonzero(keep & (assign == n_experts - 1) & (pos == C - 1))
+    return bool(held.size and (~keep[held[0] + 1:]).any())
+
+
+def _act(h: np.ndarray, act: str) -> np.ndarray:
+    if act == "silu":
+        return h / (1.0 + np.exp(-h))
+    return 0.5 * h * (1.0 + np.tanh(np.sqrt(2.0 / np.pi)
+                                    * (h + 0.044715 * h ** 3)))
+
+
+def moe_naive(params: dict, x: np.ndarray, n_experts: int,
+              capacity_factor: float, act: str = "silu") -> np.ndarray:
+    """The MoE FFN token by token in float64: a kept token's routed expert
+    times its router probability, 0 for a dropped one, plus the shared
+    expert; x [B, S, d] -> [B, S, d].  ``params`` is a (numpy) MoE tree."""
+    B, S, d = x.shape
+    xt = np.asarray(x, np.float64).reshape(B * S, d)
+    rw = np.asarray(params["router"]["w"], np.float32)
+    assign, _pos, keep, _C = moe_routing(xt.astype(np.float32), rw,
+                                         n_experts, capacity_factor)
+    logits = xt @ rw.astype(np.float64)
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+
+    def glu(gw, uw, dw, v):
+        return (_act(v @ gw, act) * (v @ uw)) @ dw
+
+    w = {k: np.asarray(params[k], np.float64)
+         for k in ("gate_w", "up_w", "down_w")}
+    out = np.zeros_like(xt)
+    for t, e in enumerate(assign):
+        if keep[t]:
+            out[t] = probs[t, e] * glu(w["gate_w"][e], w["up_w"][e],
+                                       w["down_w"][e], xt[t])
+    if "shared" in params:
+        sh = params["shared"]
+        out += glu(*(np.asarray(sh[k]["w"], np.float64)
+                     for k in ("gate", "up", "down")), xt)
+    return out.reshape(B, S, d)
