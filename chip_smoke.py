@@ -238,6 +238,35 @@ Phases (each prints its lines; any failure exits non-zero):
               equal in at least 3 of 4 rows; (d) llama4-scout at full width,
               4 layers (cccg), 1 x 8,320 tokens (past the 8,192 chunk), 16
               fp and 16 q8 steps: the same numbers and drop_frac
+ 15. train    training (AdamW, the autograd backward, blockwise-attention
+              backward, checkpoints, SchNet; plain PyTorch: the launch
+              counters, set to 0 before it, must read 0 after it): (a) the
+              card against the CPU, float32, TF32 off, on the same
+              parameters and batch: one make_lm_train_step for the five
+              reduced LM configs, the flash backward alone, one
+              make_recsys_train_step for the four recsys configs, one
+              make_gnn_train_step for both SchNet regimes: loss within
+              1e-5 (relative), gradients within 1e-5 of their scale,
+              updated parameters within 1e-5 of their scale outside the
+              elements whose gradient is within that tolerance of 0 (held
+              to Adam's bound and counted; ``testing.adam_first_step``);
+              then in bf16, card against CPU within 4 bf16 epsilons:
+              one make_lm_train_step for gemma2-9b's reduced config (remat
+              on; its tied logits' product backward keeps the float32
+              cotangent) and the backward of llama4's MoE layers;
+              (b) gemma2-9b at full width, 4 layers (lglg, 1.71 B
+              parameters), bf16, remat on, B=1 x S=4,608 (past the 4,096
+              window): a warm-up step, then 3 make_lm_train_step steps on
+              one repeated batch at const lr 1e-4: step ms (CUDA events,
+              median), tokens/s and peak memory, the loss finite and lower
+              after the 3 steps; (c) SchNet at published widths (3
+              interactions, d_hidden 64, 300 RBFs, cutoff 10): the
+              full_graph_sm cell (2,708 nodes, 10,556 edges, 1,433
+              features, 7 classes) and the molecule cell (128 molecules x
+              30 atoms, 64 edges each), 5 steps each through ``train.train``
+              with a checkpoint at step 5 restored and held equal, step 1's
+              loss within 1e-5 (relative) of the CPU's, step ms (host
+              clock between CUDA syncs) logged
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
@@ -4958,6 +4987,457 @@ def phase14(parts: str = "abcd") -> dict:
     return after
 
 
+# --------------------------------------------------------------------------
+# phase 15: training (AdamW, autograd backward, checkpoints, SchNet)
+# --------------------------------------------------------------------------
+
+#: 15(a): the card against the CPU: losses (relative), gradients and
+#: updated parameters (of their scale); the recsys and SchNet gradient
+#: scales floored at a share of the tree's largest (cancellation noise in
+#: a leaf whose gradient is 0 in exact arithmetic or far below the rest):
+#: SchNet's molecule gradient on the CPU alone is 6.5e-6 from float64 at a
+#: floor of 1e-3 (its out2 weights), 1.2e-6 at 1e-2
+TRAIN_TOL = 1e-5
+TRAIN_FLOOR = {"recsys": 1e-3, "gnn": 1e-2}
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=0, schedule="const")
+#: 15(a): the reduced LM configs' batch
+TRAIN_LM_SMALL = dict(batch=2, seq=32)
+#: 15(a) in bf16: gemma2-9b's reduced config (remat on) and llama4's MoE
+#: layers, card against CPU: loss, gradients and updated parameters of
+#: their scale, as 14(a)'s bf16 whole model
+TRAIN_BF16_TOL = LM_BF16_TOL
+#: 15(b): gemma2-9b at full width, 4 layers, bf16, remat on
+TRAIN_FULL = dict(arch="gemma2-9b", layers=4, batch=1, seq=4608, steps=3,
+                  lr=1e-4)
+#: 15(c): SchNet's two cells at their real sizes (``GNN_SHAPES``), steps
+#: each
+SCHNET_STEPS = 5
+
+
+def _flat(tree) -> list:
+    """A nest of dicts' leaves in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]
+
+
+def _np(tree) -> list:
+    """``_flat(tree)`` as float32 numpy arrays on the host (bf16 leaves
+    widened exactly)."""
+    return [t.detach().float().cpu().numpy() for t in _flat(tree)]
+
+
+def _train_pair(tag: str, loss_fn, step, params, batch, floor: float,
+                tol: float = TRAIN_TOL, rounding: float = 0.0):
+    """``step`` (a train step) and ``loss_fn``'s gradient on the CPU and
+    on the card from the same parameters and batch (drawn on the CPU):
+    the loss, every gradient leaf and the updated parameters held
+    (``tol``; ``testing.adam_first_step``, with the parameters' dtype's
+    relative ``rounding``).  Returns the largest errors
+    and the count of near-zero gradients set aside."""
+    import numpy as np
+
+    from repro_torch import testing
+    from repro_torch.train import OptConfig, adamw_init
+    from repro_torch.train.train_loop import value_and_grad
+
+    out = {}
+    for where, dev in (("cpu", "cpu"), ("card", LM_DEV)):
+        p, b = _to(params, dev), _to(batch, dev)
+        (loss, _aux), grads = value_and_grad(loss_fn, p, b)
+        new, _state, metrics = step(p, adamw_init(p), b)
+        out[where] = (float(loss), _np(grads), _np(new),
+                      float(metrics["loss"]))
+    (lc, gc, pc, mc), (lg, gg, pg, mg) = out["cpu"], out["card"]
+    loss_err = max(abs(lg - lc), abs(mg - mc)) / max(abs(lc), 1e-30)
+    need(np.isfinite(lg) and loss_err <= tol,
+         f"{tag}: loss {lg} on the card, {lc} on the CPU")
+    grad_err = max(float(np.abs(g.astype(np.float64) - c).max()) / s
+                   for g, c, s in zip(gg, gc, testing.grad_scales(gc, floor)))
+    need(grad_err <= tol, f"{tag}: gradients differ by {grad_err:.3e}"
+         " of their scale")
+    opt = OptConfig(**TRAIN_OPT)
+    held = testing.adam_first_step(
+        pg, pc, _np(params), gc, lr=opt.lr, weight_decay=opt.weight_decay,
+        eps=opt.eps, param_tol=tol, grad_tol=tol, floor=floor,
+        rounding=rounding)
+    need(held["away"] <= 1.0 and held["near"] <= 1.0,
+         f"{tag}: updated parameters off: {held}")
+    return loss_err, grad_err, held
+
+
+def train_card_vs_cpu() -> None:
+    """15(a): each train step and the flash backward, card against CPU."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import lm_data, recsys_data
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import flash
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.gnn import schnet as SN
+    from repro_torch.models.recsys import models as RM
+    from repro_torch.testing import scale_err
+    from repro_torch.train import OptConfig
+
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    opt = OptConfig(**TRAIN_OPT)
+
+    def report(tag, res, tol=TRAIN_TOL):
+        loss_err, grad_err, held = res
+        log(f"[train] 15(a) {tag}: card vs CPU loss {loss_err:.3e} "
+            f"(relative), gradients {grad_err:.3e} of their scale "
+            f"(tolerance {tol}), updated parameters at "
+            f"{held['away']:.3f} of their allowance; {held['n_near']} of "
+            f"{held['n']:,} elements with a gradient within the tolerance "
+            f"of 0 at {held['near']:.3f} of Adam's bound")
+
+    B, S = TRAIN_LM_SMALL["batch"], TRAIN_LM_SMALL["seq"]
+    for n, arch in enumerate(LM_ARCHS):
+        cfg = get(arch).reduced_config()
+        params = TF.init_params(torch.Generator().manual_seed(n), cfg,
+                                device="cpu")
+        batch = lm_data.lm_batch(torch.Generator().manual_seed(100 + n), B,
+                                 S, cfg.vocab, device="cpu")
+        report(arch, _train_pair(
+            f"15(a) {arch}", lambda p, b, cfg=cfg: TF.lm_loss(p, b, cfg),
+            ST.make_lm_train_step(cfg, opt), params, batch, 0.0))
+
+    # the flash backward alone: gemma2-9b's heads (16 / 8 of 256), a window
+    # and the soft-cap, three blocks of 64
+    g = torch.Generator().manual_seed(5)
+    q, k, v, w = (torch.randn(1, 192, h, 256, generator=g)
+                  for h in (16, 8, 8, 16))
+    grads = {}
+    for where in ("cpu", LM_DEV):
+        tq, tk, tv = (t.detach().to(where).requires_grad_()
+                      for t in (q, k, v))
+        out = flash.flash_attention(tq, tk, tv, torch.arange(192), (100, 2**30),
+                                    50.0, 64, 64, 192)
+        (out * w.to(where)).sum().backward()
+        grads[where] = [t.grad.cpu().numpy() for t in (tq, tk, tv)]
+    errs = [scale_err(a, b) for a, b in zip(grads[LM_DEV], grads["cpu"])]
+    need(max(errs) <= TRAIN_TOL, f"15(a) flash backward: card vs CPU "
+         f"{max(errs):.3e} of the scale")
+    log(f"[train] 15(a) flash backward (B=1, S=192, 16 / 8 heads of 256, "
+        f"window 100, soft-cap 50, blocks of 64): dQ / dK / dV card vs CPU "
+        f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} of their scale "
+        f"(tolerance {TRAIN_TOL})")
+
+    for n, arch in enumerate(("autoint", "dcn-v2", "dien", "dlrm-mlperf")):
+        cfg = get(arch).reduced_config()
+        params = RM.init_params(torch.Generator().manual_seed(n), cfg,
+                                device="cpu")
+        batch = recsys_data.ctr_batch(torch.Generator().manual_seed(50 + n),
+                                      64, cfg.n_dense, cfg.vocab_sizes,
+                                      seq_len=cfg.seq_len, device="cpu")
+        report(arch, _train_pair(
+            f"15(a) {arch}", lambda p, b, cfg=cfg: RM.bce_loss(p, b, cfg),
+            ST.make_recsys_train_step(cfg, opt), params, batch,
+            TRAIN_FLOOR["recsys"]))
+
+    for kind, shape in (("molecule", "molecule"),
+                        ("full_graph", "full_graph_sm")):
+        cfg = get("schnet").reduced_config(shape)
+        params = SN.init_params(torch.Generator().manual_seed(9), cfg,
+                                device="cpu")
+        batch, n_nodes, n_graphs = _schnet_batch(
+            kind, cfg, torch.Generator().manual_seed(10),
+            *((12, 40, 6) if kind == "molecule" else (64, 256, 1)))
+        loss = (ST._schnet_molecule_loss if kind == "molecule"
+                else ST._schnet_node_loss)
+        kw = dict(cfg=cfg, n_nodes=n_nodes)
+        if kind == "molecule":
+            kw["n_graphs"] = n_graphs
+        report(f"schnet {kind}", _train_pair(
+            f"15(a) schnet {kind}",
+            lambda p, b, loss=loss, kw=kw: (loss(p, b, **kw), {}),
+            ST.make_gnn_train_step(cfg, kind, opt, n_nodes, n_graphs),
+            params, batch, TRAIN_FLOOR["gnn"]))
+    train_card_vs_cpu_bf16(report)
+
+
+def train_card_vs_cpu_bf16(report) -> None:
+    """15(a) in bf16, card against the CPU's path (whose products take
+    float32 copies of bf16 operands): gemma2-9b's reduced config in bf16
+    with remat on, a make_lm_train_step through ``_train_pair`` at
+    TRAIN_BF16_TOL; its tied logits on the card go through
+    ``layers._HalfDotF32``, whose backward keeps the float32 cotangent as
+    the CPU's does.  Then each llama4 reduced config's first MoE layer in
+    bf16 (the experts' ``bmm.dtype`` products and their backward): the
+    gradient of a weighted sum of its output plus lm_loss's aux terms,
+    with respect to the layer's parameters and its input, on 14(a)'s
+    parameters and input, within TRAIN_BF16_TOL of each leaf's scale,
+    drop_frac equal."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch import testing
+    from repro_torch.configs import get
+    from repro_torch.data import lm_data
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import OptConfig
+    from repro_torch.train.train_loop import value_and_grad
+
+    B, S = TRAIN_LM_SMALL["batch"], TRAIN_LM_SMALL["seq"]
+    cfg = dataclasses.replace(get("gemma2-9b").reduced_config(),
+                              dtype="bfloat16", remat=True)
+    params = TF.init_params(torch.Generator().manual_seed(40), cfg,
+                            device="cpu")
+    batch = lm_data.lm_batch(torch.Generator().manual_seed(140), B, S,
+                             cfg.vocab, device="cpu")
+    report(f"{cfg.name} bf16 (remat on)",
+           _train_pair(f"15(a) {cfg.name} bf16",
+                       lambda p, b: TF.lm_loss(p, b, cfg),
+                       ST.make_lm_train_step(cfg, OptConfig(**TRAIN_OPT)),
+                       params, batch, 0.0, TRAIN_BF16_TOL, LM_BF16_EPS / 2),
+           TRAIN_BF16_TOL)
+
+    P = LM_SMALL["prompt"]
+    for n, arch in enumerate(a for a in LM_ARCHS if a.startswith("llama4")):
+        cfg = dataclasses.replace(get(arch).reduced_config(),
+                                  dtype="bfloat16")
+        params = TF.init_params(torch.Generator().manual_seed(30 + n), cfg,
+                                device="cpu")
+        moe = TF._block(params["layers"], 0)[
+            f"sub{cfg.block_layers - 1}"]["moe"]
+        x = torch.randn(B, 4 * P, cfg.d_model,
+                        generator=torch.Generator().manual_seed(130 + n)
+                        ).to(torch.bfloat16)
+        w = torch.randn(B, 4 * P, cfg.d_model,
+                        generator=torch.Generator().manual_seed(230 + n))
+
+        def loss_fn(p, w, cfg=cfg):
+            y, aux = M.moe_apply(p["moe"], p["x"], cfg.moe, act=cfg.act)
+            return (torch.sum(y.to(torch.float32) * w)
+                    + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]), aux
+
+        res = {}
+        for where in ("cpu", LM_DEV):
+            (loss, aux), grads = value_and_grad(
+                loss_fn, _to({"moe": moe, "x": x}, where), w.to(where))
+            res[where] = (float(loss), float(aux["drop_frac"]), _np(grads))
+        (lc, dc, gc), (lg, dg, gg) = res["cpu"], res[LM_DEV]
+        loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+        errs = [float(np.abs(g - c).max()) / s for g, c, s in
+                zip(gg, gc, testing.grad_scales(gc))]
+        need(dg == dc, f"15(a) bf16 {arch} moe_apply: drop_frac {dg} on the "
+             f"card, {dc} on the CPU")
+        need(math.isfinite(lg) and loss_err <= TRAIN_BF16_TOL
+             and max(errs) <= TRAIN_BF16_TOL,
+             f"15(a) bf16 {arch} moe_apply backward: loss {loss_err:.3e} "
+             f"(relative), gradients {max(errs):.3e} of their scale, past "
+             f"{TRAIN_BF16_TOL}")
+        log(f"[train] 15(a) bf16 {arch} moe_apply backward "
+            f"({cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff}, "
+            f"{B * 4 * P} tokens): card vs CPU loss {loss_err:.3e} "
+            f"(relative), gradients of {len(errs)} leaves {max(errs):.3e} of "
+            f"their scale (tolerance {TRAIN_BF16_TOL}), drop_frac {dc:.4f} "
+            f"on both")
+
+
+def _schnet_batch(kind: str, cfg, generator, nodes: int, edges: int,
+                  molecules: int):
+    """(batch, n_nodes, n_graphs) of ``kind`` for ``cfg`` on the CPU:
+    ``molecules`` molecules of ``nodes`` atoms and ``edges`` edges each,
+    or (any other kind) one graph of ``nodes`` nodes and ``edges`` edges
+    with cfg's features and labels below its class count."""
+    import torch
+
+    from repro_torch.data import graph_data
+
+    if kind == "molecule":
+        g = graph_data.random_molecules(molecules, nodes, edges, generator,
+                                        device="cpu")
+        ids = torch.arange(molecules)
+        return ({"senders": g.senders, "receivers": g.receivers,
+                 "edge_mask": g.edge_mask, "z": g.node_feat,
+                 "positions": g.positions,
+                 "graph_ids": ids.repeat_interleave(nodes),
+                 "labels": g.labels}, g.n_nodes, molecules)
+    g = graph_data.random_graph(nodes, edges, cfg.d_feat, generator,
+                                device="cpu")
+    return ({"senders": g.senders, "receivers": g.receivers,
+             "edge_mask": g.edge_mask, "node_feat": g.node_feat,
+             "labels": torch.clamp(g.labels, 0, cfg.n_classes - 1)},
+            g.n_nodes, 0)
+
+
+def train_full() -> dict:
+    """15(b): gemma2-9b at full width, TRAIN_FULL's layers, bf16, remat
+    on, drawn from a CUDA generator: a warm-up make_lm_train_step, then
+    TRAIN_FULL's steps on the same batch, each timed by CUDA events."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.data import lm_data
+    from repro_torch.launch import make_lm_train_step
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import OptConfig, adamw_init
+
+    f = TRAIN_FULL
+    cfg = _lm_cfg(f["arch"], f["layers"])
+    need(cfg.remat and cfg.tdtype == torch.bfloat16, "15(b): not bf16 remat")
+    dev = torch.device(LM_DEV)
+    params = TF.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    n_params = sum(t.numel() for t in _lm_leaves(params))
+    batch = lm_data.lm_batch(torch.Generator(device=dev).manual_seed(1),
+                             f["batch"], f["seq"], cfg.vocab, device=dev)
+    step = make_lm_train_step(cfg, OptConfig(lr=f["lr"], schedule="const",
+                                             warmup_steps=0))
+    state = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    (params, state, m), warm_ms = _events(lambda: step(params, state, batch))
+    losses, ms = [float(m["loss"])], []
+    for _ in range(f["steps"]):
+        (params, state, m), t = _events(lambda: step(params, state, batch))
+        ms.append(t)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    need(all(math.isfinite(x) for x in losses),
+         f"15(b): a loss is not finite: {losses}")
+    need(losses[-1] < losses[1],
+         f"15(b): the loss did not fall over {f['steps']} steps: {losses}")
+    step_ms = statistics.median(ms)
+    tok_s = f["batch"] * f["seq"] / step_ms * 1e3
+    log(f"[train] 15(b) {cfg.name}: {cfg.n_layers} layers "
+        f"({cfg.layer_pattern * (cfg.n_layers // 2)}), {n_params:,} "
+        f"parameters bf16, remat on, B={f['batch']} x S={f['seq']}, const "
+        f"lr {f['lr']}: warm-up step {warm_ms:.1f} ms (loss {losses[0]:.4f}),"
+        f" then {f['steps']} steps {', '.join(f'{t:.1f}' for t in ms)} ms "
+        f"(p50 {step_ms:.1f} ms, {tok_s:,.0f} tokens/s), losses "
+        f"{' -> '.join(f'{x:.4f}' for x in losses[1:])}; grad_norm "
+        f"{float(m['grad_norm']):.4f}; peak {peak / 2**30:.1f} GiB "
+        f"(max_memory_allocated) | {smi()}")
+    del params, state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tok_s": tok_s, "peak_gib": peak / 2**30}
+
+
+def schnet_cells() -> None:
+    """15(c): SchNet at published widths on its two cells at their real
+    sizes, SCHNET_STEPS steps each through ``train.train`` on one batch
+    (a checkpoint at the last step, restored and held equal), step 1's
+    loss against the CPU's.  Each step is timed on the host clock between
+    CUDA syncs: a ``train`` hook, called after the step's loss is read,
+    syncs the card and reads the clock (step 1 from a sync just before
+    ``train``), so a step's time holds all its device work, AdamW's
+    included.  ``train`` installs a SIGTERM handler: the previous one is
+    put back after each call."""
+    import itertools
+    import shutil
+    import signal
+
+    import torch
+
+    from repro_torch.configs import base, get
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.gnn import schnet as SN
+    from repro_torch.train import OptConfig, TrainConfig, checkpoint, train
+
+    opt = OptConfig(lr=1e-3, warmup_steps=0, schedule="const")
+    for kind, shape in (("full_graph", "full_graph_sm"),
+                        ("molecule", "molecule")):
+        cfg = get("schnet").config(shape)
+        spec = base.GNN_SHAPES[shape]
+        params = SN.init_params(torch.Generator().manual_seed(3), cfg,
+                                device="cpu")
+        batch, n_nodes, n_graphs = _schnet_batch(
+            kind, cfg, torch.Generator().manual_seed(4), spec["n_nodes"],
+            spec["n_edges"], spec.get("batch", 1))
+        loss = (ST._schnet_molecule_loss if kind == "molecule"
+                else ST._schnet_node_loss)
+        kw = dict(cfg=cfg, n_nodes=n_nodes)
+        if kind == "molecule":
+            kw["n_graphs"] = n_graphs
+
+        def loss_fn(p, b, loss=loss, kw=kw):
+            return loss(p, b, **kw), {}
+
+        cpu_loss = float(loss_fn(params, batch)[0])
+        ckpt = ROOT / "build" / f"phase15_{shape}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        marks = []
+
+        def tick(_step, _metrics):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        card_params, card_batch = _to(params, LM_DEV), _to(batch, LM_DEV)
+        prev = signal.getsignal(signal.SIGTERM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            card, card_state, hist = train(
+                loss_fn, card_params, itertools.repeat(card_batch), opt,
+                TrainConfig(steps=SCHNET_STEPS, ckpt_dir=str(ckpt),
+                            ckpt_every=SCHNET_STEPS, log_every=1),
+                hooks=[tick])
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+        need(len(hist) == SCHNET_STEPS, f"15(c) {shape}: {len(hist)} steps")
+        err = abs(hist[0]["loss"] - cpu_loss) / max(abs(cpu_loss), 1e-30)
+        need(err <= TRAIN_TOL, f"15(c) {shape}: step 1's loss "
+             f"{hist[0]['loss']} on the card, {cpu_loss} on the CPU")
+        tree = {"params": card, "opt": card_state}
+        back, meta = checkpoint.restore_latest(str(ckpt), tree)
+        need(meta is not None and meta["step"] == SCHNET_STEPS
+             and all(torch.equal(a, b) for a, b in zip(_flat(back),
+                                                       _flat(tree))),
+             f"15(c) {shape}: the checkpoint does not restore the state")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        n_edges = int(batch["senders"].numel())
+        secs = [(b - a) * 1e3 for a, b in zip([t0, *marks], marks)]
+        losses = " -> ".join(f"{h['loss']:.4f}" for h in hist)
+        log(f"[train] 15(c) schnet {shape}: {n_nodes:,} nodes, "
+            f"{n_edges:,} edges, {cfg.n_rbf} RBFs, d_hidden {cfg.d_hidden}"
+            f"{', ' + str(cfg.d_feat) + ' features' if cfg.d_feat else ''}:"
+            f" step 1 loss {hist[0]['loss']:.6f} vs CPU {cpu_loss:.6f} "
+            f"({err:.3e} relative, tolerance {TRAIN_TOL}); "
+            f"{SCHNET_STEPS} steps {', '.join(f'{t:.1f}' for t in secs)} ms "
+            f"(host clock between CUDA syncs, each step's device work "
+            f"included), losses "
+            f"{losses}; checkpoint at step {meta['step']} restored equal")
+
+
+def phase15(parts: str = "abc") -> dict:
+    """15: training, the ``parts`` of (a)-(c) named.  No TPU kernel lies
+    on this path (the reference's backward, optimizer and message passing
+    are jnp): the launch counters are set to 0 before it and must read 0
+    after it."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels
+
+    steps = {"a": train_card_vs_cpu, "b": train_full, "c": schnet_cells}
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    for part in "abc":
+        if part in parts:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            steps[part]()
+            log(f"[time] 15({part}): {time.perf_counter() - t0:.1f} s")
+    after = kernels.launch_counts()
+    log(f"[phase15] kernel launches, set to 0 before phase 15, after it: "
+        f"{after}: no kernel of the port lies on the training path")
+    need(not any(after.values()),
+         "15: a port kernel launched on the training path")
+    return after
+
+
 def table2() -> None:
     from repro_torch.core.preserve import recall_at_k
     from repro_torch.data import synthetic
@@ -5077,6 +5557,8 @@ def main() -> int:
         mark("phase 13")
         phase14()
         mark("phase 14")
+        phase15()
+        mark("phase 15")
         log(f"[kernels] C6: largest fp32 |score - float64| / row scale over "
             f"every check: kernel {FP32_ERR['kernel']:.3e}, plain version "
             f"{FP32_ERR['plain']:.3e} (each check gates the kernel at 1e-5)")

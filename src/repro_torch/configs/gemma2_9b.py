@@ -50,4 +50,5 @@ def reduced_config() -> LMConfig:
         final_softcap=30.0,
         dtype="float32",
         block_kv=16,
+        remat=False,
     )

@@ -60,4 +60,5 @@ def reduced_config() -> LMConfig:
         dtype="float32",
         block_q=16,
         block_kv=16,
+        remat=False,
     )

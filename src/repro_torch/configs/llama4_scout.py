@@ -52,4 +52,5 @@ def reduced_config() -> LMConfig:
         moe=MoEConfig(n_experts=4, top_k=1, d_ff=128, shared_expert=True),
         dtype="float32",
         block_kv=16,
+        remat=False,
     )

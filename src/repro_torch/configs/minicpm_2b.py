@@ -50,4 +50,5 @@ def reduced_config() -> LMConfig:
         layer_pattern="g",
         dtype="float32",
         block_kv=16,
+        remat=False,
     )

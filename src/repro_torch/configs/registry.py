@@ -1,10 +1,6 @@
 """Architecture registry (port of ``repro.configs.registry``):
 ``--arch <id>`` resolution for the launcher and the step builders.
-
-The port's ``ASSIGNED`` is the reference's minus ``"schnet"``: the GNN
-joins with ``models/gnn/schnet.py`` in a later slice, and until then this
-list is the reference's with that one id taken out, in the same order.
-"""
+``ARCHS``, ``ASSIGNED`` and ``cells()`` equal the reference's."""
 
 from __future__ import annotations
 
@@ -19,6 +15,7 @@ from repro_torch.configs import (
     llama4_scout,
     lpq_ann,
     minicpm_2b,
+    schnet,
 )
 
 _MODULES = (
@@ -27,6 +24,7 @@ _MODULES = (
     minicpm_2b,
     llama4_scout,
     llama4_maverick,
+    schnet,
     autoint,
     dlrm_mlperf,
     dien,

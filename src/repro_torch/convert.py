@@ -9,7 +9,9 @@ stage stores, a stream index's segments (each an inner index's npz
 blob), tombstones, memtable, live stats and key, or a reference-saved
 npz, holds nothing JAX-specific: numpy arrays plus a
 JSON-able meta record; so does a recsys ``QuantizedTable`` (int8 codes
-and Eq. 1 constants) and a recsys or LM model's parameter tree.  These helpers
+and Eq. 1 constants), a recsys, LM or SchNet model's parameter tree and an
+AdamW state (``repro.train.optimizer.adamw_init`` / ``adamw_update``).
+These helpers
 turn them into the port's objects so both packages can run on the same
 codes, codebooks and Eq. 1 constants.
 """
@@ -167,31 +169,31 @@ def dense_table_from_numpy(table: np.ndarray, device=None):
 
 
 def _tree_to_tensors(tree, dev):
-    """Nested dicts of arrays -> the same nest of tensors on ``dev``.  A
-    bfloat16 array (numpy's ``ml_dtypes`` type, which torch cannot take)
-    crosses as its bits."""
     if isinstance(tree, dict):
         return {k: _tree_to_tensors(x, dev) for k, x in tree.items()}
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         bits = to_tensor(np.ascontiguousarray(a).view(np.uint16))
-        return bits.view(torch.bfloat16).to(dev)
-    return to_tensor(a, device=dev)
+        return bits.view(torch.bfloat16).reshape(a.shape).to(dev)
+    # reshape: ascontiguousarray gives a 0-dim array one dimension
+    return to_tensor(a, device=dev).reshape(a.shape)
 
 
-def recsys_params_from_reference(params, device=None):
-    """A reference recsys parameter tree (``repro.models.recsys.models
-    .init_params``: nested dicts whose leaves are numpy arrays, or anything
-    ``np.asarray`` takes) -> the port's tree of tensors with the same keys
-    on ``device`` (``None``: the GPU), so both packages compute the same
-    function."""
-    return _tree_to_tensors(params, resolve_device(device))
+def tree_from_reference(tree, device=None):
+    """A reference tree (nested dicts whose leaves are numpy arrays, or
+    anything ``np.asarray`` takes) -> the same nest of tensors, with the
+    same keys, shapes and dtypes, on ``device`` (``None``: the GPU), so
+    both packages compute the same function.  A bfloat16 array (numpy's
+    ``ml_dtypes`` type, which torch cannot take) crosses as its bits.
+
+    It takes a recsys, LM or SchNet parameter tree (``repro.models
+    .recsys.models`` / ``transformer`` / ``gnn.schnet`` ``.init_params``)
+    and an AdamW state (``{"mu", "nu"}`` float32 trees shaped like the
+    parameters and an int32 ``step``), under the names below."""
+    return _tree_to_tensors(tree, resolve_device(device))
 
 
-def lm_params_from_reference(params, device=None):
-    """A reference LM parameter tree (``repro.models.transformer
-    .init_params``: ``embed``, ``layers`` stacked [n_blocks, ...] and
-    ``final_norm``, leaves numpy arrays or anything ``np.asarray`` takes,
-    bf16 included) -> the port's tree of tensors with the same keys, shapes
-    and dtypes on ``device`` (``None``: the GPU)."""
-    return _tree_to_tensors(params, resolve_device(device))
+recsys_params_from_reference = tree_from_reference
+lm_params_from_reference = tree_from_reference
+schnet_params_from_reference = tree_from_reference
+adamw_state_from_reference = tree_from_reference

@@ -20,9 +20,9 @@ size, otherwise that dimension is replicated (``_spec_tree``).
 The LM, recsys and GNN rules are spec functions: they map a nested dict
 (or list) of shapes, or of anything with a ``.shape``, to the same nest of
 ``P`` specs, each wrapped in a ``Named`` (mesh, spec) pair.  Nothing here
-moves a tensor.  The recsys rules take the port's real parameter trees
-(``models.recsys.models.init_params``); the LM and GNN models come in
-later slices.
+moves a tensor.  The rules take the port's real parameter trees
+(``models.recsys.models``, ``models.transformer`` and
+``models.gnn.schnet``'s ``init_params``).
 
 Layout summary (DESIGN.md §4 records the serving side):
   * LM params: megatron-style: embed table vocab-sharded over "model";

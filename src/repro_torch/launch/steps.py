@@ -1,23 +1,56 @@
-"""Step-function builders (port of ``repro.launch.steps``: LM prefill and
-decode, fp and int8 KV cache; retrieval; recsys serving).  Each returns a
-function of tensors with its configuration closed over.  The GNN steps
-and every training step come with later slices (ROADMAP queue A).
+"""Step-function builders (port of ``repro.launch.steps``: the LM, recsys
+and GNN train steps; LM prefill and decode, fp and int8 KV cache;
+retrieval; recsys serving).  Each returns a function of tensors with its
+configuration closed over.  A train step is ``step(params, opt_state,
+batch) -> (params, opt_state, {"loss", "grad_norm", "lr"})``: gradients
+by autograd, then ``train.optimizer.adamw_update``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
+
+import torch
 
 from repro_torch.core.quant import QuantParams
 from repro_torch.models import transformer as TF
+from repro_torch.models.gnn import schnet as S
 from repro_torch.models.recsys import models as RM
 from repro_torch.models.recsys import retrieval as RT
 from repro_torch.quantized import qkv_cache as QC
+from repro_torch.train import optimizer as OPT
+from repro_torch.train.train_loop import make_train_step
 
 
 # --------------------------------------------------------------------------
 # LM
 # --------------------------------------------------------------------------
+
+def make_lm_train_step(
+    cfg: TF.LMConfig,
+    opt_cfg: OPT.OptConfig,
+    microbatches: int = 1,
+    batch_axes: tuple[str, ...] | None = None,
+    grad_specs=None,
+) -> Callable:
+    """Train step with in-step gradient accumulation
+    (``train.make_train_step`` on ``transformer.lm_loss``).
+
+    microbatches > 1 runs the batch's slices one after another, so the
+    [B_micro, S, vocab] logits (the activation-memory hot spot at a 256k
+    vocabulary) never exceed one microbatch; the gradients accumulate in
+    float32.
+
+    ``batch_axes`` and ``grad_specs`` are the reference's layout hints for
+    GSPMD (keep the microbatch slices sharded over the batch axes, keep
+    the float32 accumulators in the ZeRO layout).  One process holds the
+    whole step on one device, so they are accepted and do nothing.
+    """
+    del batch_axes, grad_specs
+    return make_train_step(partial(TF.lm_loss, cfg=cfg), opt_cfg,
+                           microbatches)
+
 
 def make_lm_prefill(cfg: TF.LMConfig) -> Callable:
     """``step(params, tokens)`` -> (last-position logits, kv caches)."""
@@ -49,6 +82,11 @@ def make_lm_decode_q8(cfg: TF.LMConfig) -> Callable:
 # --------------------------------------------------------------------------
 # RecSys
 # --------------------------------------------------------------------------
+
+def make_recsys_train_step(cfg: RM.RecsysConfig,
+                           opt_cfg: OPT.OptConfig) -> Callable:
+    """One AdamW step on ``models.recsys.models.bce_loss``'s gradient."""
+    return make_train_step(partial(RM.bce_loss, cfg=cfg), opt_cfg)
 
 
 def make_recsys_serve(cfg: RM.RecsysConfig) -> Callable:
@@ -137,3 +175,49 @@ def make_retrieval_sharded(mesh, n_local: int, k: int = 100,
                       for block, dev in zip(shards(cand_table), devs)])
 
     return step
+
+
+# --------------------------------------------------------------------------
+# GNN (SchNet)
+# --------------------------------------------------------------------------
+
+def _schnet_molecule_loss(params, batch, cfg: S.SchNetConfig, n_nodes: int,
+                          n_graphs: int):
+    out = S.forward(
+        params, cfg,
+        senders=batch["senders"], receivers=batch["receivers"],
+        edge_mask=batch["edge_mask"], n_nodes=n_nodes,
+        z=batch["z"], positions=batch["positions"],
+    )[:, 0]
+    energies = S._segment_sum(out, batch["graph_ids"], n_graphs)
+    return torch.mean((energies - batch["labels"]) ** 2)
+
+
+def _schnet_node_loss(params, batch, cfg: S.SchNetConfig, n_nodes: int):
+    logits = S.forward(
+        params, cfg,
+        senders=batch["senders"], receivers=batch["receivers"],
+        edge_mask=batch["edge_mask"], n_nodes=n_nodes,
+        node_feat=batch["node_feat"],
+    )
+    return S._node_nll(logits, batch["labels"])
+
+
+def make_gnn_train_step(
+    cfg: S.SchNetConfig,
+    kind: str,
+    opt_cfg: OPT.OptConfig,
+    n_nodes: int,
+    n_graphs: int = 0,
+) -> Callable:
+    """SchNet's train step: ``kind`` "molecule" regresses per-molecule
+    energies (batch: senders, receivers, edge_mask, z, positions,
+    graph_ids, labels), any other kind classifies nodes (batch: senders,
+    receivers, edge_mask, node_feat, labels)."""
+    if kind == "molecule":
+        loss = partial(
+            _schnet_molecule_loss, cfg=cfg, n_nodes=n_nodes, n_graphs=n_graphs
+        )
+    else:
+        loss = partial(_schnet_node_loss, cfg=cfg, n_nodes=n_nodes)
+    return make_train_step(lambda p, b: (loss(p, b), {}), opt_cfg)

@@ -1,7 +1,7 @@
 """Model zoo (port of ``repro.models``): the shared layers, the LM family
-(``attention``, ``flash``, ``moe``, ``transformer``) and the recsys family
+(``attention``, ``flash``, ``moe``, ``transformer``), the recsys family
 (``models.recsys``: embeddings, interactions, the four CTR architectures,
-candidate retrieval).  The GNN family comes in a later slice."""
+candidate retrieval) and the GNN family (``models.gnn``: SchNet)."""
 
 from repro_torch.models import attention, flash, layers, moe, transformer
 from repro_torch.models.recsys.models import RecsysConfig

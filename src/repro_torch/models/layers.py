@@ -52,14 +52,44 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     without the cast back).  x: [..., k], w: [k, n] or a batch [E, k, n]
     beside x [E, m, k].  Two bf16 / fp16 operands on the card multiply in
     their dtype with a float32 output (``aten::mm.dtype`` /
-    ``bmm.dtype``), never through a float32 copy of w; elsewhere (float32
-    operands, or the CPU) both operands go to float32."""
+    ``bmm.dtype``, differentiable through ``_HalfDotF32``), never through a
+    float32 copy of w in the forward; elsewhere (float32 operands, or the
+    CPU) both operands go to float32.  Both branches have one backward."""
     if x.dtype in _HALF and w.dtype == x.dtype and x.is_cuda:
-        if w.dim() == 3:
-            return torch.bmm(x, w, out_dtype=torch.float32)
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
+        return _HalfDotF32.apply(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _half_mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _HalfDotF32(torch.autograd.Function):
+    """``dot_f32``'s card branch with a backward: ``aten::mm.dtype`` /
+    ``bmm.dtype`` have no derivative.  The backward is the float32
+    branch's: the float32 cotangent stays float32 (as the reference's)
+    and meets float32 copies of the operands, each gradient cast back to
+    its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _half_mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        dx = torch.matmul(g, w.to(f32).transpose(-1, -2)).to(x.dtype)
+        if w.dim() == 3:
+            dw = torch.matmul(x.to(f32).transpose(-1, -2), g)
+        else:
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).to(f32).T,
+                              g.reshape(-1, g.shape[-1]))
+        return dx, dw.to(w.dtype)
 
 
 def dense_init(generator, in_dim: int, out_dim: int, dtype=torch.float32,
@@ -140,6 +170,16 @@ def mlp(params, x, act=torch.relu, final_act: bool = False):
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def unstack(tree, n: int) -> list:
+    """The n layers of a tree whose leaves are stacked [n, ...] (the
+    reference's ``vmap``-built layer stacks), each leaf unbound once: a
+    backward through them stacks the layers' gradients in one pass."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in subs} for i in range(n)]
+    return tree.unbind(0)
 
 
 # -- rotary position embeddings ---------------------------------------------

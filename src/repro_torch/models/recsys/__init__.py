@@ -2,7 +2,8 @@
 substrate with the paper's int8 ``QuantizedTable``, the feature
 interactions, the four architectures' ``init_params`` / ``forward`` /
 ``serve`` / ``bce_loss``, candidate retrieval and ``RecsysConfig``.
-Training waits for ``train/`` (ROADMAP queue A)."""
+``launch.steps.make_recsys_train_step`` trains on ``bce_loss``'s
+gradient."""
 
 from repro_torch.models.recsys import embedding, interactions, models, retrieval
 from repro_torch.models.recsys.models import RecsysConfig

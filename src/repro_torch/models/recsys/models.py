@@ -1,7 +1,7 @@
 """The four recsys architectures over the shared embedding + interaction
 substrate (port of ``repro.models.recsys.models``): ``init_params``,
 ``forward`` (the CTR logit), ``serve`` (online and bulk scoring) and
-``bce_loss`` (its value; training comes with ``train/``), with
+``bce_loss`` (differentiable: ``launch.steps.make_recsys_train_step``), with
 ``RecsysConfig``.  Candidate retrieval, the paper's search problem, is
 ``retrieval.py``.
 

@@ -1,5 +1,5 @@
 """Decoder-only LM covering the five LM architectures through one layer
-body (port of ``repro.models.transformer``, its serving half).
+body (port of ``repro.models.transformer``).
 
 Architecture features are config data, not code forks:
   * GQA / MQA (n_kv), explicit head_dim (gemma's 256 != d_model / n_heads),
@@ -15,7 +15,12 @@ Architecture features are config data, not code forks:
 
 Layer parameters are stacked along a leading [n_blocks, ...] axis, as the
 reference's, so a reference tree converts leaf by leaf
-(``convert.lm_params_from_reference``); the forward loops over blocks.
+(``convert.lm_params_from_reference``); the forward loops over blocks
+(each stacked leaf unbound once a call, so a backward stacks the blocks'
+gradients in one pass).  With ``remat`` (the reference's default) and a
+graph to build, each block's body runs under
+``torch.utils.checkpoint.checkpoint``, the reference's ``jax.checkpoint``:
+only its input is kept, and the backward recomputes the rest.
 Numerics follow the reference: bf16 products accumulate in float32 and
 round once (``layers._dot``), the final logits are a product with float32
 output (``layers.dot_f32``), and the embedding scale is rounded to the
@@ -25,8 +30,9 @@ model dtype before the multiply (``jnp.asarray(d**0.5, dtype)``: sqrt(3584) =
 Decode writes the new token's k / v into the carried caches in place.  At
 ``cur_len >= max_len`` it raises ``ValueError``, where the reference's
 clamped ``dynamic_update_slice`` silently overwrites the last slot
-(ROADMAP queue C, port notes).  ``lm_loss`` and the backward come with the
-training slice.
+(ROADMAP queue C, port notes).  ``lm_loss`` is the training objective:
+masked next-token cross-entropy, plus MoE's load-balance and router
+z-losses.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -65,6 +72,7 @@ class LMConfig:
     dtype: str = "bfloat16"
     block_q: int = 1024
     block_kv: int = 1024
+    remat: bool = True
     pad_vocab_multiple: int = 256
 
     @property
@@ -178,7 +186,7 @@ def abstract_params(cfg: LMConfig):
 
 
 # --------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # --------------------------------------------------------------------------
 
 def _block(tree, i: int):
@@ -226,6 +234,39 @@ def _mask_padded_logits(logits, cfg: LMConfig):
     return torch.where(valid, logits, A.NEG_INF)
 
 
+def _tracked(tree, x) -> bool:
+    """Does autograd record this block (grad mode on, and the block's
+    input or a parameter requires grad)?"""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    if isinstance(tree, dict):
+        return any(_tracked(v, x) for v in tree.values())
+    return tree.requires_grad
+
+
+def _run_block(cfg: LMConfig, bp, x, qpos, win, chk, kvs, i: int):
+    """Block i on x: its block_layers sub-layers (attention, then MLP or
+    MoE); (x, the aux means), the caches written where ``kvs`` is given."""
+    auxs = []
+    for j in range(cfg.block_layers):
+        lp = bp[f"sub{j}"]
+        a_out, (k, v) = A.attention_block(
+            lp["attn"], L.rmsnorm(lp["ln1"], x), qpos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+            window=win[j], chunk=chk[j], cap=cfg.attn_softcap,
+            rope_base=cfg.rope_base, block_q=cfg.block_q,
+            block_kv=cfg.block_kv)
+        if kvs is not None:
+            kvs[0][i, j] = k
+            kvs[1][i, j] = v
+        x, aux = _ffn(cfg, lp, x + a_out, j)
+        auxs.append(aux)
+    return x, {name: torch.stack([a[name] for a in auxs]).mean()
+               for name in auxs[0]}
+
+
 def forward(params, tokens, cfg: LMConfig, collect_kv: bool = False,
             logits_mode: str = "full"):
     """tokens [B, S] -> logits [B, S, padded_vocab] float32 (``"last"``:
@@ -243,24 +284,13 @@ def forward(params, tokens, cfg: LMConfig, collect_kv: bool = False,
                torch.empty(shape, dtype=x.dtype, device=dev))
 
     block_aux = []
-    for i in range(cfg.n_blocks):
-        bp = _block(params["layers"], i)
-        auxs = []
-        for j in range(cfg.block_layers):
-            lp = bp[f"sub{j}"]
-            a_out, (k, v) = A.attention_block(
-                lp["attn"], L.rmsnorm(lp["ln1"], x), qpos,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-                window=win[i][j], chunk=chk[i][j], cap=cfg.attn_softcap,
-                rope_base=cfg.rope_base, block_q=cfg.block_q,
-                block_kv=cfg.block_kv)
-            if collect_kv:
-                kvs[0][i, j] = k
-                kvs[1][i, j] = v
-            x, aux = _ffn(cfg, lp, x + a_out, j)
-            auxs.append(aux)
-        block_aux.append({name: torch.stack([a[name] for a in auxs]).mean()
-                          for name in auxs[0]})
+    for i, bp in enumerate(L.unstack(params["layers"], cfg.n_blocks)):
+        if cfg.remat and not collect_kv and _tracked(bp, x):
+            x, aux = checkpoint(_run_block, cfg, bp, x, qpos, win[i], chk[i],
+                                None, i, use_reentrant=False)
+        else:
+            x, aux = _run_block(cfg, bp, x, qpos, win[i], chk[i], kvs, i)
+        block_aux.append(aux)
 
     if logits_mode == "last":
         x = x[:, -1:]                # avoid the [B, S, vocab] materialization
@@ -270,6 +300,21 @@ def forward(params, tokens, cfg: LMConfig, collect_kv: bool = False,
     if collect_kv:
         return logits, kvs, aux
     return logits, aux
+
+
+def lm_loss(params, batch, cfg: LMConfig):
+    """Masked next-token cross-entropy of ``batch`` (``tokens``,
+    ``targets``, ``mask`` [B, S]), in float32; MoE configs add 0.01 x the
+    load-balance loss and 1e-3 x the router z-loss.  Returns (loss, aux)."""
+    logits, aux = forward(params, batch["tokens"], cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch["targets"].to(torch.int64)[..., None])
+    nll = lse - tgt[..., 0]
+    mask = batch["mask"]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return loss, aux
 
 
 # --------------------------------------------------------------------------

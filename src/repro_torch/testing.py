@@ -18,6 +18,9 @@ tests and ``chip_smoke.py`` so that one copy of each exists.
     capacity routing, whether the reference's fault C10 (a dropped token
     overwriting the last expert's last slot) strikes on an input, and the
     per-token top-1 oracle.
+  * ``grad_scales`` / ``adam_first_step``: a gradient tree's per-leaf
+    scales, and one first AdamW step's parameters held against another
+    run's, with the elements whose gradient is near 0 set aside.
 
 Pure numpy on the host: results come in as numpy arrays.
 """
@@ -312,3 +315,58 @@ def moe_naive(params: dict, x: np.ndarray, n_experts: int,
         out += glu(*(np.asarray(sh[k]["w"], np.float64)
                      for k in ("gate", "up", "down")), xt)
     return out.reshape(B, S, d)
+
+
+def grad_scales(grads: list, floor: float = 0.0) -> list:
+    """Each gradient leaf's scale: its max |value|, at least ``floor``
+    times the largest over all leaves (a leaf whose gradient is 0 in exact
+    arithmetic, or far below the rest, carries float32 cancellation noise
+    of the tree's scale)."""
+    top = max(float(np.abs(np.asarray(g)).max()) for g in grads)
+    return [max(float(np.abs(np.asarray(g)).max()), floor * top, 1e-30)
+            for g in grads]
+
+
+def adam_first_step(new: list, want: list, old: list, grads: list, *,
+                    lr: float, weight_decay: float, eps: float,
+                    param_tol: float, grad_tol: float,
+                    floor: float = 0.0, rounding: float = 0.0) -> dict:
+    """Hold one AdamW step from a zero state (``new``) against another
+    run's (``want``) from the same parameters ``old``; ``grads`` is the
+    other run's gradient, each a list of leaves in one order.
+
+    Adam's first step moves an element by lr * g / (|g| + eps) plus the
+    decay, close to lr * sign(g), so an element whose gradient lies within
+    the gradient tolerance (``grad_tol`` times its leaf's scale,
+    ``grad_scales``) of 0, but is not 0, may move either way in a faithful
+    run: it is set aside, counted and held to Adam's bound |new - old| <=
+    lr (1 + weight_decay |old|), plus ``rounding`` (the parameters'
+    dtype's relative rounding, 2^-8 for bf16; 0 for float32) times the
+    moved value's size, since a bf16 parameter rounds its new value once
+    and its ulp can exceed lr.  Every other element is held within
+    ``param_tol`` of its leaf's scale plus what a gradient difference of
+    the tolerance moves that step by, lr * eps * tol / ((|g| + eps)
+    (|g| - tol + eps)) (0 where the gradient is exactly 0: both runs'
+    step is the decay alone).  Returns {"away": the largest ratio of a
+    held element's difference to its allowance, "near": the largest
+    ratio of a set-aside element's move to Adam's bound (both at most 1
+    to pass), "n_near": the count set aside, "n": the element count}."""
+    out = {"away": 0.0, "near": 0.0, "n_near": 0, "n": 0}
+    for p, r, p0, g, gs in zip(new, want, old, grads,
+                               grad_scales(grads, floor), strict=True):
+        p, r, p0 = (np.asarray(a, np.float64) for a in (p, r, p0))
+        g = np.abs(np.asarray(g, np.float64))
+        tol = grad_tol * gs
+        zero = (g <= tol) & (g > 0)
+        out["n_near"] += int(zero.sum())
+        out["n"] += g.size
+        step = lr * (1 + weight_decay * np.abs(p0))
+        bound = step * (1 + 1e-6) + rounding * (np.abs(p0) + step)
+        moved = np.where(g > 0, lr * eps * tol / (
+            (g + eps) * np.maximum(g - tol + eps, eps)), 0.0)
+        allowed = param_tol * max(float(np.abs(r).max()), 1e-30) + moved
+        out["away"] = max(out["away"], float(
+            (np.abs(p - r) / allowed)[~zero].max(initial=0.0)))
+        out["near"] = max(out["near"], float(
+            (np.abs(p - p0) / bound)[zero].max(initial=0.0)))
+    return out

@@ -272,6 +272,39 @@ def test_rules_on_a_one_device_mesh_equal_the_reference_whole():
     assert TSH.replicated(tmesh, {"a": (2, 3), "b": [(4,)]})["b"][0].spec == ()
 
 
+@pytest.mark.parametrize("shape", ["molecule", "full_graph_sm"])
+def test_gnn_rules_on_real_schnet_parameters(shape):
+    """``gnn_params_sharding`` on the port's own SchNet parameter tree (real
+    tensors from ``models.gnn.schnet.init_params``): every leaf replicated,
+    the same paths and specs as the reference's rule on its tree."""
+    from repro.models.gnn import schnet as RSN
+    from repro_torch.configs import schnet as T_SCFG
+    from repro_torch.models.gnn import schnet as TSN
+
+    cfg = T_SCFG.config(shape)
+    params = TSN.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    rtree = jax.eval_shape(lambda: RSN.init_params(jax.random.PRNGKey(0),
+                                                   _cfg_ref(shape)))
+    rmesh = jax.make_mesh((1, 1), ("data", "model"))
+    want = {RSH._path_str(p): tuple(s.spec) for p, s in
+            jax.tree_util.tree_leaves_with_path(
+                RSH.gnn_params_sharding(rmesh, rtree))}
+    for mesh in (make_mesh((1, 1), ("data", "model"), ["cpu"]),
+                 make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)):
+        got = _port_leaves(TSH.gnn_params_sharding(mesh, params))
+        assert {p: tuple(v.spec) for p, v in got.items()} == want
+        assert all(v.mesh is mesh for v in got.values())
+    assert sum(t.numel() for t in _port_leaves(params).values()) == sum(
+        int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(rtree))
+
+
+def _cfg_ref(shape):
+    from repro.configs import schnet as R_SCFG
+
+    return R_SCFG.config(shape)
+
+
 def test_cache_spec_degrades_on_divisibility():
     mesh = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
     assert TSH.lm_cache_spec(mesh, 4).spec == (None, None, "data", None,

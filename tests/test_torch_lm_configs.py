@@ -8,8 +8,8 @@ Counts are exact: for the five full configs ``param_count``,
 ``cache_memory_bytes`` equal the reference's, and the port's
 ``abstract_params`` (meta tensors: nothing allocated) hold
 ``param_count`` parameters plus the embedding's padded rows.  The port's
-``ASSIGNED`` is the reference's minus ``"schnet"`` (the GNN's slice has
-not landed).
+``ARCHS``, ``ASSIGNED`` and ``cells()`` equal the reference's, ``schnet``
+included.
 """
 
 import dataclasses
@@ -36,11 +36,10 @@ LM_ARCHS = ["gemma-2b", "gemma2-9b", "minicpm-2b", "llama4-scout-17b-16e",
             "llama4-maverick-400b-17b"]
 
 
-# The reference's LMConfig fields that the serving port does not read:
-# ``remat`` picks ``jax.checkpoint`` for training, ``quantized_kv`` is set
-# and read by nothing (the int8 cache is chosen by calling
-# ``decode_step_q8``).
-REF_ONLY_FIELDS = {"remat", "quantized_kv"}
+# The reference's LMConfig field that the port does not have:
+# ``quantized_kv`` is set and read by nothing (the int8 cache is chosen by
+# calling ``decode_step_q8``).
+REF_ONLY_FIELDS = {"quantized_kv"}
 
 
 def _asdict(cfg):
@@ -73,16 +72,23 @@ def test_shape_tables_equal_the_reference():
 
 
 def test_assigned_is_the_reference_minus_schnet():
-    assert T_CFG.ASSIGNED == [a for a in R_CFG.ASSIGNED if a != "schnet"]
-    assert set(T_CFG.ARCHS) == set(R_CFG.ARCHS) - {"schnet"}
-    assert T_CFG.cells() == [c for c in R_CFG.cells() if c[0] != "schnet"]
+    """Since the GNN slice the registry is the reference's whole: the same
+    ``ASSIGNED`` (schnet in its place), ``ARCHS`` and ``cells()``."""
+    assert T_CFG.ASSIGNED == R_CFG.ASSIGNED
+    assert "schnet" in T_CFG.ASSIGNED
+    assert list(T_CFG.ARCHS) == list(R_CFG.ARCHS)
+    assert T_CFG.cells() == R_CFG.cells()
     assert [a for a in T_CFG.ASSIGNED
             if T_CFG.get(a).FAMILY == "lm"] == LM_ARCHS
+    for arch in T_CFG.ASSIGNED:
+        assert T_CFG.get(arch).FAMILY == R_CFG.get(arch).FAMILY
 
 
 def test_get_raises_on_an_unknown_arch():
-    with pytest.raises(KeyError, match="unknown arch 'schnet'"):
-        T_CFG.get("schnet")
+    with pytest.raises(KeyError, match="unknown arch 'resnet'"):
+        T_CFG.get("resnet")
+    assert T_CFG.get("schnet").ARCH_ID == "schnet"
+    assert T_CFG.get("schnet").FAMILY == "gnn"
     assert T_CFG.get("gemma2-9b").ARCH_ID == "gemma2-9b"
 
 
