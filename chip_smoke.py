@@ -245,7 +245,9 @@ Phases (each prints its lines; any failure exits non-zero):
               parameters and batch: one make_lm_train_step for the five
               reduced LM configs, the flash backward alone, one
               make_recsys_train_step for the four recsys configs, one
-              make_gnn_train_step for both SchNet regimes: loss within
+              make_gnn_train_step for both SchNet regimes and for the
+              feature regime with its edge loop in ragged blocks of 37
+              edges: loss within
               1e-5 (relative), gradients within 1e-5 of their scale,
               updated parameters within 1e-5 of their scale outside the
               elements whose gradient is within that tolerance of 0 (held
@@ -266,7 +268,20 @@ Phases (each prints its lines; any failure exits non-zero):
               30 atoms, 64 edges each), 5 steps each through ``train.train``
               with a checkpoint at step 5 restored and held equal, step 1's
               loss within 1e-5 (relative) of the CPU's, step ms (host
-              clock between CUDA syncs) logged
+              clock between CUDA syncs) logged; (d) SchNet's minibatch_lg
+              cell at its real size: the 232,965-node, 114,615,892-edge
+              graph drawn on the card, ``NeighborSampler`` built once on
+              the host (its seconds logged), 4 steps through
+              ``train.train``, each on a fresh 1,024-seed (15, 10) sample
+              flattened as the reference's regime: step 1's loss within
+              1e-5 of the CPU's on the same sample, the samples within the
+              cell's padded sizes, a checkpoint restored equal, the
+              sampler's share of a step on the host clock; (e) SchNet's
+              ogb_products cell at its real size (2,449,029 nodes,
+              61,859,140 edges, 300 RBFs, 35 edge blocks): 3 steps through
+              ``train.train``, step ms, peak memory below 80 GiB, losses
+              finite, step 1's loss within 1e-6 (relative) at the default
+              block size and at half of it
 
 Output: one JSON line of kernel records (times and bound at each record's
 ``shape``, launches summed over the runs of phase 4, the retrieval path,
@@ -279,6 +294,8 @@ prints no result.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -5012,6 +5029,14 @@ TRAIN_FULL = dict(arch="gemma2-9b", layers=4, batch=1, seq=4608, steps=3,
 #: 15(c): SchNet's two cells at their real sizes (``GNN_SHAPES``), steps
 #: each
 SCHNET_STEPS = 5
+#: 15(a): edges a block in the SchNet case at ragged blocks (256 edges)
+SCHNET_RAGGED = 37
+#: 15(d): minibatch_lg's steps, each on a fresh sample; 15(e):
+#: ogb_products' steps, and the relative tolerance between step 1's loss
+#: at the default block size and at half of it
+MINIBATCH_STEPS = 4
+PRODUCTS_STEPS = 3
+BLOCK_TOL = 1e-6
 
 
 def _flat(tree) -> list:
@@ -5154,6 +5179,15 @@ def train_card_vs_cpu() -> None:
             lambda p, b, loss=loss, kw=kw: (loss(p, b, **kw), {}),
             ST.make_gnn_train_step(cfg, kind, opt, n_nodes, n_graphs),
             params, batch, TRAIN_FLOOR["gnn"]))
+    # the edge loop at ragged blocks: 256 edges in blocks of SCHNET_RAGGED
+    kw = dict(cfg=cfg, n_nodes=n_nodes)
+    with _rbf_block(SCHNET_RAGGED, cfg.n_rbf):
+        report(f"schnet full_graph, blocks of {SCHNET_RAGGED} edges",
+               _train_pair(
+                   f"15(a) schnet blocks of {SCHNET_RAGGED}",
+                   lambda p, b: (ST._schnet_node_loss(p, b, **kw), {}),
+                   ST.make_gnn_train_step(cfg, "full_graph", opt, n_nodes),
+                   params, batch, TRAIN_FLOOR["gnn"]))
     train_card_vs_cpu_bf16(report)
 
 
@@ -5326,25 +5360,14 @@ def train_full() -> dict:
 def schnet_cells() -> None:
     """15(c): SchNet at published widths on its two cells at their real
     sizes, SCHNET_STEPS steps each through ``train.train`` on one batch
-    (a checkpoint at the last step, restored and held equal), step 1's
-    loss against the CPU's.  Each step is timed on the host clock between
-    CUDA syncs: a ``train`` hook, called after the step's loss is read,
-    syncs the card and reads the clock (step 1 from a sync just before
-    ``train``), so a step's time holds all its device work, AdamW's
-    included.  ``train`` installs a SIGTERM handler: the previous one is
-    put back after each call."""
-    import itertools
-    import shutil
-    import signal
-
+    (``_run_train``: a checkpoint at the last step, restored and held
+    equal), step 1's loss against the CPU's."""
     import torch
 
     from repro_torch.configs import base, get
     from repro_torch.launch import steps as ST
     from repro_torch.models.gnn import schnet as SN
-    from repro_torch.train import OptConfig, TrainConfig, checkpoint, train
 
-    opt = OptConfig(lr=1e-3, warmup_steps=0, schedule="const")
     for kind, shape in (("full_graph", "full_graph_sm"),
                         ("molecule", "molecule")):
         cfg = get("schnet").config(shape)
@@ -5364,39 +5387,14 @@ def schnet_cells() -> None:
             return loss(p, b, **kw), {}
 
         cpu_loss = float(loss_fn(params, batch)[0])
-        ckpt = ROOT / "build" / f"phase15_{shape}"
-        shutil.rmtree(ckpt, ignore_errors=True)
-        marks = []
-
-        def tick(_step, _metrics):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        card_params, card_batch = _to(params, LM_DEV), _to(batch, LM_DEV)
-        prev = signal.getsignal(signal.SIGTERM)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            card, card_state, hist = train(
-                loss_fn, card_params, itertools.repeat(card_batch), opt,
-                TrainConfig(steps=SCHNET_STEPS, ckpt_dir=str(ckpt),
-                            ckpt_every=SCHNET_STEPS, log_every=1),
-                hooks=[tick])
-        finally:
-            signal.signal(signal.SIGTERM, prev)
-        need(len(hist) == SCHNET_STEPS, f"15(c) {shape}: {len(hist)} steps")
+        _card, _state, hist, secs = _run_train(
+            f"15(c) {shape}", loss_fn, _to(params, LM_DEV),
+            itertools.repeat(_to(batch, LM_DEV)), SCHNET_STEPS,
+            f"phase15_{shape}")
         err = abs(hist[0]["loss"] - cpu_loss) / max(abs(cpu_loss), 1e-30)
         need(err <= TRAIN_TOL, f"15(c) {shape}: step 1's loss "
              f"{hist[0]['loss']} on the card, {cpu_loss} on the CPU")
-        tree = {"params": card, "opt": card_state}
-        back, meta = checkpoint.restore_latest(str(ckpt), tree)
-        need(meta is not None and meta["step"] == SCHNET_STEPS
-             and all(torch.equal(a, b) for a, b in zip(_flat(back),
-                                                       _flat(tree))),
-             f"15(c) {shape}: the checkpoint does not restore the state")
-        shutil.rmtree(ckpt, ignore_errors=True)
         n_edges = int(batch["senders"].numel())
-        secs = [(b - a) * 1e3 for a, b in zip([t0, *marks], marks)]
         losses = " -> ".join(f"{h['loss']:.4f}" for h in hist)
         log(f"[train] 15(c) schnet {shape}: {n_nodes:,} nodes, "
             f"{n_edges:,} edges, {cfg.n_rbf} RBFs, d_hidden {cfg.d_hidden}"
@@ -5406,11 +5404,243 @@ def schnet_cells() -> None:
             f"{SCHNET_STEPS} steps {', '.join(f'{t:.1f}' for t in secs)} ms "
             f"(host clock between CUDA syncs, each step's device work "
             f"included), losses "
-            f"{losses}; checkpoint at step {meta['step']} restored equal")
+            f"{losses}; checkpoint at step {SCHNET_STEPS} restored equal")
 
 
-def phase15(parts: str = "abc") -> dict:
-    """15: training, the ``parts`` of (a)-(c) named.  No TPU kernel lies
+@contextlib.contextmanager
+def _rbf_block(edges: int, n_rbf: int):
+    """Run SchNet at ``edges`` edges a block (through the model's byte
+    budget ``RBF_BYTES``) inside the ``with``, and put the budget back."""
+    from repro_torch.models.gnn import schnet as SN
+
+    saved, SN.RBF_BYTES = SN.RBF_BYTES, edges * n_rbf * 4
+    try:
+        yield
+    finally:
+        SN.RBF_BYTES = saved
+
+
+def _run_train(tag: str, loss_fn, params, batches, steps: int,
+               ckpt: str | None = None):
+    """``train.train`` over ``batches`` on the card at a const lr of 1e-3.
+    Each step is timed on the host clock between CUDA syncs: a ``train``
+    hook, called after the step's loss is read, syncs the card and reads
+    the clock (step 1 from a sync just before ``train``), so a step's time
+    holds all its device work, AdamW's included.  ``train`` installs a
+    SIGTERM handler: the previous one is put back.  With ``ckpt`` (a
+    directory name under ``build/``) a checkpoint is written at the last
+    step, restored, held equal to the state and removed.  Returns
+    (params, state, history, step ms)."""
+    import shutil
+    import signal
+
+    import torch
+
+    from repro_torch.train import OptConfig, TrainConfig, checkpoint, train
+
+    path = None if ckpt is None else ROOT / "build" / ckpt
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+    marks = []
+
+    def tick(_step, _metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    prev = signal.getsignal(signal.SIGTERM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out, state, hist = train(
+            loss_fn, params, batches,
+            OptConfig(lr=1e-3, warmup_steps=0, schedule="const"),
+            TrainConfig(steps=steps, ckpt_dir=None if path is None
+                        else str(path), ckpt_every=steps, log_every=1),
+            hooks=[tick])
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    need(len(hist) == steps, f"{tag}: {len(hist)} steps of {steps}")
+    if path is not None:
+        tree = {"params": out, "opt": state}
+        back, meta = checkpoint.restore_latest(str(path), tree)
+        need(meta is not None and meta["step"] == steps
+             and all(torch.equal(a, b) for a, b in zip(_flat(back),
+                                                       _flat(tree))),
+             f"{tag}: the checkpoint does not restore the state")
+        shutil.rmtree(path, ignore_errors=True)
+    ms = [(b - a) * 1e3 for a, b in zip([t0, *marks], marks)]
+    return out, state, hist, ms
+
+
+def schnet_minibatch() -> None:
+    """15(d): SchNet's minibatch_lg cell at its real size: the 232,965-node,
+    114,615,892-edge graph drawn on the card, ``NeighborSampler`` built
+    once from host copies of its edge lists, then MINIBATCH_STEPS steps
+    through ``train.train`` at the published config, each on a fresh
+    sample of 1,024 seeds at fan-out (15, 10) from one numpy generator,
+    flattened as the reference's regime does (the layers' edge lists
+    concatenated, features and labels gathered at the sample's nodes).
+    Step 1's loss against the CPU's on the same sample and parameters; a
+    checkpoint at the last step restored equal; the sampler's share of
+    each step on the host clock."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base, get
+    from repro_torch.data import graph_data
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.gnn import schnet as SN
+
+    spec = base.GNN_SHAPES["minibatch_lg"]
+    cfg = get("schnet").config("minibatch_lg")
+    dev = torch.device(LM_DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = graph_data.random_graph(
+        spec["n_nodes"], spec["n_edges"], spec["d_feat"],
+        torch.Generator(device=dev).manual_seed(6), device=dev)
+    labels = torch.clamp(g.labels, 0, cfg.n_classes - 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    senders, receivers = g.senders.cpu().numpy(), g.receivers.cpu().numpy()
+    t2 = time.perf_counter()
+    sampler = graph_data.NeighborSampler(senders, receivers, spec["n_nodes"])
+    t3 = time.perf_counter()
+    del senders, receivers
+    log(f"[train] 15(d) schnet minibatch_lg: graph of {spec['n_nodes']:,} "
+        f"nodes and {spec['n_edges']:,} edges drawn on the card in "
+        f"{(t1 - t0) * 1e3:.1f} ms, edge lists to the host "
+        f"{(t2 - t1) * 1e3:.1f} ms, NeighborSampler built in {t3 - t2:.2f} s "
+        "(host)")
+
+    rng = np.random.default_rng(7)
+    sample_s, sizes = [], []
+
+    def draw(where):
+        a = time.perf_counter()
+        seeds = rng.integers(0, spec["n_nodes"], spec["batch_nodes"])
+        nodes, layers = sampler.sample(seeds, spec["fanout"], rng)
+        ids = torch.from_numpy(nodes).to(dev)
+        batch = {"senders": np.concatenate([la[0] for la in layers]),
+                 "receivers": np.concatenate([la[1] for la in layers]),
+                 "edge_mask": np.concatenate([la[2] for la in layers])}
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        batch["node_feat"] = g.node_feat[ids].to(where)
+        batch["labels"] = labels[ids].to(where)
+        sample_s.append(time.perf_counter() - a)
+        sizes.append((len(nodes), int(batch["senders"].numel())))
+        return batch
+
+    def loss_fn(p, b):
+        return ST._schnet_node_loss(p, b, cfg, b["node_feat"].shape[0]), {}
+
+    params = SN.init_params(torch.Generator().manual_seed(3), cfg,
+                            device="cpu")
+    first = draw("cpu")
+    cpu_loss = float(loss_fn(params, first)[0])
+
+    def batches():
+        yield _to(first, dev)
+        while True:
+            yield draw(dev)
+
+    _card, _state, hist, ms = _run_train(
+        "15(d) minibatch_lg", loss_fn, _to(params, dev), batches(),
+        MINIBATCH_STEPS, "phase15_minibatch_lg")
+    losses = [h["loss"] for h in hist]
+    need(all(math.isfinite(x) for x in losses),
+         f"15(d): a loss is not finite: {losses}")
+    err = abs(losses[0] - cpu_loss) / max(abs(cpu_loss), 1e-30)
+    need(err <= TRAIN_TOL, f"15(d): step 1's loss {losses[0]} on the card, "
+         f"{cpu_loss} on the CPU")
+    for n, e in sizes:
+        need(n <= spec["pad_nodes"] and e <= spec["pad_edges"],
+             f"15(d): a sample of {n} nodes and {e} edges exceeds the padded "
+             f"{spec['pad_nodes']} / {spec['pad_edges']}")
+    # the first sample was drawn before train; steps 2 on draw theirs inside
+    share = [s / (t / 1e3) for s, t in zip(sample_s[1:], ms[1:])]
+    log(f"[train] 15(d) schnet minibatch_lg: {MINIBATCH_STEPS} steps, "
+        f"samples of {', '.join(f'{n:,} / {e:,}' for n, e in sizes)} nodes /"
+        f" edges (padded cell {spec['pad_nodes']:,} / {spec['pad_edges']:,});"
+        f" step 1 loss {losses[0]:.6f} vs CPU {cpu_loss:.6f} ({err:.3e} "
+        f"relative, tolerance {TRAIN_TOL}); steps "
+        f"{', '.join(f'{t:.1f}' for t in ms)} ms (host clock between CUDA "
+        f"syncs; steps 2 on include their sample); sampler (sample, flatten,"
+        f" gather, host to card) {', '.join(f'{x * 1e3:.1f}' for x in sample_s)}"
+        f" ms, share of steps 2-{MINIBATCH_STEPS} "
+        f"{', '.join(f'{x:.3f}' for x in share)}; losses "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)}; checkpoint at step "
+        f"{MINIBATCH_STEPS} restored equal | {smi()}")
+
+
+def schnet_products() -> None:
+    """15(e): SchNet's ogb_products cell at its real size (2,449,029 nodes,
+    61,859,140 edges, 100 features, 47 classes, 300 RBFs): the graph drawn
+    on the card, PRODUCTS_STEPS steps through ``train.train`` on it (the
+    edge loop in blocks of ``schnet.edge_block``), each timed on the host
+    clock between CUDA syncs, the peak memory below 80 GiB, and step 1's
+    loss at the default block size against the loss at half of it (within
+    BLOCK_TOL relative): the result does not depend on the blocking."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import base, get
+    from repro_torch.data import graph_data
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.gnn import schnet as SN
+
+    spec = base.GNN_SHAPES["ogb_products"]
+    cfg = get("schnet").config("ogb_products")
+    dev = torch.device(LM_DEV)
+    n = spec["n_nodes"]
+    g = graph_data.random_graph(n, spec["n_edges"], spec["d_feat"],
+                                torch.Generator(device=dev).manual_seed(8),
+                                device=dev)
+    batch = {"senders": g.senders, "receivers": g.receivers,
+             "edge_mask": g.edge_mask, "node_feat": g.node_feat,
+             "labels": torch.clamp(g.labels, 0, cfg.n_classes - 1)}
+    del g
+    params = _to(SN.init_params(torch.Generator().manual_seed(3), cfg,
+                                device="cpu"), dev)
+
+    def loss_fn(p, b):
+        return ST._schnet_node_loss(p, b, cfg, n), {}
+
+    block = SN.edge_block(cfg.n_rbf)
+    with torch.no_grad():
+        whole = float(loss_fn(params, batch)[0])
+        with _rbf_block(block // 2, cfg.n_rbf):
+            half = float(loss_fn(params, batch)[0])
+    torch.cuda.reset_peak_memory_stats()
+    _p, _s, hist, ms = _run_train("15(e) ogb_products", loss_fn, params,
+                                  itertools.repeat(batch), PRODUCTS_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    need(all(math.isfinite(x) for x in losses),
+         f"15(e): a loss is not finite: {losses}")
+    err_half = abs(half - whole) / abs(whole)
+    err_step = abs(losses[0] - whole) / abs(whole)
+    need(max(err_half, err_step) <= BLOCK_TOL,
+         f"15(e): step 1's loss {losses[0]}, {whole} at blocks of {block} "
+         f"edges, {half} at {block // 2}")
+    need(peak < 80 * 2**30, f"15(e): peak {peak / 2**30:.1f} GiB")
+    log(f"[train] 15(e) schnet ogb_products: {n:,} nodes, "
+        f"{spec['n_edges']:,} edges, {cfg.n_rbf} RBFs, {spec['d_feat']} "
+        f"features, {cfg.n_classes} classes; {-(-spec['n_edges'] // block)} "
+        f"blocks of {block:,} edges: step 1 loss {whole:.7f}, at blocks of "
+        f"{block // 2:,} {half:.7f} ({err_half:.3e} relative), in train "
+        f"{losses[0]:.7f} ({err_step:.3e}; tolerance {BLOCK_TOL}); "
+        f"{PRODUCTS_STEPS} steps {', '.join(f'{t:.1f}' for t in ms)} ms "
+        f"(host clock between CUDA syncs, each step's device work "
+        f"included); losses {' -> '.join(f'{x:.4f}' for x in losses)}; "
+        f"peak {peak / 2**30:.2f} GiB (max_memory_allocated) | {smi()}")
+
+
+def phase15(parts: str = "abcde") -> dict:
+    """15: training, the ``parts`` of (a)-(e) named.  No TPU kernel lies
     on this path (the reference's backward, optimizer and message passing
     are jnp): the launch counters are set to 0 before it and must read 0
     after it."""
@@ -5420,15 +5650,18 @@ def phase15(parts: str = "abc") -> dict:
 
     from repro_torch import kernels
 
-    steps = {"a": train_card_vs_cpu, "b": train_full, "c": schnet_cells}
+    steps = {"a": train_card_vs_cpu, "b": train_full, "c": schnet_cells,
+             "d": schnet_minibatch, "e": schnet_products}
     gc.collect()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
-    for part in "abc":
+    for part in "abcde":
         if part in parts:
             t0 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             steps[part]()
+            gc.collect()
+            torch.cuda.empty_cache()
             log(f"[time] 15({part}): {time.perf_counter() - t0:.1f} s")
     after = kernels.launch_counts()
     log(f"[phase15] kernel launches, set to 0 before phase 15, after it: "

@@ -2,16 +2,20 @@
 port's AdamW, autograd backward (the blockwise-attention backward among
 it), checkpoints and SchNet.
 
-    python scripts/train_smoke.py [a] [b] [c]
+    python scripts/train_smoke.py [a] [b] [c] [d] [e]
 
-Runs ``chip_smoke.phase15`` with the parts named (all three unless some
+Runs ``chip_smoke.phase15`` with the parts named (all five unless some
 are): (a) each train step (the five reduced LM configs, the four recsys
-configs, SchNet's two regimes) and the flash backward, card against CPU
-in float32, then gemma2-9b's reduced train step and llama4's MoE backward
-in bf16, (b) gemma2-9b at full width, 4 layers, bf16, B=1 x S=4,608,
-a warm-up step and 3 timed steps, (c) SchNet at published widths on its
-full_graph_sm and molecule cells, 5 steps each through ``train.train``,
-printing each part's seconds.  No kernel of the port lies on this path,
+configs, SchNet's two regimes and its edge loop in ragged blocks) and the
+flash backward, card against CPU in float32, then gemma2-9b's reduced
+train step and llama4's MoE backward in bf16, (b) gemma2-9b at full
+width, 4 layers, bf16, B=1 x S=4,608, a warm-up step and 3 timed steps,
+(c) SchNet at published widths on its full_graph_sm and molecule cells,
+5 steps each through ``train.train``, (d) SchNet's minibatch_lg cell at
+its real size (the 114.6 M-edge graph, the host sampler, 4 steps on fresh
+samples), (e) SchNet's ogb_products cell at its real size (61.9 M edges
+in 35 edge blocks, 3 steps, the loss at two block sizes), printing each
+part's seconds.  No kernel of the port lies on this path,
 so nothing is built.  Exits non-zero if a check fails.
 """
 
@@ -34,7 +38,7 @@ def main() -> int:
     C.log(f"[device] {torch.cuda.get_device_name(0)} | {C.smi()} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
     try:
-        C.phase15("".join(sys.argv[1:]) or "abc")
+        C.phase15("".join(sys.argv[1:]) or "abcde")
     except C.SmokeFailure as e:
         print(f"train_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,8 +7,9 @@ flat-padded edge lists, the layout the GNN's ``index_add_`` message
 passing reads.  The generators draw from a ``torch.Generator`` on the
 graph's device (the reference's ``jax.random`` draws cannot be
 reproduced: tests carry the reference's graphs across).  The sampler is
-host-side numpy, the reference's code: on one ``np.random.Generator`` it
-returns the reference's subgraph bit for bit.
+host-side numpy, the reference's code (its local-id remap vectorized as an
+``np.searchsorted`` over the sorted sample): on one
+``np.random.Generator`` it returns the reference's subgraph bit for bit.
 """
 
 from __future__ import annotations
@@ -145,16 +146,16 @@ class NeighborSampler:
             all_nodes.append(frontier)
 
         nodes = np.unique(np.concatenate(all_nodes))
-        remap = {int(g): i for i, g in enumerate(nodes)}
         out_layers = []
         for src, dst in layers:
+            # local ids: positions in the sorted ``nodes``, which hold every
+            # endpoint (the reference's dict remap, vectorized)
             pad = max(len(src), 1)
             s_l = np.zeros(pad, np.int32)
             r_l = np.zeros(pad, np.int32)
             m_l = np.zeros(pad, bool)
-            for i, (a, b) in enumerate(zip(src, dst)):
-                s_l[i] = remap[int(a)]
-                r_l[i] = remap[int(b)]
-                m_l[i] = True
+            s_l[:len(src)] = np.searchsorted(nodes, src)
+            r_l[:len(dst)] = np.searchsorted(nodes, dst)
+            m_l[:len(src)] = True
             out_layers.append((s_l, r_l, m_l))
         return nodes.astype(np.int64), out_layers

@@ -3,7 +3,9 @@
 ``ql24``, ``fused_topk`` and ``fused_adc_topk``).
 
 Dispatch goes by the tensor's device, not by backend: a CUDA tensor runs
-the hand-written kernel (B1-B8) and a CPU tensor its plain version.  The
+the hand-written kernel (B1-B8) and a CPU tensor its plain version (as
+does a meta tensor at B1 and B6-B8, whose plain version computes shapes
+only: ``ref.PLAIN``).  The
 reference's ``use_pallas`` / ``interpret`` switches choose between a TPU
 kernel and its XLA form, which has no counterpart here, so they are not
 carried over.  The kernels mask ragged (Q, N) themselves, so nothing is

@@ -54,7 +54,7 @@ def ql24_plain(q_even, q_odd, packed) -> torch.Tensor:
 def qmip4_cuda(q_even: torch.Tensor, q_odd: torch.Tensor,
                packed: torch.Tensor) -> torch.Tensor:
     """B8a: [Q, d/2] int8 (x2) vs [N, d/2] uint8 packed -> [Q, N] int32 MIP."""
-    if packed.device.type == "cpu":
+    if packed.device.type in _ref.PLAIN:
         return qmip4_plain(q_even, q_odd, packed)
     return _qscore.launch("qmip4", LAUNCHES, packed=True, l2=False,
                           q0=q_even, q1=q_odd, x=packed)
@@ -64,7 +64,7 @@ def ql24_cuda(q_even: torch.Tensor, q_odd: torch.Tensor,
               packed: torch.Tensor) -> torch.Tensor:
     """B8b: [Q, d/2] int8 (x2) vs [N, d/2] uint8 packed -> [Q, N] int32
     negated squared L2 (norms from the unpacked nibbles)."""
-    if packed.device.type == "cpu":
+    if packed.device.type in _ref.PLAIN:
         return ql24_plain(q_even, q_odd, packed)
     return _qscore.launch("ql24", LAUNCHES, packed=True, l2=True,
                           q0=q_even, q1=q_odd, x=packed)

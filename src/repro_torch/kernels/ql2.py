@@ -28,7 +28,7 @@ def ql2_plain(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
 
 def ql2_cuda(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
     """B7: [Q, d] int8 x [N, d] int8 -> [Q, N] int32 negated squared L2."""
-    if x_codes.device.type == "cpu":
+    if x_codes.device.type in _ref.PLAIN:
         return ql2_plain(q_codes, x_codes)
     return _qscore.launch("ql2", LAUNCHES, packed=False, l2=True,
                           q0=q_codes, q1=None, x=x_codes)

@@ -26,7 +26,7 @@ def qmip_plain(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
 
 def qmip_cuda(q_codes: torch.Tensor, x_codes: torch.Tensor) -> torch.Tensor:
     """B6: [Q, d] int8 x [N, d] int8 -> [Q, N] int32 inner products."""
-    if x_codes.device.type == "cpu":
+    if x_codes.device.type in _ref.PLAIN:
         return qmip_plain(q_codes, x_codes)
     return _qscore.launch("qmip", LAUNCHES, packed=False, l2=False,
                           q0=q_codes, q1=None, x=x_codes)

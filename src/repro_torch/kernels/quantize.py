@@ -22,7 +22,7 @@ def quantize_cuda(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     """[N, d] f32 + per-dim constants -> [N, d] int8 codes (Eq. 1)."""
     if bits > 8:
         raise ValueError("this kernel stores int8; use core.quant for wider codes")
-    if x.device.type == "cpu":
+    if x.device.type in _ref.PLAIN:
         return _ref.quantize_ref(x, lo, hi, zero, bits=bits)
     if x.device.type != "cuda":
         raise ValueError(f"quantize: unsupported device {x.device}")

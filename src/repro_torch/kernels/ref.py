@@ -18,6 +18,12 @@ from repro_torch.core import distances as D
 
 NEG = float(torch.finfo(torch.float32).min)
 
+#: device types whose tensors B1's and B6-B8's wrappers give to the plain
+#: version: the CPU, and the meta device of the dry run
+#: (``launch/dryrun.py``: shapes only, no values; its int8 retrieval cells
+#: reach B1 and B6).  B2-B5, which no dry-run cell reaches, refuse meta.
+PLAIN = ("cpu", "meta")
+
 
 def order_key(s: torch.Tensor) -> torch.Tensor:
     """f32 scores -> int32 keys whose integer order is the IEEE total

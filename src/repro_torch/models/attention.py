@@ -50,7 +50,7 @@ def blockwise_attention(q, k, v, qpos, window=GLOBAL, chunk=GLOBAL,
     Sk = k.shape[1]
     bq = min(block_q, Sq)
     bkv = min(block_kv, Sk)
-    qpos = torch.as_tensor(qpos, device=q.device)
+    qpos = FL.positions(qpos, q.device)
 
     n_valid_k = Sk
     if Sk % bkv:

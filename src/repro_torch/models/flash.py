@@ -15,7 +15,10 @@ That is exact: after a valid tile it would add exp(NEG_INF - m) = 0 at
 corr = 1, and before one its contribution is zeroed by corr =
 exp(NEG_INF - m_new) = 0.  The bounds come from the q block's positions on
 the host.  The backward skips the same tiles: the reference's p = exp(s -
-lse) and ds are 0 on each of their entries.  Each query row must see at
+lse) and ds are 0 on each of their entries.  On the meta device (the dry
+run, ``launch/dryrun.py``) a tensor holds no values, so the positions
+stay on the host there (``positions``) and the live tiles are the card's.
+Each query row must see at
 least one key (``attention.attention_block`` always gives it itself): a
 row that sees none is outside the contract, as the reference's forward
 averages every key of the call there and the skip averages fewer.
@@ -65,10 +68,19 @@ def _tile_live(qlo: int, qhi: int, klo: int, khi: int, window: int,
             and qlo // chunk <= khi // chunk and klo // chunk <= qhi // chunk)
 
 
+def positions(qpos, device) -> torch.Tensor:
+    """``qpos`` on ``device``, or on the host where ``device`` is the meta
+    device: the tile skip reads the positions' values."""
+    device = torch.device(device)
+    return torch.as_tensor(qpos, device="cpu" if device.type == "meta"
+                           else device)
+
+
 class _Layout:
     """One call's shapes and the [B, Hkv, Sq * g, hd] row layout (a q block
     is a contiguous run of block_q * g rows), with the host-side bounds of
-    each q block's positions for the tile skip."""
+    each q block's positions for the tile skip (``qpos`` on q's device, or
+    on the host for a meta q)."""
 
     def __init__(self, q, k, qpos, locality, cap, block_q, block_kv,
                  n_valid_k):
@@ -81,7 +93,7 @@ class _Layout:
         self.scale = self.hd ** -0.5
         self.nq, self.nk = self.Sq // block_q, self.Sk // block_kv
         self.rows = block_q * self.g
-        self.qpos = qpos
+        self.qpos = qpos.to(q.device)
         host = qpos.to("cpu").reshape(self.nq, block_q)
         self.qb = [(int(host[i].min()), int(host[i].max()))
                    for i in range(self.nq)]
@@ -245,6 +257,6 @@ def flash_attention(q, k, v, qpos, locality, cap, block_q: int,
     ``block_q``, Sk of ``block_kv``), qpos [Sq] absolute positions,
     locality (window, chunk) -> [B, Sq, H, hd] in q's dtype,
     differentiable in q, k and v."""
-    qpos = torch.as_tensor(qpos, device=q.device)
+    qpos = positions(qpos, q.device)
     return _FlashAttention.apply(q, k, v, qpos, tuple(locality), cap,
                                  block_q, block_kv, n_valid_k)

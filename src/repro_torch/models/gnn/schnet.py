@@ -4,7 +4,9 @@ n_interactions=3, d_hidden=64, 300 RBFs, cutoff 10 Å.
 
 Message passing gathers sender features along the edge list, modulates
 them with the RBF-generated continuous filter and sums them into their
-receivers with ``index_add_`` (the reference's ``jax.ops.segment_sum``).
+receivers with ``index_add_`` (the reference's ``jax.ops.segment_sum``),
+a block of edges at a time (``forward``): ogbn-products' [61.9 M, 300]
+float32 RBF matrix alone would be 74 GB.
 On the card that sum is float32 atomics, whose order varies, so a card
 run agrees with a CPU run within a tolerance, not bit for bit.
 
@@ -126,18 +128,99 @@ def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add(0, segment_ids.to(torch.int64), data)
 
 
+#: bytes of one edge block's [block, n_rbf] float32 RBF rows, the unit
+#: ``forward`` runs each interaction's edge part in: 2 GiB is 1,789,569
+#: edges at 300 RBFs (35 blocks for ogbn-products' 61,859,140 edges)
+RBF_BYTES = 2 << 30
+
+
+def edge_block(n_rbf: int) -> int:
+    """Edges a block under ``RBF_BYTES``."""
+    return max(1, RBF_BYTES // (n_rbf * 4))
+
+
 def _edge_length(pts: torch.Tensor, senders, receivers) -> torch.Tensor:
     d = pts[senders.to(torch.int64)] - pts[receivers.to(torch.int64)] + 1e-12
     return torch.sqrt(torch.sum(d * d, dim=-1))     # jnp.linalg.norm's form
 
 
-def _interaction(ip, x, w_filter, senders, receivers, edge_mask,
-                 n_nodes: int):
-    """One cfconv + atomwise block.  x: [N, h], w_filter: [E, h]."""
-    msg_src = L.dense(ip["in_proj"], x)[senders.to(torch.int64)]
-    msg = msg_src * w_filter
-    msg = torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
-    agg = _segment_sum(msg, receivers, n_nodes)
+def _edge_messages(fp, hs, dist, edge_mask, n_rbf: int, cutoff: float):
+    """One block's messages [b, h]: the RBF expansion of its lengths, the
+    continuous filter (filter1, shifted softplus, filter2) times the
+    gathered sender projections ``hs``, zero where the mask is off."""
+    rbf = rbf_expand(dist, n_rbf, cutoff).to(hs.dtype)      # [b, n_rbf]
+    w = _affine(fp["filter1"], rbf)
+    w = L.shifted_softplus(w)
+    w = _affine(fp["filter2"], w)
+    msg = hs * w
+    return torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
+
+
+def _filters(leaves) -> dict:
+    w1, b1, w2, b2 = leaves
+    return {"filter1": {"w": w1, "b": b1}, "filter2": {"w": w2, "b": b2}}
+
+
+class _EdgeBlocks(torch.autograd.Function):
+    """One interaction's edge part, a block of edges at a time: the
+    messages of ``_edge_messages`` summed into their receivers
+    (``index_add_``) -> agg [N, h].  The forward keeps no block: it saves
+    its inputs (h, the lengths, the filter weights, the edge lists), and
+    the backward recomputes each block's messages to take their gradient
+    (the gathered sender rows as a leaf, scattered back into dh with
+    ``index_add_``)."""
+
+    @staticmethod
+    def forward(ctx, h, dist, w1, b1, w2, b2, senders, receivers, edge_mask,
+                n_nodes, n_rbf, cutoff, block):
+        fp = _filters((w1, b1, w2, b2))
+        agg = torch.zeros((n_nodes, h.shape[1]), dtype=h.dtype,
+                          device=h.device)
+        for lo in range(0, dist.shape[0], block):
+            cut = slice(lo, lo + block)
+            agg.index_add_(0, receivers[cut], _edge_messages(
+                fp, h[senders[cut]], dist[cut], edge_mask[cut], n_rbf,
+                cutoff))
+        ctx.save_for_backward(h, dist, w1, b1, w2, b2, senders, receivers,
+                              edge_mask)
+        ctx.config = (n_rbf, cutoff, block)
+        return agg
+
+    @staticmethod
+    def backward(ctx, g):
+        h, dist, *weights, senders, receivers, edge_mask = ctx.saved_tensors
+        n_rbf, cutoff, block = ctx.config
+        dh = torch.zeros_like(h)
+        ddist = torch.empty_like(dist)
+        dweights = [torch.zeros_like(w) for w in weights]
+        leaves = [w.detach().requires_grad_() for w in weights]
+        fp = _filters(leaves)
+        for lo in range(0, dist.shape[0], block):
+            cut = slice(lo, lo + block)
+            with torch.enable_grad():
+                hs = h[senders[cut]].detach().requires_grad_()
+                d = dist[cut].detach().requires_grad_()
+                msg = _edge_messages(fp, hs, d, edge_mask[cut], n_rbf,
+                                     cutoff)
+                grads = torch.autograd.grad(msg, [hs, d, *leaves],
+                                            g[receivers[cut]])
+            dh.index_add_(0, senders[cut], grads[0])
+            ddist[cut] = grads[1]
+            for acc, gw in zip(dweights, grads[2:]):
+                acc += gw
+        return (dh, ddist, *dweights, None, None, None, None, None, None,
+                None)
+
+
+def _interaction(ip, x, dist, senders, receivers, edge_mask, n_nodes: int,
+                 cfg: SchNetConfig, block: int):
+    """One cfconv + atomwise block.  x: [N, h], dist: [E], the edge lists
+    int64."""
+    h = L.dense(ip["in_proj"], x)
+    agg = _EdgeBlocks.apply(
+        h, dist, ip["filter1"]["w"], ip["filter1"]["b"], ip["filter2"]["w"],
+        ip["filter2"]["b"], senders, receivers, edge_mask, n_nodes,
+        cfg.n_rbf, cfg.cutoff, block)
     y = _affine(ip["out1"], agg)
     y = L.shifted_softplus(y)
     y = _affine(ip["out2"], y)
@@ -147,7 +230,20 @@ def _interaction(ip, x, w_filter, senders, receivers, edge_mask,
 def forward(params, cfg: SchNetConfig, senders, receivers, edge_mask,
             n_nodes: int, z=None, positions=None, node_feat=None):
     """Per-node head output [N, n_out] (n_out = n_classes, or 1 for the
-    molecular energy)."""
+    molecular energy).
+
+    Each interaction's edge part runs over blocks of
+    ``edge_block(cfg.n_rbf)`` edges (an RBF block of ``RBF_BYTES``).
+    A block is what one shard of the reference's ``gnn_edge_sharding``
+    computes (its edges' RBFs, filters and messages), and the sum of the
+    blocks' scatters into the receivers is that sharding's reduce.  The
+    function is the reference's; only the order of the float32 sums
+    changes, and a graph whose edges fit one block (``full_graph_sm``,
+    ``molecule``, a ``minibatch_lg`` sample) runs as one block.  The
+    lengths [E] are computed once and kept; a block's RBF rows and filters
+    live only while it runs, in the forward and again in the backward."""
+    senders = senders.to(torch.int64)
+    receivers = receivers.to(torch.int64)
     if cfg.d_feat is None:
         x = L.embed(params["embed"], z)
         dist = _edge_length(positions, senders, receivers)
@@ -156,12 +252,10 @@ def forward(params, cfg: SchNetConfig, senders, receivers, edge_mask,
         proj = L.dense(params["dist_proj"], node_feat)    # [N, 8]
         dist = _edge_length(proj, senders, receivers)
 
-    rbf = rbf_expand(dist, cfg.n_rbf, cfg.cutoff).to(x.dtype)  # [E, n_rbf]
+    block = edge_block(cfg.n_rbf)
     for ip in L.unstack(params["interactions"], cfg.n_interactions):
-        w = _affine(ip["filter1"], rbf)
-        w = L.shifted_softplus(w)
-        w = _affine(ip["filter2"], w)
-        x = _interaction(ip, x, w, senders, receivers, edge_mask, n_nodes)
+        x = _interaction(ip, x, dist, senders, receivers, edge_mask, n_nodes,
+                         cfg, block)
 
     y = _affine(params["head1"], x)
     y = L.shifted_softplus(y)

@@ -36,7 +36,12 @@ def top_k(s: torch.Tensor, k: int):
     passes ``s >= thr``, so where a row holds NaN (``torch.topk`` ranks it
     first) the threshold and the comparison are taken on the order key
     instead, and every row still keeps exactly k entries; without NaN the
-    float comparison keeps the one pass it needs over the matrix."""
+    float comparison keeps the one pass it needs over the matrix.  A meta
+    ``s`` (the dry run, ``launch/dryrun.py``) holds no values: it gets
+    ``torch.topk``'s shapes, without the two host waits."""
+    if s.device.type == "meta":
+        top = torch.topk(s, k, dim=-1)
+        return top.values, top.indices.to(torch.int32)
     top = torch.topk(s, k, dim=-1).values
     if bool(torch.isnan(top[:, 0]).any()):
         key = R.order_key(s)

@@ -275,7 +275,8 @@ def forward(params, tokens, cfg: LMConfig, collect_kv: bool = False,
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     dev = x.device
-    qpos = torch.arange(S, device=dev)
+    # on the meta device the positions stay on the host (flash.positions)
+    qpos = torch.arange(S, device="cpu" if dev.type == "meta" else dev)
     win, chk = (t.tolist() for t in cfg.layer_locality())
     kvs = None
     if collect_kv:

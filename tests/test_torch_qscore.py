@@ -137,15 +137,22 @@ def test_cpu_calls_count_no_launch_and_tiles_follow_q():
 def test_kernel_wrappers_check_their_operands():
     """What the CUDA launcher refuses, it refuses before any build: the
     device, dtypes and shapes (checked here on the meta device, which is
-    neither CPU nor CUDA)."""
+    neither CPU nor CUDA).  The wrappers give a meta tensor to the plain
+    version (the dry run's shapes), so the launcher is called here."""
     q = torch.zeros((2, 8), dtype=torch.int8, device="meta")
     x = torch.zeros((3, 8), dtype=torch.int8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        TK.qmip(q, x)
-    with pytest.raises(ValueError, match="unsupported device"):
-        TPK.ql24_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8))
-    with pytest.raises(ValueError, match="unsupported device"):
-        TPK.qmip4_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8))
+    for what, packed, l2 in (("qmip", False, False), ("ql24", True, True),
+                             ("qmip4", True, False)):
+        q1 = q[:, :4] if packed else None
+        xs = x[:, :4].to(torch.uint8) if packed else x
+        with pytest.raises(ValueError, match="unsupported device"):
+            _qscore.launch(what, {}, packed=packed, l2=l2,
+                           q0=q[:, :4] if packed else q, q1=q1, x=xs)
+    for out in (TK.qmip(q, x), TK.ql2(q, x),
+                TPK.ql24_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8)),
+                TPK.qmip4_cuda(q[:, :4], q[:, :4], x[:, :4].to(torch.uint8))):
+        assert out.device.type == "meta"
+        assert out.shape == (2, 3) and out.dtype == torch.int32
 
 
 @pytest.mark.parametrize("q,tile", [(1, (8, 256)), (8, (8, 256)),

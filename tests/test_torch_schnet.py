@@ -152,10 +152,10 @@ def _molecule_case(cfg_fn, key=3):
     return rcfg, params, mol
 
 
-def _feature_case(cfg_fn, key=3):
+def _feature_case(cfg_fn, key=3, edges=256):
     rcfg = cfg_fn("full_graph_sm")
     params = _np(R_S.init_params(jax.random.PRNGKey(0), rcfg))
-    g = R_G.random_graph(64, 256, rcfg.d_feat, key=jax.random.PRNGKey(key))
+    g = R_G.random_graph(64, edges, rcfg.d_feat, key=jax.random.PRNGKey(key))
     g.labels = jnp.clip(g.labels, 0, rcfg.n_classes - 1)
     g.edge_mask = g.edge_mask.at[::5].set(False)
     return rcfg, params, g
@@ -330,3 +330,167 @@ def test_minibatch_sampler_forward_equals_the_reference():
                       node_feat=_t(feat))
     assert got.shape == (len(nodes), rcfg.n_classes)
     assert testing.scale_err(got.numpy(), want) <= TOL
+
+
+# --------------------------------------------------------------------------
+# edge blocks (``forward``'s ``block``, ``RBF_BYTES``)
+
+#: block sizes: one edge a block, a size that leaves a ragged last block,
+#: and every edge in one block (the default at these sizes); the feature
+#: graphs of these tests have BLOCK_EDGES edges (a block of one edge is a
+#: launch of its own a block and an interaction)
+BLOCKS = [1, 37, None]
+BLOCK_EDGES = 80
+
+
+def _blocks(monkeypatch, block, n_rbf):
+    """Run every SchNet call at ``block`` edges a block (None: the
+    default ``RBF_BYTES``), through the byte budget the model reads."""
+    if block is not None:
+        monkeypatch.setattr(T_S, "RBF_BYTES", block * n_rbf * 4)
+
+
+def test_edge_block_comes_from_the_byte_budget():
+    assert T_S.edge_block(300) == 1_789_569
+    assert -(-61_859_140 // T_S.edge_block(300)) == 35
+    assert T_S.edge_block(10 ** 12) == 1
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("molecule", [True, False])
+def test_blocked_forward_equals_the_reference(block, molecule, monkeypatch):
+    rcfg, params, g = (_molecule_case(R_CFG.reduced_config) if molecule
+                       else _feature_case(R_CFG.reduced_config,
+                                          edges=BLOCK_EDGES))
+    _blocks(monkeypatch, block, rcfg.n_rbf)
+    tcfg = T_CFG.reduced_config("molecule" if molecule else "full_graph_sm")
+    got, want = _forward_pair(rcfg, tcfg, params, g, molecule)
+    assert testing.scale_err(got.numpy(), want) <= TOL
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_blocked_losses_and_gradients_equal_the_reference(block,
+                                                          monkeypatch):
+    rcfg, params, mol = _molecule_case(R_CFG.reduced_config)
+    _blocks(monkeypatch, block, rcfg.n_rbf)
+    gids = jnp.repeat(jnp.arange(4), 6)
+    want, rg = jax.value_and_grad(
+        lambda p: R_S.energy_loss(p, rcfg, mol, gids, 4))(params)
+    tcfg = T_CFG.reduced_config("molecule")
+    tp = convert.schnet_params_from_reference(params, device="cpu")
+    (got, _), tg = value_and_grad(
+        lambda p, g: (T_S.energy_loss(p, tcfg, g, _t(gids), 4), {}), tp,
+        _graph(mol))
+    np.testing.assert_allclose(float(got), float(want), rtol=TOL)
+    _tree_close(tg, rg)
+
+    rcfg, params, g = _feature_case(R_CFG.reduced_config, edges=BLOCK_EDGES)
+    want, rg = jax.value_and_grad(
+        lambda p: R_S.node_class_loss(p, rcfg, g))(params)
+    tcfg = T_CFG.reduced_config("full_graph_sm")
+    tp = convert.schnet_params_from_reference(params, device="cpu")
+    (got, _), tg = value_and_grad(
+        lambda p, gr: (T_S.node_class_loss(p, tcfg, gr), {}), tp, _graph(g))
+    np.testing.assert_allclose(float(got), float(want), rtol=TOL)
+    _tree_close(tg, rg)
+
+
+def _unblocked_forward(params, cfg, senders, receivers, edge_mask, n_nodes,
+                       node_feat):
+    """The feature-graph forward as it stood before edge blocks: one
+    [E, n_rbf] RBF matrix, the messages of every edge at once."""
+    from repro_torch.models import layers as T_L
+
+    x = T_L.dense(params["embed"], node_feat)
+    proj = T_L.dense(params["dist_proj"], node_feat)
+    dist = T_S._edge_length(proj, senders, receivers)
+    rbf = T_S.rbf_expand(dist, cfg.n_rbf, cfg.cutoff).to(x.dtype)
+    for ip in T_L.unstack(params["interactions"], cfg.n_interactions):
+        w = T_S._affine(ip["filter1"], rbf)
+        w = T_L.shifted_softplus(w)
+        w = T_S._affine(ip["filter2"], w)
+        msg = T_L.dense(ip["in_proj"], x)[senders.to(torch.int64)] * w
+        msg = torch.where(edge_mask[:, None], msg, torch.zeros_like(msg))
+        y = T_S._affine(ip["out1"], T_S._segment_sum(msg, receivers,
+                                                     n_nodes))
+        y = T_S._affine(ip["out2"], T_L.shifted_softplus(y))
+        x = x + y
+    y = T_L.shifted_softplus(T_S._affine(params["head1"], x))
+    return T_S._affine(params["head2"], y)
+
+
+def test_one_block_equals_the_unblocked_form_bit_for_bit():
+    """At the published widths, with every edge in one block."""
+    rcfg, params, g = _feature_case(R_CFG.config)
+    tcfg = T_CFG.config("full_graph_sm")
+    tp = convert.schnet_params_from_reference(params, device="cpu")
+    kw = dict(senders=_t(g.senders), receivers=_t(g.receivers),
+              edge_mask=_t(g.edge_mask), n_nodes=g.n_nodes,
+              node_feat=_t(g.node_feat))
+    got = T_S.forward(tp, tcfg, **kw)
+    want = _unblocked_forward(tp, tcfg, **kw)
+    assert T_S.edge_block(tcfg.n_rbf) >= g.senders.shape[0]
+    assert torch.equal(got, want)
+    # the gradients too, but dist_proj's: the unblocked form sums the
+    # interactions' RBF gradients before the expansion's backward, the
+    # blocked one takes each through the expansion and sums the lengths'
+    labels = _t(g.labels)
+    (lg, _), gg = value_and_grad(
+        lambda p, _b: (T_S._node_nll(T_S.forward(p, tcfg, **kw), labels),
+                       {}), tp, None)
+    (lw, _), gw = value_and_grad(
+        lambda p, _b: (T_S._node_nll(_unblocked_forward(p, tcfg, **kw),
+                                     labels), {}), tp, None)
+    assert torch.equal(lg, lw)
+    top = max(float(v.abs().max()) for _p, v in _leaves_with_paths(gw))
+    for (path, a), (_p, b) in zip(_leaves_with_paths(gg),
+                                  _leaves_with_paths(gw)):
+        if path[0] == "dist_proj":
+            assert float((a - b).abs().max()) <= TOL * top
+        else:
+            assert torch.equal(a, b), path
+
+
+def test_minibatch_train_step_equals_the_reference():
+    """The minibatch_lg regime end to end on a 500-node graph: the
+    sampler's subgraph, its layers flattened into one edge list, features
+    and labels gathered at its nodes, one make_gnn_train_step."""
+    from repro.launch import steps as R_ST
+    from repro.train import optimizer as R_OPT
+    from repro_torch.launch import steps as T_ST
+    from repro_torch.train import optimizer as T_OPT
+
+    rcfg = R_CFG.reduced_config("full_graph_sm")
+    tcfg = T_CFG.reduced_config("full_graph_sm")
+    g = R_G.random_graph(500, 4000, rcfg.d_feat, key=jax.random.PRNGKey(7))
+    sampler = T_G.NeighborSampler(np.asarray(g.senders),
+                                  np.asarray(g.receivers), 500)
+    nodes, layers = sampler.sample(np.arange(0, 500, 25), fanouts=(5, 3),
+                                   rng=np.random.default_rng(3))
+    batch = {"senders": np.concatenate([la[0] for la in layers]),
+             "receivers": np.concatenate([la[1] for la in layers]),
+             "edge_mask": np.concatenate([la[2] for la in layers]),
+             "node_feat": np.asarray(g.node_feat)[nodes],
+             "labels": np.clip(np.asarray(g.labels)[nodes], 0,
+                               rcfg.n_classes - 1).astype(np.int32)}
+    n = len(nodes)
+    params = _np(R_S.init_params(jax.random.PRNGKey(0), rcfg))
+    opt = dict(lr=1e-3, warmup_steps=0, schedule="const")
+    rstep = R_ST.make_gnn_train_step(rcfg, "minibatch", R_OPT.OptConfig(**opt),
+                                     n)
+    _rp, _ro, rm = rstep(params, R_OPT.adamw_init(params), batch)
+    rg = jax.grad(lambda p: R_ST._schnet_node_loss(p, batch, rcfg, n))(params)
+
+    tp = convert.schnet_params_from_reference(params, device="cpu")
+    tb = {k: _t(v) for k, v in batch.items()}
+    (_l, _), tg = value_and_grad(
+        lambda p, b: (T_ST._schnet_node_loss(p, b, tcfg, n), {}), tp, tb)
+    _tree_close(tg, rg)
+    step = T_ST.make_gnn_train_step(tcfg, "minibatch", T_OPT.OptConfig(**opt),
+                                    n)
+    _new, state, tm = step(tp, T_OPT.adamw_init(tp), tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]),
+                               rtol=TOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]),
+                               rtol=TOL)
+    assert int(state["step"]) == 1
